@@ -4,7 +4,8 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device   — the card's name and power limit; TF32 off for the fp32 checks;
-  2. build    — nvcc builds the flash-attention kernels from cips_tpu_torch/csrc/;
+  2. build    — nvcc builds the kernel library from cips_tpu_torch/csrc/ (one
+                nvcc per source, all at once);
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes, a
                 ragged L and Dh 64; then each kernel's time beside its bound,
@@ -28,8 +29,15 @@ Phases (any failure raises and the script exits non-zero):
                 steps on one fixed batch;
   8. grads    — one fp32 train step from the same random weights on the card
                 and on the CPU at the reduced crop: G and D gradients compared;
-  9. yardstick — F.conv3d at the unpacked shape of the not yet ported Pallas
-                phase conv (cips_tpu/ops/pallas/phase_conv.py), beside its bound;
+  9. phase conv — every variant of the phase-structured packed conv kernel
+                (csrc/phase_conv.cu: the Pallas phase_conv and its three TPU
+                probes) against its plain version at the probes' shapes, in
+                fp32 and at a ragged shape; the kernel against the flagship
+                generator's own level-0 conv on that conv's input; each
+                variant's time beside its bound, its plain version's and the
+                cuDNN yardsticks at three shapes; then the slice's main paths:
+                each subcommand of `cips_tpu_torch.scripts.probe_phase_conv`,
+                its launches counted;
  10. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
@@ -63,7 +71,20 @@ TRAIN_BATCH = 2
 TRAIN_EPOCHS = 3  # 4 steps each over 8 subjects: step 10's loss record falls inside
 N_EVAL = 2  # subjects of the per-epoch eval
 STEPS_TIMED = 14  # train steps clocked after 2 warm-up steps, on one fixed batch
-PHASE_CONV = (8, 48, 64, 48, 128)  # the Pallas phase conv's test shape, (B, Z, Y, X, 8C) packed
+# Phase conv shapes, packed (B, Z, Y, X, 8C): the TPU probes' level-0 shape (C = 16), their
+# 32-channel case, and the flagship's own level 0 at batch 2.
+PHASE_SHAPES = ((8, 48, 64, 48, 128), (8, 48, 64, 48, 256), (2, 48, 64, 48, 128))
+PHASE_CHECKS = ((PHASE_SHAPES[0], torch.bfloat16), (PHASE_SHAPES[1], torch.bfloat16),
+                ((2, 8, 16, 8, 128), torch.float32), ((1, 5, 7, 9, 128), torch.bfloat16),
+                ((1, 5, 7, 9, 128), torch.float32))  # the last two ragged on every axis
+PHASE_VARIANTS = ("full", "noshift", "one_tap", "dot", "shift", "copy", "select")
+PHASE_EXACT = ("shift", "copy", "select")  # no sums: the kernel must equal the plain version
+PHASE_ROWS = (  # TPU kernel, its line, the probe entry's subcommand that runs it, the variants that port it
+    ("phase_conv", "cips_tpu/ops/pallas/phase_conv.py:50", "phase", ("full",)),
+    ("probe_pallas_dot", "scripts/probe_pallas_dot.py:34", "dot", ("dot", "select")),
+    ("probe_pallas_bisect", "scripts/probe_pallas_bisect.py:30", "bisect", ("noshift", "shift", "full")),
+    ("debug_pallas_stages", "scripts/debug_pallas_stages.py:22", "stages", ("one_tap", "shift", "copy", "full")),
+)
 
 # Kernel output limits, relative to max|out| of the plain version (about 0.16
 # at L 4608, larger at shorter L, for unit-normal inputs). bf16 rounds P before
@@ -91,6 +112,14 @@ TOL_METRIC = 1e-3
 # a norm: exactly 0) must stay under that on both sides.
 TOL_GRAD_MODEL_REL = 1e-3
 TOL_STEP_METRIC_REL = 1e-3  # the step's losses, card vs CPU
+# Phase conv product variants against their plain version in fp32 from the same
+# inputs, relative to max|out|: bf16 rounds the fp32 sum to bf16 once at the end
+# (2^-9 relative) and both sum 8 taps of pc products in other orders; the worst
+# measured on an H100 is 3.4e-3. fp32 differs in summation order only (1.8e-6
+# measured), and the kernel uses no TF32. The same bf16 limit holds the
+# kernel to the flagship's cuDNN conv, which also rounds an fp32 sum to bf16.
+TOL_PHASE_BF16_REL = 1e-2
+TOL_PHASE_F32_REL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -299,26 +328,190 @@ def bwd_kernel_timing(fa, shape) -> dict:
     return rows
 
 
-def phase_conv_yardstick() -> None:
-    """F.conv3d at the unpacked equivalent of the Pallas phase conv's test shape
-    (space-to-depth (2, 2, 2): 8C = 128 packed channels are C = 16 at twice the
-    resolution), bf16, k3, pad 1, beside the packed kernel's own cost estimate
-    (cips_tpu/ops/pallas/phase_conv.py:153-157: 2 * 8 * B * Z * Y * X * (8C)^2
-    operations; input and output read and written once, (2, 2, 2, 8C, 8C) weights)."""
+def phase_inputs(shape, dtype, seed: int) -> tuple:
+    """x, the original k3 kernel w (3, 3, 3, C, C), and each product variant's weights
+    in x's dtype: full takes pack_conv_kernel_phase(w) (the real conv, 27/64 dense);
+    noshift, one_tap and dot take dense random weights, as the TPU probes did."""
+    from cips_tpu_torch.ops.s2d import pack_conv_kernel_phase
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    w = torch.randn((3, 3, 3, p // 8, p // 8), device="cuda", generator=g) * 0.1
+    weights = {"full": pack_conv_kernel_phase(w.to(dtype)), "dot": (torch.randn((8, p, p), device="cuda",
+                                                                                 generator=g) * 0.1).to(dtype)}
+    for variant in ("noshift", "one_tap"):
+        weights[variant] = (torch.randn((2, 2, 2, p, p), device="cuda", generator=g) * 0.1).to(dtype)
+    return x, w, weights
+
+
+def phase_variant(pc, variant: str, x: torch.Tensor, weights: dict) -> tuple:
+    """(kernel, plain) callables of one variant on x; the plain one takes the
+    dtype to compute in (fp32 for the checks of the product variants)."""
+    if variant == "select":
+        return (lambda: pc.lane_select(x)), (lambda dtype: pc.lane_select_reference(x.to(dtype)))
+    wp = weights.get(variant)
+    return ((lambda: pc.phase_conv_stage(x, wp, variant)),
+            (lambda dtype: pc.phase_conv_stage_reference(x.to(dtype), None if wp is None else wp.to(dtype), variant)))
+
+
+def phase_conv_checks(pc) -> dict:
+    """Every variant against its plain version on the card: the product variants
+    against the plain version in fp32 from the same inputs (relative to max|out|),
+    shift, copy and select exactly. Returns each variant's max abs error at the
+    probe shape, bf16."""
+    worst = {}
+    for i, (shape, dtype) in enumerate(PHASE_CHECKS):
+        x, _, weights = phase_inputs(shape, dtype, seed=20 + i)
+        errs = []
+        for variant in PHASE_VARIANTS:
+            kernel, plain = phase_variant(pc, variant, x, weights)
+            got = kernel()
+            torch.cuda.synchronize()
+            exact = variant in PHASE_EXACT
+            want = plain(dtype if exact else torch.float32)
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / want.abs().max().item()
+            tol = 0.0 if exact else TOL_PHASE_BF16_REL if dtype == torch.bfloat16 else TOL_PHASE_F32_REL
+            errs.append(f"{variant} {err:.3e} ({rel:.3e})")
+            check(got.dtype == dtype and got.shape == x.shape and torch.isfinite(got).all().item() and rel <= tol,
+                  f"phase conv {variant} disagrees with its plain version at {shape} {dtype}: {rel:.3e} > {tol:g}")
+            if shape == PHASE_SHAPES[0] and dtype == torch.bfloat16:
+                worst[variant] = err
+        print(f"phase conv kernels {shape} {str(dtype)[6:]}: max abs err (/ max|out|) " + ", ".join(errs))
+    return worst
+
+
+def phase_conv_flagship(cfg: dict, state: dict) -> float:
+    """The kernel against the flagship generator's own level-0 conv: full width,
+    the full volume, batch 2, bf16, seeded random weights; returns the max abs error."""
+    from cips_tpu_torch.training import unet_synthesis
+
+    generator, _, _ = unet_synthesis.build_models(cfg, FLAGSHIP_K, dtype=torch.bfloat16, device="cuda")
+    generator.load_state_dict(state)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand((SERVING_BATCH, *CROP, 1), device="cuda", generator=g)
+    ctx = torch.rand((SERVING_BATCH, 1, FLAGSHIP_K), device="cuda", generator=g)
+    got, want = level0_tie(generator, x, ctx)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    print(f"phase conv vs the flagship's level-0 conv (down_blocks[0].resnets[0].conv1, cuDNN, NCDHW) on its "
+          f"own input: packed {tuple(got.shape)} bf16, max abs err {err:.3e} = {rel:.3e} of max|out| "
+          f"(tol {TOL_PHASE_BF16_REL:g})")
+    check(got.shape == (SERVING_BATCH, *(n // 2 for n in CROP), 128) and rel <= TOL_PHASE_BF16_REL,
+          "the phase conv disagrees with the flagship's level-0 conv")
+    return err
+
+
+def phase_conv_timing(pc, shape) -> dict:
+    """Each variant's time (CUDA events, 200 launches after 20 warm-up) beside its
+    bound, its plain version's time and, where one PyTorch call computes the same
+    function, that call's; the two cuDNN yardsticks of the conv at this shape."""
     import torch.nn.functional as F
 
-    b, z, y, x, c8 = PHASE_CONV
-    c = c8 // 8
-    g = torch.Generator(device="cuda").manual_seed(2)
-    inp = torch.randn((b, c, 2 * z, 2 * y, 2 * x), device="cuda", generator=g).to(torch.bfloat16)
-    w = (torch.randn((c, c, 3, 3, 3), device="cuda", generator=g) / (27 * c) ** 0.5).to(torch.bfloat16)
-    ms = cuda_ms(lambda: F.conv3d(inp, w, padding=1), 20, warmup=3)
-    flops = 2.0 * 8 * b * z * y * x * c8 * c8
-    nbytes = 2.0 * (2 * b * z * y * x * c8 + 8 * c8 * c8)
-    bound, bound_by = bound_ms(flops, nbytes)
-    print(f"phase-conv yardstick: F.conv3d {tuple(inp.shape)} bf16 k3 -> {c} channels: {ms:.4f} ms; "
-          f"packed kernel bound {bound:.5f} ms ({bound_by}; {flops:.4g} operations, {nbytes:.4g} bytes "
-          f"= {nbytes / H100_BYTES_PER_S * 1e3:.5f} ms at the memory rate)")
+    from cips_tpu_torch.scripts.probe_phase_conv import yardsticks
+
+    x, w, weights = phase_inputs(shape, torch.bfloat16, seed=30)
+    b, z, y, xd, p = shape
+    cells, c = b * z * y * xd, p // 8
+    xc = x.permute(0, 4, 1, 2, 3)  # channels-last view for cuDNN
+    convs = yardsticks(x, w)
+    sticks = {name: cuda_ms(fn, 200, warmup=20) for name, fn in convs.items()}
+    print(f"phase conv yardsticks {shape} bf16: F.conv3d dense k3 over the packed layout "
+          f"{sticks['dense k3 packed']:.4f} ms; F.conv3d at the unpacked {(b, c, 2 * z, 2 * y, 2 * xd)} "
+          f"{sticks['unpacked']:.4f} ms")
+
+    def k2_conv(wk2):  # one conv over x padded by 1; its first (Z, Y, X) outputs are the variant's
+        wk2 = wk2.contiguous(memory_format=torch.channels_last_3d)
+        return lambda: F.conv3d(xc, wk2, padding=1)[:, :, :z, :y, :xd]
+
+    one_tap = torch.zeros((p, p, 2, 2, 2), device="cuda", dtype=x.dtype)
+    for q in range(8):  # group q of x'[cell] is x[cell - q]: offset 1 - q of the k2 window
+        one_tap[:, q * c:(q + 1) * c, 1 - (q >> 2), 1 - ((q >> 1) & 1), 1 - (q & 1)] = \
+            weights["one_tap"][0, 0, 0, q * c:(q + 1) * c].T
+    library = {"full": convs["dense k3 packed"],
+               "noshift": k2_conv(weights["noshift"].permute(4, 3, 0, 1, 2)), "one_tap": k2_conv(one_tap),
+               "dot": lambda: torch.einsum("bzyxi,kio->bzyxo", x, weights["dot"]), "copy": x.clone}
+    channels_first = ("full", "noshift", "one_tap")  # the cuDNN calls return (B, pc, Z, Y, X) views
+    io_bytes = 2.0 * cells * p * 2  # x read once, out written once
+    # The functions' own operations. dot is sum_k x . W[k] = x . (sum_k W[k]): one
+    # product per cell plus the sum of W. full and dot also get the count that the
+    # kernel issues (8 dense taps), as dense_bound_ms.
+    ops = {"full": 2.0 * 27 * c * c * 8 * cells, "noshift": 2.0 * 8 * cells * p * p,
+           "dot": 2.0 * cells * p * p + 8.0 * p * p, "one_tap": 2.0 * cells * p * p}
+    rows = {}
+    for variant in PHASE_VARIANTS:
+        kernel, plain = phase_variant(pc, variant, x, weights)
+        weight = weights.get(variant)
+        bound, bound_by = bound_ms(ops.get(variant, 0.0), io_bytes + (0 if weight is None else weight.numel() * 2))
+        ms = cuda_ms(kernel, 200, warmup=20)
+        plain_ms = cuda_ms(lambda: plain(x.dtype), 5, warmup=1)
+        library_ms = None
+        if variant in library:
+            lib_out, out = library[variant](), kernel()
+            if variant in channels_first:
+                lib_out = lib_out.permute(0, 2, 3, 4, 1)
+            rel = ((lib_out.float() - out.float()).abs().max() / out.float().abs().max()).item()
+            check(lib_out.shape == out.shape and rel <= TOL_PHASE_BF16_REL,
+                  f"the library call of {variant} computes another function: {rel:.3e}")
+            library_ms = cuda_ms(library[variant], 200, warmup=20)
+        rows[variant] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                         "library_ms": library_ms, "unpacked_conv3d_ms": sticks["unpacked"]}
+        dense = ""
+        if variant in ("full", "dot"):
+            rows[variant]["dense_bound_ms"], _ = bound_ms(2.0 * 8 * cells * p * p, io_bytes + weight.numel() * 2)
+            dense = f", dense-count bound {rows[variant]['dense_bound_ms']:.5f} ms"
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"phase conv {variant} {shape} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+              f"bound {bound:.5f} ms ({bound_by}{dense}); {bound / ms:.1%} of bound")
+    return rows
+
+
+def phase_conv_entry(pc) -> dict:
+    """The slice's main paths: each subcommand of the probe entry, through its
+    `main`, with the launch counts set to 0 just before it and read just after;
+    every variant of the row must have launched. Returns {row: {variant: launches}}."""
+    from cips_tpu_torch.scripts import probe_phase_conv
+
+    runs = {}
+    for name, _, command, variants in PHASE_ROWS:
+        pc.phase_conv_stage.launches.clear()
+        pc.lane_select.launches = 0
+        t0 = time.perf_counter()
+        probe_phase_conv.main([command])
+        torch.cuda.synchronize()
+        launched = {v: pc.lane_select.launches if v == "select" else pc.phase_conv_stage.launches[v] for v in variants}
+        print(f"entry `probe_phase_conv {command}` in {time.perf_counter() - t0:.1f} s: launches {launched}")
+        check(all(n > 0 for n in launched.values()), f"`probe_phase_conv {command}` did not launch every kernel "
+                                                     f"of {name}: {launched}")
+        runs[name] = launched
+    return runs
+
+
+def level0_tie(model: torch.nn.Module, x: torch.Tensor, ctx) -> tuple:
+    """(phase_conv(space_to_depth(h), w), space_to_depth(conv3d(h, w, padding 1))), no
+    bias, for the input h and weight w of the generator's first level-0 k3 conv
+    (`down_blocks[0].resnets[0].conv1`, 16 -> 16 in the flagship), h taken by a hook
+    in one forward of ``model``. The hook sits on the `Conv` wrapper, which calls
+    F.conv3d with `conv.weight` itself rather than the inner nn.Conv3d."""
+    import torch.nn.functional as F
+
+    from cips_tpu_torch.ops.phase_conv import phase_conv
+    from cips_tpu_torch.ops.s2d import space_to_depth
+
+    conv = model.down_blocks[0].resnets[0].conv1
+    seen = {}
+    handle = conv.register_forward_pre_hook(lambda module, args: seen.setdefault("h", args[0]))
+    try:
+        with torch.inference_mode():
+            model(x, ctx)
+            h = seen["h"]
+            w = conv.conv.weight.to(h.dtype)
+            want = space_to_depth(F.conv3d(h, w, padding=1).permute(0, 2, 3, 4, 1).contiguous())
+            got = phase_conv(space_to_depth(h.permute(0, 2, 3, 4, 1).contiguous()), w.permute(2, 3, 4, 1, 0))
+    finally:
+        handle.remove()
+    return got, want
 
 
 def random_state_dict(model: torch.nn.Module, seed: int) -> dict:
@@ -502,7 +695,9 @@ def main() -> int:
     from cips_tpu_torch.cli import output_predict, train_unet
     from cips_tpu_torch.cli.common import load_config
     from cips_tpu_torch.data import nifti
+    from cips_tpu_torch.ops import cuda_library
     from cips_tpu_torch.ops import flash_attention as fa
+    from cips_tpu_torch.ops import phase_conv as pc
     from cips_tpu_torch.ops.masking import get_mask
     from cips_tpu_torch.ops.metrics import mae, ms_ssim, psnr
     from cips_tpu_torch.training import unet_synthesis
@@ -517,7 +712,7 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    fa.build(verbose=True)
+    cuda_library.build(verbose=True)
     print(f"kernel library built in {time.perf_counter() - t0:.1f} s")
 
     phase("3 kernels")
@@ -752,8 +947,14 @@ def main() -> int:
         compare_grads("generator", got["cuda"][1], got["cpu"][1])
         compare_grads("discriminator", got["cuda"][2], got["cpu"][2])
 
-    phase("9 yardstick")
-    phase_conv_yardstick()
+    phase("9 phase conv")
+    with uncounted(fa):
+        t0 = time.perf_counter()
+        phase_err = phase_conv_checks(pc)
+        phase_err["full"] = max(phase_err["full"], phase_conv_flagship(cfg, state))
+        phase_timing = {shape: phase_conv_timing(pc, shape) for shape in PHASE_SHAPES}
+        print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
+        entry_launches = phase_conv_entry(pc)
 
     phase("10 summary")
     kernels = []
@@ -767,6 +968,20 @@ def main() -> int:
         source = "cips_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if name.endswith("fwd") else "flash_attention_bwd.cu")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, **timing})
+    probe = PHASE_SHAPES[0]
+    for name, replaces, _, variants in PHASE_ROWS:
+        head = phase_timing[probe][variants[0]]  # the row's first variant at the probe shape
+        kernels.append({
+            "name": name, "route": "cuda", "source": "cips_tpu_torch/csrc/phase_conv.cu", "replaces": replaces,
+            "launches": sum(entry_launches[name].values()), "max_abs_err": max(phase_err[v] for v in variants),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dense_bound_ms")
+               if k in head},
+            "variants": {v: {"launches": entry_launches[name][v], "max_abs_err": phase_err[v],
+                             "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
+                                                               for k, t in phase_timing[shape][v].items()}
+                                    for shape in PHASE_SHAPES}}
+                         for v in variants},
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

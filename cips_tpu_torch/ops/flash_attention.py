@@ -9,9 +9,7 @@ The kernels replace the Pallas TPU kernels of
   dK/dV    `csrc/flash_attention_bwd.cu`  <- `_bwd_dkv_kernel` (`_flash_backward_pallas`)
 
 Their sources note what bounds them on an H100 and what the design does about
-that. They are built with nvcc for sm_90a into one shared library with a plain
-C interface at first use (one nvcc per source, all at once), and loaded with
-ctypes.
+that. They are built into the port's one kernel library (`cuda_library`).
 
 Each kernel wrapper takes the plain version only for tensors on the CPU. For
 CUDA tensors it launches the kernel or raises; there is no fallback. Its
@@ -24,24 +22,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import glob
-import os
-import shutil
-import subprocess
-import time
 from typing import Optional, Tuple
 
 import torch
 
-_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PACKAGE_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "cips_tpu_torch")
-LIBRARY = os.path.join(BUILD_DIR, "libcips_flash.so")
+from cips_tpu_torch.ops import cuda_library
+
 HEAD_DIMS = (32, 64, 128)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -102,69 +89,14 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout, scale) -> Tensor
     return (dq, *flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale))
 
 
-def _dependencies() -> list:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
-
-
-def build(verbose: bool = False) -> str:
-    """Compile the kernel library if it is missing or older than any source in
-    `csrc/`; returns its path. One nvcc per `.cu` file runs at once, then one
-    link. ``verbose`` prints nvcc's register/shared-memory report and when each
-    compile ended."""
-    deps = _dependencies()
-    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= max(os.path.getmtime(p) for p in deps):
-        return LIBRARY
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the flash-attention kernels cannot be built")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    start = time.perf_counter()
-    jobs = []
-    for src in (p for p in deps if p.endswith(".cu")):
-        stem = os.path.join(BUILD_DIR, os.path.splitext(os.path.basename(src))[0])
-        log = open(f"{stem}.{tag}.log", "w+", encoding="utf-8")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{stem}.{tag}.o", src]
-        jobs.append((src, f"{stem}.{tag}.o", log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
-    reports, failed = [], []
-    for src, _, log, proc in jobs:
-        rc = proc.wait()
-        log.seek(0)
-        text = log.read().strip()
-        log.close()
-        os.remove(log.name)
-        reports.append(f"{os.path.basename(src)} (nvcc done {time.perf_counter() - start:.1f} s after start):\n{text}")
-        if rc != 0:
-            failed.append(f"nvcc failed on {src} ({rc}):\n{text}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    if verbose:
-        print("\n".join(reports))
-    tmp = f"{LIBRARY}.{tag}"
-    objects = [obj for _, obj, _, _ in jobs]
-    proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objects], capture_output=True, text=True, check=False)
-    for obj in objects:
-        os.remove(obj)
-    if proc.returncode != 0:
-        raise RuntimeError(f"linking the kernel library failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    signatures = {
+    return cuda_library.load({
         "cips_flash_attention_fwd": [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr],
         "cips_flash_attention_bwd_dq": [ptr] * 7 + [i32] * 5 + [ctypes.c_float, ptr],
         "cips_flash_attention_bwd_dkv": [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr],
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    })
 
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
@@ -215,8 +147,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, *pointers: int, scale: 
             *pointers, b * h, lq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    cuda_library.check(rc, name)
 
 
 def flash_attention_forward(

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from cips_tpu.ops.pallas.flash_attention import _flash_backward_pallas, _flash_forward, flash_attention
+from cips_tpu_torch.ops import cuda_library as cl
 from cips_tpu_torch.ops import flash_attention as fa
 
 CASES = [((1, 2, 512, 32), 128, 256), ((2, 1, 256, 64), 64, 128)]
@@ -108,15 +109,16 @@ def test_function_backward_is_the_plain_backward_on_cpu():
 
 def test_build_depends_on_every_source(tmp_path, monkeypatch):
     # The library is rebuilt when any csrc source or header is newer than it.
-    deps = fa._dependencies()
-    assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu", "mma_bf16.cuh"} <= {os.path.basename(p) for p in deps}
-    lib = tmp_path / "libcips_flash.so"
+    deps = cl._dependencies()
+    sources = {"flash_attention_fwd.cu", "flash_attention_bwd.cu", "phase_conv.cu", "mma_bf16.cuh"}
+    assert sources <= {os.path.basename(p) for p in deps}
+    lib = tmp_path / "libcips_kernels.so"
     lib.write_bytes(b"")
-    monkeypatch.setattr(fa, "LIBRARY", str(lib))
-    monkeypatch.setattr(fa, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cl, "LIBRARY", str(lib))
+    monkeypatch.setattr(cl, "BUILD_DIR", str(tmp_path))
     newest = max(os.path.getmtime(p) for p in deps)
     os.utime(lib, (newest + 1, newest + 1))
-    assert fa.build() == str(lib)  # up to date: nothing is compiled
+    assert cl.build() == str(lib)  # up to date: nothing is compiled
 
     class Compiled(Exception):
         pass
@@ -124,12 +126,12 @@ def test_build_depends_on_every_source(tmp_path, monkeypatch):
     def popen(cmd, **kwargs):
         raise Compiled(cmd[-1])
 
-    monkeypatch.setattr(fa.shutil, "which", lambda name: sys.executable)
-    monkeypatch.setattr(fa.subprocess, "Popen", popen)
+    monkeypatch.setattr(cl.shutil, "which", lambda name: sys.executable)
+    monkeypatch.setattr(cl.subprocess, "Popen", popen)
     header = next(p for p in deps if p.endswith(".cuh"))
     os.utime(lib, (os.path.getmtime(header) - 1,) * 2)  # older than the newest source
     with pytest.raises(Compiled, match=r"\.cu$"):
-        fa.build()
+        cl.build()
 
 
 @pytest.fixture

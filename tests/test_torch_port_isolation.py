@@ -44,7 +44,8 @@ def test_port_imports_nothing_of_jax(path):
 def test_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "flash_attention.py", "output_predict.py", "atten_unet.py", "train_unet.py",
-            "discriminator.py", "losses.py", "unet_synthesis.py"} <= names
+            "discriminator.py", "losses.py", "unet_synthesis.py", "s2d.py", "phase_conv.py", "cuda_library.py",
+            "probe_phase_conv.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
