@@ -7,9 +7,16 @@ Phases (any failure raises and the script exits non-zero):
   2. build    — nvcc builds the kernel library from cips_tpu_torch/csrc/ (one
                 nvcc per source, all at once);
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
-                against their plain PyTorch versions at the paths' shapes, a
-                ragged L and Dh 64; then each kernel's time beside its bound,
-                its plain version's time and SDPA's (library yardstick);
+                against their plain PyTorch versions at the paths' shapes,
+                ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
+                128, and the causal generator's long attention (1, 1, 18432,
+                32); then each kernel's device time (torch.profiler; its
+                eager time beside it) at the flagship's (2, 4, 2304, 32)
+                and the causal encoder's level-2 (2, 4, 18432, 32) shape beside
+                its three-term bound (operations, bytes, exponentials), its
+                plain version's time (flagship shape only) and the fastest of
+                SDPA's flash, efficient and cuDNN backends, each pinned
+                (library yardstick);
   4. serving  — cips_tpu_torch.cli.output_predict at the flagship's full width
                 and the full (96, 128, 96) volume in bf16 on a synthetic NIfTI
                 tree, with seeded random weights; checks outputs, metrics and
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import itertools
 import json
 import os
@@ -61,6 +69,11 @@ import torch
 FLAGSHIP_K = 5  # AV45 covariates: ABETA, Age, Sex, APOE4, PTEDUCAT
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
+# ex2 results per clock per SM on the special-function units (CUDA C Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0); times the SM
+# count and the card's maximum SM clock from nvidia-smi.
+EX2_PER_CLOCK_PER_SM = 16
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 SERVING_BATCH = 2
 N_SUBJECTS = 8
 STAGED_RUNS = 1  # serving runs after the main path's, each stage clocked
@@ -94,6 +107,10 @@ TOL_BF16_OUT_REL = 1e-2
 TOL_F32_OUT_REL = 1e-5
 TOL_LSE = 1e-4  # fp32 scores and sums in both dtypes, absolute
 TRAIN_ATTN = (2, 4, 2304, 32)  # the flagship's attention at training batch 2
+# The causal generator's encoder level 2 (configs/training_causal.json: 128
+# channels in 4 heads of 32 at 24x32x24 tokens), batch 2; checked at one head.
+CAUSAL_ATTN = (2, 4, 18432, 32)
+CAUSAL_CHECK = (1, 1, 18432, 32)
 # Backward kernel limits, relative to each output's max|grad|, against the plain
 # backward computed in fp32 from the same (rounded) inputs. bf16 rounds dS and P
 # before their products and the grads at the end (2^-9 relative each), and each
@@ -151,12 +168,44 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn``: every kernel and copy it launches, summed
+    from a torch.profiler trace of ``iters`` calls after 5 warm-up calls. The
+    host's own work per call (argument checks, tensor maps, ctypes, autograd)
+    is not in it, so a kernel of tens of microseconds is not timed by its host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    check(total > 0, "the profiler saw no device time")
+    return total / 1e3 / iters
+
+
+@functools.cache
+def ex2_per_s() -> float:
+    """The card's exponential rate: EX2_PER_CLOCK_PER_SM x SMs x max SM clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return EX2_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def bound_ms(flops: float, nbytes: float, exps: float = 0.0) -> tuple:
     """Least time of a function on the card: its operations at the bf16
-    tensor-core peak or its bytes (each input read once, each output written
-    once) at the memory rate, whichever is longer; (ms, what bounds it)."""
-    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    tensor-core peak, its bytes (each input read once, each output written
+    once) at the memory rate, or its exponentials on the special-function
+    units, whichever is longest; (ms, what bounds it)."""
+    terms = {"operations": flops / H100_BF16_FLOPS * 1e3, "bytes": nbytes / H100_BYTES_PER_S * 1e3}
+    if exps:
+        terms["exponentials"] = exps / ex2_per_s() * 1e3
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def kernel_checks(fa) -> float:
@@ -164,15 +213,21 @@ def kernel_checks(fa) -> float:
     bf16 error at the serving shape."""
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    cases = [
-        ((1, 4, 2304, 32), torch.bfloat16), ((1, 4, 2304, 32), torch.float32),
-        ((4, 4, 2304, 32), torch.bfloat16), ((4, 4, 2304, 32), torch.float32),
-        ((SERVING_BATCH, 4, 2304, 32), torch.bfloat16),
-        ((1, 2, 1000, 32), torch.bfloat16), ((1, 2, 1000, 32), torch.float32),
-        ((1, 2, 4608, 64), torch.bfloat16), ((1, 2, 4608, 64), torch.float32),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (q shape, Lk or None for Lk = Lq, dtype)
+        ((1, 4, 2304, 32), None, bf16), ((1, 4, 2304, 32), None, f32),
+        ((4, 4, 2304, 32), None, bf16), ((4, 4, 2304, 32), None, f32),
+        ((SERVING_BATCH, 4, 2304, 32), None, bf16),
+        ((1, 2, 1000, 32), None, bf16), ((1, 2, 1000, 32), None, f32),
+        ((1, 2, 4608, 64), None, bf16), ((1, 2, 4608, 64), None, f32),
+        ((1, 1, 1, 32), None, bf16), ((1, 2, 17, 32), None, bf16), ((1, 2, 127, 64), None, bf16),
+        ((1, 2, 129, 128), None, bf16), ((1, 1, 2305, 32), None, bf16), ((1, 2, 100, 32), 300, bf16),
+        ((1, 2, 300, 128), 77, bf16), (CAUSAL_CHECK, None, bf16),
     ]
-    for shape, dtype in cases:
-        q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
+    for shape, lk, dtype in cases:
+        kshape = shape if lk is None else (*shape[:2], lk, shape[3])
+        q = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        k, v = (torch.randn(kshape, device="cuda", generator=g).to(dtype) for _ in range(2))
         scale = shape[-1] ** -0.5
         out, lse = fa.flash_attention_forward(q, k, v, scale)
         torch.cuda.synchronize()
@@ -181,8 +236,8 @@ def kernel_checks(fa) -> float:
         rel = err / ref_out.abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tol = TOL_BF16_OUT_REL if dtype == torch.bfloat16 else TOL_F32_OUT_REL
-        print(f"kernel {shape} {str(dtype)[6:]}: out max abs err {err:.3e}, / max|out| = {rel:.3e} "
-              f"(tol {tol:g}), lse max abs err {lse_err:.3e} (tol {TOL_LSE:g})")
+        print(f"kernel {shape} Lk {kshape[2]} {str(dtype)[6:]}: out max abs err {err:.3e}, / max|out| = "
+              f"{rel:.3e} (tol {tol:g}), lse max abs err {lse_err:.3e} (tol {TOL_LSE:g})")
         check(torch.isfinite(out).all().item() and rel <= tol and lse_err <= TOL_LSE,
               f"flash kernel disagrees with its plain version at {shape} {dtype}")
         if shape == (SERVING_BATCH, 4, 2304, 32):
@@ -190,20 +245,71 @@ def kernel_checks(fa) -> float:
     return worst
 
 
-def kernel_timing(fa, shape) -> dict:
+def sdpa_yardstick(q, k, v, dout, scale: float, iters: int) -> tuple:
+    """SDPA's forward and backward (dq, dk and dv in one call) under each of the
+    flash, efficient and cuDNN backends, pinned, by device time; a backend that
+    refuses the shape is skipped and printed, and none accepting it raises.
+    Returns ((fwd ms, backend), (bwd ms, backend)) of the fastest."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16) for _ in range(3))
-    scale = shape[-1] ** -0.5
-    ms = cuda_ms(lambda: fa.flash_attention_forward(q, k, v, scale), 200, warmup=20)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, scale), 20)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 200, warmup=20)
+    fwd, bwd = {}, {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+                out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+                fwd[name] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
+                bwd[name] = device_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True),
+                                      iters)
+        except RuntimeError as err:
+            print(f"SDPA {name} refuses {tuple(q.shape)}: {str(err).splitlines()[0][:200]}")
+    check(bool(fwd), f"no SDPA backend accepts {tuple(q.shape)}")
+    print(f"SDPA {tuple(q.shape)} bf16 (pinned backends): " + "; ".join(
+        f"{name} fwd {fwd[name]:.4f} ms, bwd {bwd[name]:.4f} ms" for name in fwd))
+    best_f, best_b = min(fwd, key=fwd.get), min(bwd, key=bwd.get)
+    return (fwd[best_f], best_f), (bwd[best_b], best_b)
+
+
+def flash_timing(fa, shape, plain: bool) -> dict:
+    """Each flash kernel's device time (``ms``) and its time launched eagerly
+    from Python (``eager_ms``, CUDA events over the calls after 20 warm-up, the
+    host's work per call included) beside its three-term bound, its plain
+    version's time (when ``plain``) and the fastest pinned SDPA call's device
+    time; {"fwd" | "dq" | "dkv": row}."""
     b, h, l, d = shape
-    bound, bound_by = bound_ms(4.0 * b * h * l * l * d, 4 * b * h * l * d * 2 + b * h * l * 4)  # q, k, v, out; lse
-    print(f"flash {shape} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-          f"bound {bound:.5f} ms ({bound_by}); {bound / ms:.1%} of bound")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
+    iters = 200 if l <= 4096 else 50
+    q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, torch.bfloat16, seed=1)
+    (sdpa_f, name_f), (sdpa_b, name_b) = sdpa_yardstick(q, k, v, dout, scale, iters)
+    pairs = b * h * l * l
+    kernels = {
+        # 4 B H L^2 Dh operations; q, k, v, out (bf16) and lse; one exponential per score
+        "fwd": (lambda: fa.flash_attention_forward(q, k, v, scale),
+                lambda: fa.flash_attention_reference(q, k, v, scale),
+                4.0 * pairs * d, 4 * b * h * l * d * 2 + b * h * l * 4, sdpa_f, name_f),
+        # dQ 6 B H L^2 Dh operations, dK/dV 8; each reads q, k, v, dO (bf16) and lse, delta
+        # (fp32) and writes its grads (bf16); each recomputes one exponential per score
+        "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
+               lambda: fa.flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta, scale),
+               6.0 * pairs * d, 5 * b * h * l * d * 2 + 2 * b * h * l * 4, sdpa_b, name_b),
+        "dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale),
+                lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale),
+                8.0 * pairs * d, 6 * b * h * l * d * 2 + 2 * b * h * l * 4, sdpa_b, name_b),
+    }
+    rows = {}
+    for kind, (kernel, reference, flops, nbytes, library_ms, library) in kernels.items():
+        ms = device_ms(kernel, iters)
+        eager_ms = cuda_ms(kernel, iters, warmup=20)
+        plain_ms = cuda_ms(reference, 20) if plain else None
+        bound, bound_by = bound_ms(flops, nbytes, float(pairs))
+        yardstick = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
+        print(f"flash {kind} {shape} bf16: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call eagerly), "
+              f"plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, {yardstick} {library.lower()} "
+              f"{library_ms:.4f} ms on the device ({ms / library_ms:.2f}x), bound {bound:.5f} ms ({bound_by}); "
+              f"{bound / ms:.1%} of bound")
+        rows[kind] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "library": f"SDPA {library.lower()}", "bound_ms": bound, "bound_by": bound_by}
+    return rows
 
 
 def counts(fa) -> tuple:
@@ -273,6 +379,8 @@ def bwd_kernel_checks(fa) -> dict:
         (TRAIN_ATTN, torch.bfloat16), (TRAIN_ATTN, torch.float32), ((4, 4, 2304, 32), torch.bfloat16),
         ((1, 2, 1000, 32), torch.bfloat16), ((1, 2, 1000, 32), torch.float32),
         ((1, 2, 4608, 64), torch.bfloat16), ((1, 2, 4608, 64), torch.float32),
+        ((1, 1, 1, 32), torch.bfloat16), ((1, 2, 17, 32), torch.bfloat16), ((1, 2, 129, 128), torch.bfloat16),
+        ((1, 1, 2305, 32), torch.bfloat16), (CAUSAL_CHECK, torch.bfloat16),
     ]
     for i, (shape, dtype) in enumerate(cases):
         q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, seed=10 + i)
@@ -284,9 +392,12 @@ def bwd_kernel_checks(fa) -> dict:
                 *fa.flash_attention_bwd_dkv_reference(*f32, lse, delta, scale))
         tol = TOL_BF16_GRAD_REL if dtype == torch.bfloat16 else TOL_F32_GRAD_REL
         errs = []
+        # At L = 1 the softmax is constant and dQ = dK = 0 exactly: a grad whose reference is
+        # all zero is held to the largest max|grad| of the three (dV's, which is dO's there).
+        largest = max(b.abs().max().item() for b in want)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             err = (a.float() - b).abs().max().item()
-            rel = err / b.abs().max().item()
+            rel = err / (b.abs().max().item() or largest)
             errs.append(f"{name} {err:.3e} abs, {rel:.3e} of max|grad| {b.abs().max().item():.3e}")
             check(a.dtype == dtype and torch.isfinite(a).all().item() and rel <= tol,
                   f"{name} kernel disagrees with its plain version at {shape} {dtype}: {rel:.3e} > {tol:g}")
@@ -295,37 +406,6 @@ def bwd_kernel_checks(fa) -> dict:
                 worst[key] = max(worst.get(key, 0.0), err)
         print(f"bwd kernels {shape} {str(dtype)[6:]} (tol {tol:g} of max|grad|): " + "; ".join(errs))
     return worst
-
-
-def bwd_kernel_timing(fa, shape) -> dict:
-    """Each backward kernel's time beside its bound and its plain version's time;
-    SDPA's backward (dq, dk and dv in one call) as the library yardstick."""
-    import torch.nn.functional as F
-
-    q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, torch.bfloat16, seed=1)
-    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True),
-                         200, warmup=20)
-    rows = {}
-    for kind, kernel, plain in (
-        ("dq", fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_reference),
-        ("dkv", fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_reference),
-    ):
-        ms = cuda_ms(lambda: kernel(q, k, v, dout, lse, delta, scale), 200, warmup=20)
-        plain_ms = cuda_ms(lambda: plain(q, k, v, dout, lse, delta, scale), 20)
-        # dQ does 6 B H L^2 Dh operations, dK/dV 8; each reads q, k, v, dO (bf16)
-        # and lse, delta (fp32) and writes its grads (bf16)
-        b, h, l, d = shape
-        grads = 1 if kind == "dq" else 2
-        bound, bound_by = bound_ms((6.0 if kind == "dq" else 8.0) * b * h * l * l * d,
-                                   (4 + grads) * b * h * l * d * 2 + 2 * b * h * l * 4)
-        print(f"flash bwd {kind} {shape} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"SDPA backward (dq, dk, dv) {library_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}); "
-              f"{bound / ms:.1%} of bound")
-        rows[kind] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-                      "bound_by": bound_by}
-    return rows
 
 
 def phase_inputs(shape, dtype, seed: int) -> tuple:
@@ -718,10 +798,9 @@ def main() -> int:
     phase("3 kernels")
     with uncounted(fa):
         fwd_err = kernel_checks(fa)
-        kernel_timing(fa, (1, 4, 2304, 32))
-        fwd_timing = kernel_timing(fa, (SERVING_BATCH, 4, 2304, 32))
         bwd_err = bwd_kernel_checks(fa)
-        bwd_timing = bwd_kernel_timing(fa, TRAIN_ATTN)
+        flash_at = {TRAIN_ATTN: flash_timing(fa, TRAIN_ATTN, plain=True),
+                    CAUSAL_ATTN: flash_timing(fa, CAUSAL_ATTN, plain=False)}
 
     cfg = load_config(None, "training.json")
     train_cfg = cfg["training"]
@@ -958,16 +1037,19 @@ def main() -> int:
 
     phase("10 summary")
     kernels = []
-    for name, replaces, launches, err, timing in (
-        ("flash_attention_fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err, fwd_timing),
-        ("flash_attention_bwd_dq", "cips_tpu/ops/pallas/flash_attention.py:123", train_counts[1], bwd_err["dq"],
-         bwd_timing["dq"]),
-        ("flash_attention_bwd_dkv", "cips_tpu/ops/pallas/flash_attention.py:164", train_counts[2], bwd_err["dkv"],
-         bwd_timing["dkv"]),
+    for name, kind, replaces, launches, err in (
+        ("flash_attention_fwd", "fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err),
+        ("flash_attention_bwd_dq", "dq", "cips_tpu/ops/pallas/flash_attention.py:123", train_counts[1],
+         bwd_err["dq"]),
+        ("flash_attention_bwd_dkv", "dkv", "cips_tpu/ops/pallas/flash_attention.py:164", train_counts[2],
+         bwd_err["dkv"]),
     ):
-        source = "cips_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if name.endswith("fwd") else "flash_attention_bwd.cu")
+        source = "cips_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if kind == "fwd" else "flash_attention_bwd.cu")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches, "max_abs_err": err, **timing})
+                        "launches": launches, "max_abs_err": err, **flash_at[TRAIN_ATTN][kind],
+                        "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
+                                                           for k, t in rows[kind].items()}
+                               for shape, rows in flash_at.items()}})
     probe = PHASE_SHAPES[0]
     for name, replaces, _, variants in PHASE_ROWS:
         head = phase_timing[probe][variants[0]]  # the row's first variant at the probe shape

@@ -14,29 +14,39 @@
 //
 // What bounds them on an H100 SXM. At the flagship's attention shape (B=2, H=4, L=2304,
 // Dh=32, bf16) dQ does 6*B*H*L^2*Dh = 8.15 GFLOP (8.2 us at 989 TFLOP/s) and dK/dV
-// 8*B*H*L^2*Dh = 10.9 GFLOP (11.0 us); each moves about 3 MB (under 1 us at 3.35 TB/s). So
-// both are compute-bound, and the L^2 exponentials that each recomputes are a second limit.
+// 8*B*H*L^2*Dh = 10.9 GFLOP (11.0 us); each moves about 3 MB (under 1 us at 3.35 TB/s). Each
+// recomputes the B*H*L^2 = 42.5 M exponentials, 10 us on the special-function units (16 a
+// clock per SM, 132 SMs, 1.98 GHz). So both are bound by their products and their
+// exponentials about equally at Dh 32, and by the products at larger Dh.
 //
-// What the design does about that. Every product runs on the tensor cores (mma.sync
-// m16n8k16, fp32 accumulators), and S, P, dP and dS stay in registers: nothing of size L^2
-// touches memory. Blocks run in no order on a GPU, so the TPU's sequential grid axis becomes
-// a loop inside the block, and each output tile has one owner:
-//   dQ:   one block of 4 warps per (64 q rows, batch*head); each warp owns 16 q rows and
-//         loops over all key tiles. Q and dO stay in registers as A fragments; K and V
-//         stream through shared memory row-major (the B operand of Q K^T and dO V^T) and K
-//         also transposed (the B operand of dS K, whose reduction axis is the keys).
-//   dK/dV: one block of 4 warps per (64 keys, batch*head); each warp owns 16 keys and loops
-//         over all q tiles. It computes S^T = scale * K Q^T, as the TPU kernel does, so P^T
-//         and dS^T come out as accumulators that are already the A fragments of P^T dO and
-//         dS^T Q. K and V stay in registers; Q and dO stream through shared memory
-//         row-major and transposed, with lse and delta of the tile.
-// Shared-memory rows are padded by 8 elements, which makes the 32-bit fragment loads free
-// of bank conflicts. At Dh 128 the loop tile is 32 (else 64) to keep the tiles under the
-// 48 KB of static shared memory and the registers in bounds.
-// Any L: rows past L are zero-filled, and P is set to 0 explicitly for keys past lk (dQ) and
+// What the designs do about that. Blocks run in no order on a GPU, so the TPU's sequential
+// grid axis becomes a loop inside the block, and each output tile has one owner. S, P, dP
+// and dS stay in registers: nothing of size L^2 touches memory.
+//   dQ (bf16): one block of 4 warps per (64 q rows, batch*head) on mma.sync m16n8k16; each
+//         warp owns 16 q rows and loops over all key tiles. Q and dO stay in registers as A
+//         fragments; K and V stream through shared memory row-major (the B operand of Q K^T
+//         and dO V^T) and K also transposed (the B operand of dS K). Rows are padded by 8
+//         elements, which makes the 32-bit fragment loads free of bank conflicts; at Dh 128
+//         the key tile is 32 (else 64). wgmma and TMA are later work for this kernel.
+//   dK/dV (bf16): one CTA of two warpgroups per (64 keys, batch*head). It computes
+//         S^T = K Q^T and dP^T = V dO^T, as the TPU kernel does, so P^T and dS^T come out
+//         as accumulators that are already register A operands of P^T dO and dS^T Q.
+//         - Tensor cores: all four products are wgmma (m64nNk16, fp32 accumulators). K and
+//           V arrive once by TMA and are the shared-memory A of S^T and dP^T; the B of
+//           P^T dO and dS^T Q is the same swizzled Q or dO tile read with wgmma's transpose
+//           bit, so nothing is transposed by hand.
+//         - Memory latency: Q, dO, lse and delta tiles (64 q rows; 32 at Dh 128) stream
+//           through a ring of 3 stages (2 at Dh 128) per warpgroup, filled by TMA and
+//           completed on mbarriers, so the next tiles load while this one is multiplied.
+//         - Exponentials: p = 2^(s c - lse log2 e) with c = scale log2 e, one FFMA and one
+//           ex2 per score.
+//         - Warps in flight: the two warpgroups split the q loop (even and odd tiles) and
+//           sum their dK/dV partials in shared memory before the one store; no atomics. At
+//           the flagship shape: 288 CTAs of 8 warps, twice the warps of one group a CTA.
+// Any L: rows past L read as zeros, and P is set to 0 explicitly for keys past lk (dQ) and
 // q rows past lq (dK/dV), so neither padded lse/delta values nor padded rows add anything.
 // fp32 inputs take plain-FMA kernels of the same structure (one row per thread), so the fp32
-// path is not rounded through TF32. wgmma, TMA and warp specialisation are later work.
+// path is not rounded through TF32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,11 +54,13 @@
 
 #include <cmath>
 
+#include "hopper_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace sm90;
 
 constexpr int kWarps = 4;
 constexpr int kRows = kWarps * 16;  // q rows (dQ) or keys (dK/dV) owned by a block
@@ -205,73 +217,197 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(
   store_rows<DH>(dq + qoff, acc, scale, r0, lq, t);
 }
 
+// dK/dV, bf16: one CTA of two warpgroups per (64 keys, batch*head); see the note at the top.
+constexpr int kGroups = 2;  // warpgroups per CTA; group w takes q tiles w, w + 2, ...
+constexpr int kGroupThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int lq,
-    int lk, float scale) {
-  constexpr int BQ = kLoopTile<DH>;
-  constexpr int kTStride = BQ + 8;
-  __shared__ __align__(16) bf16 qs[BQ * (DH + 8)];
-  __shared__ __align__(16) bf16 dos[BQ * (DH + 8)];
-  __shared__ __align__(16) bf16 qts[DH * kTStride];
-  __shared__ __align__(16) bf16 dots[DH * kTStride];
-  __shared__ float lse_s[BQ];
-  __shared__ float delta_s[BQ];
+struct DkvLayout {
+  static constexpr int BQ = kLoopTile<DH>;  // q rows per ring tile
+  static constexpr int kStages = DH >= 128 ? 2 : 3;
+  static constexpr int kKTile = kTileBytes<kRows, DH>;  // K or V, loaded once
+  static constexpr int kQTile = kTileBytes<BQ, DH>;     // Q or dO
+  // lse or delta of a tile, as a box of BQ + 4 floats from a 16-byte aligned start (TMA
+  // boxes start on 16 bytes), 128-byte aligned in shared memory
+  static constexpr int kRowBox = BQ + 4;
+  static constexpr int kRows4 = (kRowBox * 4 + 127) / 128 * 128;
+  // A stage: Q, dO, lse, delta; rounded up so that every tile starts on 1024 bytes.
+  static constexpr int kStage = (2 * kQTile + 2 * kRows4 + 1023) / 1024 * 1024;
+  static constexpr int kRing = 2 * kKTile;
+  static constexpr int kBars = kRing + kGroups * kStages * kStage;
+  static constexpr int kBytes = kBars + (1 + kGroups * kStages) * 8;
+  static constexpr int kMerge = DH;  // floats a thread of group 1 hands to group 0 (dK, dV)
+  static_assert(kMerge * kGroupThreads * 4 <= kGroups * kStages * kStage, "merge buffer fits in the ring");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kGroups * kGroupThreads) flash_bwd_dkv_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap lse_map, const __grid_constant__ CUtensorMap delta_map,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int lq, int lk, float scale) {
+  using L = DkvLayout<DH>;
+  constexpr int BQ = L::BQ;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const bf16* ks = reinterpret_cast<const bf16*>(smem);
+  const bf16* vs = reinterpret_cast<const bf16*>(smem + L::kKTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);  // K/V, then [group][stage]
 
   const int bh = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) / 4;
-  const int t = threadIdx.x % 4;
-  const int c0 = blockIdx.x * kRows + warp * 16 + g;  // this thread's keys: c0, c0 + 8
-  const size_t qoff = (size_t)bh * lq * DH;
-  const size_t koff = (size_t)bh * lk * DH;
+  const int key0 = blockIdx.x * kRows;
+  const int group = threadIdx.x / kGroupThreads;
+  const int tid = threadIdx.x % kGroupThreads;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int c0 = key0 + (tid / 32) * 16 + g;  // this thread's keys: c0, c0 + 8
+  const int n_tiles = (lq + BQ - 1) / BQ;
+  const int mine = (n_tiles - group + 1) / 2;  // this group's q tiles: group + 2 i
+  const float scale_log2 = scale * kLog2e;
+  uint64_t* full = bars + 1 + group * kStages;
+  uint8_t* ring = smem + L::kRing + group * kStages * L::kStage;
 
-  uint32_t kf[DH / 16][4];
-  uint32_t vf[DH / 16][4];
-  load_a_frags<DH>(k + koff, c0, lk, t, kf);
-  load_a_frags<DH>(v + koff, c0, lk, t, vf);
+  auto issue = [&](int i) {  // this group's q tile i into stage i % kStages
+    uint8_t* stage = ring + (i % kStages) * L::kStage;
+    uint64_t* bar = &full[i % kStages];
+    const int q0 = (group + 2 * i) * BQ;
+    mbar_expect_tx(bar, 2 * L::kQTile + 2 * L::kRowBox * 4);
+    tma_load_tile<BQ, DH>(reinterpret_cast<bf16*>(stage), &q_map, bar, q0, bh);
+    tma_load_tile<BQ, DH>(reinterpret_cast<bf16*>(stage + L::kQTile), &do_map, bar, q0, bh);
+    // lse and delta as flat (bh * lq) rows, from the 4-float boundary at or below the
+    // tile's first row: a ragged tile reads the next head's values (or zeros past the
+    // end), which P = 0 below keeps out of the sums.
+    const int row0 = (bh * lq + q0) & ~3;
+    tma_load_1d(stage + 2 * L::kQTile, &lse_map, bar, row0);
+    tma_load_1d(stage + 2 * L::kQTile + L::kRows4, &delta_map, bar, row0);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kGroups * kStages; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (group == 0) {
+      mbar_expect_tx(&bars[0], 2 * L::kKTile);
+      tma_load_tile<kRows, DH>(reinterpret_cast<bf16*>(smem), &k_map, &bars[0], key0, bh);
+      tma_load_tile<kRows, DH>(reinterpret_cast<bf16*>(smem + L::kKTile), &v_map, &bars[0], key0, bh);
+    }
+    for (int i = 0; i < kStages && i < mine; ++i) issue(i);
+  }
+
   float dk_acc[DH / 8][4];
   float dv_acc[DH / 8][4];
+  float st[BQ / 8][4];
+  float dpt[BQ / 8][4];
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d) {
     dk_acc[d][0] = dk_acc[d][1] = dk_acc[d][2] = dk_acc[d][3] = 0.f;
     dv_acc[d][0] = dv_acc[d][1] = dv_acc[d][2] = dv_acc[d][3] = 0.f;
   }
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n) {
+    st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+    dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
+  }
+  mbar_wait(&bars[0], 0);
 
-  for (int q0 = 0; q0 < lq; q0 += BQ) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<BQ, DH>(q + qoff, q0, lq, qs, qts);
-    load_tile<BQ, DH>(dout + qoff, q0, lq, dos, dots);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const bool ok = q0 + i < lq;
-      lse_s[i] = ok ? lse[(size_t)bh * lq + q0 + i] : 0.f;
-      delta_s[i] = ok ? delta[(size_t)bh * lq + q0 + i] : 0.f;
+  for (int i = 0; i < mine; ++i) {
+    const int q0 = (group + 2 * i) * BQ;
+    const uint8_t* stage = ring + (i % kStages) * L::kStage;
+    const bf16* qs = reinterpret_cast<const bf16*>(stage);
+    const bf16* dos = reinterpret_cast<const bf16*>(stage + L::kQTile);
+    const int skip = (bh * lq + q0) & 3;  // rows of the box before the tile's first
+    const float* lse_s = reinterpret_cast<const float*>(stage + 2 * L::kQTile) + skip;
+    const float* delta_s = reinterpret_cast<const float*>(stage + 2 * L::kQTile + L::kRows4) + skip;
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T for the CTA's 64 keys and the tile's BQ q rows.
+    fence_operand(st);
+    fence_operand(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      wgmma_ss<BQ>(st, desc_k_major<kRows, DH>(ks, c), desc_k_major<BQ, DH>(qs, c), c > 0);
     }
-    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      wgmma_ss<BQ>(dpt, desc_k_major<kRows, DH>(vs, c), desc_k_major<BQ, DH>(dos, c), c > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(st);
+    fence_operand(dpt);
 
-    float st[BQ / 8][4];
-    float dpt[BQ / 8][4];
-    mma_abt<DH, BQ / 8>(kf, qs, g, t, st);    // K Q^T
-    mma_abt<DH, BQ / 8>(vf, dos, g, t, dpt);  // V dO^T
+    // P^T = 2^(s c - lse log2 e), 0 for q rows past lq; dS^T = P^T (dP^T - delta). Both are
+    // rounded to bf16 into A fragments of the next two products.
+    const bool ragged = q0 + BQ > lq;
     uint32_t pf[BQ / 16][4];
     uint32_t dsf[BQ / 16][4];
 #pragma unroll
     for (int n = 0; n < BQ / 8; ++n) {
       float p[4], ds[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + t * 2 + (e & 1);
-        p[e] = q0 + col < lq ? __expf(st[n][e] * scale - lse_s[col]) : 0.f;
-        ds[e] = p[e] * (dpt[n][e] - delta_s[col]);
+      for (int j = 0; j < 2; ++j) {
+        const int col = n * 8 + t * 2 + j;
+        const float nl = -lse_s[col] * kLog2e;
+        const float dl = delta_s[col];
+        const bool live = !ragged || q0 + col < lq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + j;
+          p[e] = live ? ex2(fmaf(st[n][e], scale_log2, nl)) : 0.f;
+          ds[e] = p[e] * (dpt[n][e] - dl);
+        }
       }
       to_a_frag(pf, n, p);
       to_a_frag(dsf, n, ds);
     }
-    mma_ab<DH, BQ / 16>(pf, dots, kTStride, g, t, dv_acc);  // dV += P^T dO
-    mma_ab<DH, BQ / 16>(dsf, qts, kTStride, g, t, dk_acc);  // dK += dS^T Q
+
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (transposed) from their tiles.
+    fence_operand(dv_acc);
+    fence_operand(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c) wgmma_rs<DH>(dv_acc, pf[c], desc_mn_major<BQ, DH>(dos, c), 1);
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c) wgmma_rs<DH>(dk_acc, dsf[c], desc_mn_major<BQ, DH>(qs, c), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(dv_acc);
+    fence_operand(dk_acc);
+
+    named_barrier_sync(1 + group, kGroupThreads);  // the group is done with this stage
+    if (tid == 0 && i + kStages < mine) issue(i + kStages);
   }
+
+  // Group 1 hands its partial dK and dV to the thread of group 0 that holds the same keys
+  // and columns; group 0 adds them and stores.
+  __syncthreads();
+  float* merge = reinterpret_cast<float*>(smem + L::kRing) + tid;
+  if (group == 1) {
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        merge[(d * 4 + e) * kGroupThreads] = dk_acc[d][e];
+        merge[(DH / 2 + d * 4 + e) * kGroupThreads] = dv_acc[d][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[d][e] += merge[(d * 4 + e) * kGroupThreads];
+      dv_acc[d][e] += merge[(DH / 2 + d * 4 + e) * kGroupThreads];
+    }
+  }
+  const size_t koff = (size_t)bh * lk * DH;
   store_rows<DH>(dk + koff, dk_acc, scale, c0, lk, t);
   store_rows<DH>(dv + koff, dv_acc, 1.f, c0, lk, t);
 }
@@ -411,7 +547,7 @@ struct Args {
 };
 
 template <int DH>
-void launch_dq(int is_bf16, const Args& a) {
+int launch_dq(int is_bf16, const Args& a) {
   if (is_bf16) {
     const dim3 grid((a.lq + kRows - 1) / kRows, a.bh);
     flash_bwd_dq_bf16_kernel<DH><<<grid, kThreads, 0, a.stream>>>(
@@ -425,16 +561,29 @@ void launch_dq(int is_bf16, const Args& a) {
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
         static_cast<float*>(a.out0), a.lq, a.lk, a.scale);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
-void launch_dkv(int is_bf16, const Args& a) {
+int launch_dkv(int is_bf16, const Args& a) {
   if (is_bf16) {
+    using L = DkvLayout<DH>;
+    CUtensorMap q_map, k_map, v_map, do_map, lse_map, delta_map;
+    const size_t rows = (size_t)a.bh * a.lq;
+    if (!(a.scale > 0.f) || !tile_map(&q_map, a.q, a.bh, a.lq, DH, L::BQ) ||
+        !tile_map(&do_map, a.dout, a.bh, a.lq, DH, L::BQ) || !tile_map(&k_map, a.k, a.bh, a.lk, DH, kRows) ||
+        !tile_map(&v_map, a.v, a.bh, a.lk, DH, kRows) || !row_map(&lse_map, a.lse, rows, L::kRowBox) ||
+        !row_map(&delta_map, a.delta, rows, L::kRowBox)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    constexpr int kSmem = L::kBytes + 1024;  // + the slack align_1024 takes
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.lk + kRows - 1) / kRows, a.bh);
-    flash_bwd_dkv_bf16_kernel<DH><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.lq, a.lk, a.scale);
+    flash_bwd_dkv_bf16_kernel<DH><<<grid, kGroups * kGroupThreads, kSmem, a.stream>>>(
+        q_map, k_map, v_map, do_map, lse_map, delta_map, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1),
+        a.lq, a.lk, a.scale);
   } else {
     const dim3 grid((a.lk + kF32Rows - 1) / kF32Rows, a.bh);
     flash_bwd_dkv_f32_kernel<DH><<<grid, kF32Rows, 0, a.stream>>>(
@@ -442,34 +591,31 @@ void launch_dkv(int is_bf16, const Args& a) {
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
         static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.lq, a.lk, a.scale);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <void (*L32)(int, const Args&), void (*L64)(int, const Args&),
-          void (*L128)(int, const Args&)>
+template <int (*L32)(int, const Args&), int (*L64)(int, const Args&), int (*L128)(int, const Args&)>
 int dispatch(int dh, int is_bf16, const Args& a) {
   if (a.bh <= 0 || a.bh > 65535 || a.lq <= 0 || a.lk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (dh) {
     case 32:
-      L32(is_bf16, a);
-      break;
+      return L32(is_bf16, a);
     case 64:
-      L64(is_bf16, a);
-      break;
+      return L64(is_bf16, a);
     case 128:
-      L128(is_bf16, a);
-      break;
+      return L128(is_bf16, a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Both entry points launch on `stream` and return cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for sizes or a head dimension the kernels do not take. q and dout:
+// Both entry points launch on `stream` and return their CUDA error (0 on success), or
+// cudaErrorInvalidValue for sizes or a head dimension the kernels do not take (bf16 dK/dV
+// also needs scale > 0). q and dout:
 // (bh, lq, dh); k and v: (bh, lk, dh); all contiguous, 16-byte aligned and of one dtype
 // (is_bf16 = 1: bfloat16, 0: float32); lse and delta: (bh, lq) float32. The outputs have
 // the shape and dtype of their inputs.

@@ -142,6 +142,8 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, *pointers: int, scale: 
     """Calls the C entry point ``name`` with the data pointers, then the sizes,
     dtype flag, scale and q's current stream; raises on a CUDA error."""
     b, h, lq, d = q.shape
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"the bf16 kernels take scale > 0 (the row max is taken before the scale), got {scale}")
     with torch.cuda.device(q.device):
         rc = getattr(_library(), name)(
             *pointers, b * h, lq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(scale),

@@ -102,9 +102,17 @@ def cuda_device():
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol):
     # Tolerances as in chip_smoke.py, relative to max|out|: bf16 rounds P and
     # the output (2^-9 relative each); fp32 differs in summation order only.
+    # Every tile edge: one row, a part of one tile, one tile less or more a row, the
+    # flagship's L plus one, Lq != Lk both ways, and the causal generator's 18,432 tokens.
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    for shape in ((1, 4, 2304, 32), (1, 2, 1000, 32), (1, 1, 333, 64), (1, 1, 130, 128)):
-        q, k, v = (torch.randn(shape, device=cuda_device, generator=g).to(dtype) for _ in range(3))
+    cases = [((1, 4, 2304, 32), None), ((1, 2, 1000, 32), None), ((1, 1, 333, 64), None), ((1, 1, 130, 128), None),
+             ((1, 2, 1, 32), None), ((1, 2, 17, 64), None), ((1, 2, 127, 128), None), ((1, 2, 129, 32), None),
+             ((1, 1, 2305, 32), None), ((1, 2, 100, 32), 300), ((1, 2, 300, 64), 77), ((1, 1, 129, 128), 17),
+             ((1, 1, 18432, 32), None)]
+    for shape, lk in cases:
+        kshape = shape if lk is None else (*shape[:2], lk, shape[3])
+        q = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+        k, v = (torch.randn(kshape, device=cuda_device, generator=g).to(dtype) for _ in range(2))
         before = fa.flash_attention_forward.launches
         out, lse = fa.flash_attention_forward(q, k, v)
         torch.cuda.synchronize()
@@ -123,6 +131,8 @@ def test_kernel_rejects_bad_inputs_on_card(cuda_device):
         fa.flash_attention_forward(q[..., :16], q[..., :16], q[..., :16])
     with pytest.raises(ValueError):
         fa.flash_attention_forward(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+    with pytest.raises(ValueError):  # the bf16 kernel takes the row max before a positive scale
+        fa.flash_attention_forward(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.0)
     # Inputs that need a gradient are served: FlashAttention records the backward.
     qg = q.clone().requires_grad_()
     before = fa.flash_attention_forward.launches
