@@ -5,7 +5,10 @@
 Phases (any failure raises and the script exits non-zero):
   1. device   — the card's name and power limit; TF32 off for the fp32 checks;
   2. build    — nvcc builds the kernel library from cips_tpu_torch/csrc/ (one
-                nvcc per source, all at once);
+                nvcc per source, all at once) and reports each kernel's
+                registers, spills and static shared memory (-Xptxas -v),
+                with the dynamic shared memory of the TMA + wgmma phase conv
+                kernels;
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
@@ -36,15 +39,18 @@ Phases (any failure raises and the script exits non-zero):
                 steps on one fixed batch;
   8. grads    — one fp32 train step from the same random weights on the card
                 and on the CPU at the reduced crop: G and D gradients compared;
-  9. phase conv — every variant of the phase-structured packed conv kernel
-                (csrc/phase_conv.cu: the Pallas phase_conv and its three TPU
-                probes) against its plain version at the probes' shapes, in
-                fp32 and at a ragged shape; the kernel against the flagship
-                generator's own level-0 conv on that conv's input; each
-                variant's time beside its bound, its plain version's and the
-                cuDNN yardsticks at three shapes; then the slice's main paths:
-                each subcommand of `cips_tpu_torch.scripts.probe_phase_conv`,
-                its launches counted;
+  9. phase conv — every variant of the phase-structured packed conv kernels
+                (csrc/phase_conv.cu, csrc/phase_conv_sm90.cu: the Pallas
+                phase_conv and its three TPU probes) against its plain version
+                at the probes' shapes, in fp32, at ragged shapes, at pc 256,
+                batch 2 and a volume under one tile; bf16 dot also against its
+                rounding model; the kernel against the flagship generator's
+                own level-0 conv on that conv's input; each variant's device
+                time (torch.profiler; its eager time beside it) beside its
+                bound, its plain version's time and its one-call library
+                counterpart's device time, with the cuDNN yardsticks, at three
+                shapes; then the slice's main paths: each subcommand of
+                `cips_tpu_torch.scripts.probe_phase_conv`, its launches counted;
  10. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
@@ -55,9 +61,11 @@ from __future__ import annotations
 import contextlib
 import csv
 import functools
+import io
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -89,9 +97,13 @@ STEPS_TIMED = 14  # train steps clocked after 2 warm-up steps, on one fixed batc
 PHASE_SHAPES = ((8, 48, 64, 48, 128), (8, 48, 64, 48, 256), (2, 48, 64, 48, 128))
 PHASE_CHECKS = ((PHASE_SHAPES[0], torch.bfloat16), (PHASE_SHAPES[1], torch.bfloat16),
                 ((2, 8, 16, 8, 128), torch.float32), ((1, 5, 7, 9, 128), torch.bfloat16),
-                ((1, 5, 7, 9, 128), torch.float32))  # the last two ragged on every axis
+                ((1, 5, 7, 9, 128), torch.float32),  # ragged on every axis
+                # the TMA + wgmma kernels' edges: ragged at pc 256, batch 2 ragged, fewer cells than a tile
+                ((1, 5, 7, 9, 256), torch.bfloat16), ((2, 3, 9, 17, 128), torch.bfloat16),
+                ((1, 1, 2, 3, 128), torch.bfloat16))
 PHASE_VARIANTS = ("full", "noshift", "one_tap", "dot", "shift", "copy", "select")
 PHASE_EXACT = ("shift", "copy", "select")  # no sums: the kernel must equal the plain version
+PHASE_SM90 = (("dot", 128), ("dot", 256), ("noshift", 128))  # TMA + wgmma kernels and their widths
 PHASE_ROWS = (  # TPU kernel, its line, the probe entry's subcommand that runs it, the variants that port it
     ("phase_conv", "cips_tpu/ops/pallas/phase_conv.py:50", "phase", ("full",)),
     ("probe_pallas_dot", "scripts/probe_pallas_dot.py:34", "dot", ("dot", "select")),
@@ -129,6 +141,7 @@ TOL_METRIC = 1e-3
 # a norm: exactly 0) must stay under that on both sides.
 TOL_GRAD_MODEL_REL = 1e-3
 TOL_STEP_METRIC_REL = 1e-3  # the step's losses, card vs CPU
+EVENT_TIMED: list = []  # calls that device_ms timed by CUDA events, the profiler having seen none of their work
 # Phase conv product variants against their plain version in fp32 from the same
 # inputs, relative to max|out|: bf16 rounds the fp32 sum to bf16 once at the end
 # (2^-9 relative) and both sum 8 taps of pc products in other orders; the worst
@@ -168,23 +181,34 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, traces: int = 3) -> float:
     """Device time of one call of ``fn``: every kernel and copy it launches, summed
     from a torch.profiler trace of ``iters`` calls after 5 warm-up calls. The
     host's own work per call (argument checks, tensor maps, ctypes, autograd)
-    is not in it, so a kernel of tens of microseconds is not timed by its host."""
+    is not in it, so a kernel of tens of microseconds is not timed by its host.
+
+    Now and then a trace comes back without its device records (CUPTI drops
+    them), although ``fn`` launched work: such a trace is taken again, up to
+    ``traces`` times, and if every one is empty the call is timed by CUDA events
+    instead, printed as such and counted in EVENT_TIMED."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    check(total > 0, "the profiler saw no device time")
-    return total / 1e3 / iters
+    for trace in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+        if total > 0:
+            return total / 1e3 / iters
+        print(f"device_ms: trace {trace} of {traces} of {fn!r} holds no device time")
+    EVENT_TIMED.append(repr(fn))
+    ms = cuda_ms(fn, iters)
+    print(f"device_ms: {fn!r} timed by CUDA events instead: {ms:.4f} ms")
+    return ms
 
 
 @functools.cache
@@ -408,6 +432,37 @@ def bwd_kernel_checks(fa) -> dict:
     return worst
 
 
+def sm90_kernel_report(report: str, pc) -> None:
+    """One line for each kernel of csrc/phase_conv_sm90.cu from nvcc's -Xptxas -v
+    report (registers, spills, static shared memory), then the dynamic shared
+    memory that its launcher asks for."""
+    found = 0
+    for name, body in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)(?=Compiling entry|\Z)",
+                                 report, flags=re.S):
+        kernel = re.search(r"phase_conv_sm90_cu\w*?(dot_kernel|noshift_kernel)(?:ILi(\d+))?", name)
+        if kernel is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", body)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        static = re.search(r"(\d+) bytes smem", body)
+        label = kernel.group(1) + (f"<{kernel.group(2)}>" if kernel.group(2) else "")
+        print(f"ptxas {label}: {regs.group(1) if regs else '?'} registers, spill stores / loads "
+              f"{' / '.join(spills.groups()) if spills else '?'} bytes, static shared memory "
+              f"{static.group(1) if static else 0} bytes")
+        found += 1
+    if "nvcc done" in report:  # else the library was up to date and nothing was compiled
+        check(found > 0, "the build report names no kernel of phase_conv_sm90.cu")
+    for variant, width in PHASE_SM90:
+        print(f"dynamic shared memory: bf16 {variant} at pc {width}: {pc.kernel_smem(variant, width)} bytes "
+              f"(a block may have 232,448)")
+
+
+def phase_source(variant: str) -> str:
+    """The CUDA source of a phase conv variant's bf16 kernel."""
+    sm90 = {v for v, _ in PHASE_SM90}
+    return "cips_tpu_torch/csrc/" + ("phase_conv_sm90.cu" if variant in sm90 else "phase_conv.cu")
+
+
 def phase_inputs(shape, dtype, seed: int) -> tuple:
     """x, the original k3 kernel w (3, 3, 3, C, C), and each product variant's weights
     in x's dtype: full takes pack_conv_kernel_phase(w) (the real conv, 27/64 dense);
@@ -456,6 +511,10 @@ def phase_conv_checks(pc) -> dict:
             errs.append(f"{variant} {err:.3e} ({rel:.3e})")
             check(got.dtype == dtype and got.shape == x.shape and torch.isfinite(got).all().item() and rel <= tol,
                   f"phase conv {variant} disagrees with its plain version at {shape} {dtype}: {rel:.3e} > {tol:g}")
+            if variant == "dot" and dtype == torch.bfloat16:  # the kernel's own rounding of sum_k W[k]
+                model = pc.dot_rounded_reference(x, weights["dot"]).float()
+                errs.append(f"dot vs its rounding model {(got.float() - model).abs().max().item():.3e}, the model "
+                            f"{((model - want.float()).abs().max() / want.abs().max()).item():.3e} of max|out|")
             if shape == PHASE_SHAPES[0] and dtype == torch.bfloat16:
                 worst[variant] = err
         print(f"phase conv kernels {shape} {str(dtype)[6:]}: max abs err (/ max|out|) " + ", ".join(errs))
@@ -484,9 +543,11 @@ def phase_conv_flagship(cfg: dict, state: dict) -> float:
 
 
 def phase_conv_timing(pc, shape) -> dict:
-    """Each variant's time (CUDA events, 200 launches after 20 warm-up) beside its
+    """Each variant's device time (``ms``, torch.profiler over 200 calls) and eager
+    time (``eager_ms``, CUDA events over 200 launches after 20 warm-up) beside its
     bound, its plain version's time and, where one PyTorch call computes the same
-    function, that call's; the two cuDNN yardsticks of the conv at this shape."""
+    function, that call's device and eager times; the two cuDNN yardsticks of the
+    conv at this shape."""
     import torch.nn.functional as F
 
     from cips_tpu_torch.scripts.probe_phase_conv import yardsticks
@@ -496,10 +557,10 @@ def phase_conv_timing(pc, shape) -> dict:
     cells, c = b * z * y * xd, p // 8
     xc = x.permute(0, 4, 1, 2, 3)  # channels-last view for cuDNN
     convs = yardsticks(x, w)
-    sticks = {name: cuda_ms(fn, 200, warmup=20) for name, fn in convs.items()}
-    print(f"phase conv yardsticks {shape} bf16: F.conv3d dense k3 over the packed layout "
-          f"{sticks['dense k3 packed']:.4f} ms; F.conv3d at the unpacked {(b, c, 2 * z, 2 * y, 2 * xd)} "
-          f"{sticks['unpacked']:.4f} ms")
+    sticks = {name: (device_ms(fn, 200), cuda_ms(fn, 200, warmup=20)) for name, fn in convs.items()}
+    print(f"phase conv yardsticks {shape} bf16, device (eager) ms: F.conv3d dense k3 over the packed layout "
+          f"{sticks['dense k3 packed'][0]:.4f} ({sticks['dense k3 packed'][1]:.4f}); F.conv3d at the unpacked "
+          f"{(b, c, 2 * z, 2 * y, 2 * xd)} {sticks['unpacked'][0]:.4f} ({sticks['unpacked'][1]:.4f})")
 
     def k2_conv(wk2):  # one conv over x padded by 1; its first (Z, Y, X) outputs are the variant's
         wk2 = wk2.contiguous(memory_format=torch.channels_last_3d)
@@ -515,8 +576,8 @@ def phase_conv_timing(pc, shape) -> dict:
     channels_first = ("full", "noshift", "one_tap")  # the cuDNN calls return (B, pc, Z, Y, X) views
     io_bytes = 2.0 * cells * p * 2  # x read once, out written once
     # The functions' own operations. dot is sum_k x . W[k] = x . (sum_k W[k]): one
-    # product per cell plus the sum of W. full and dot also get the count that the
-    # kernel issues (8 dense taps), as dense_bound_ms.
+    # product per cell plus the sum of W, which is what the bf16 kernel runs. full
+    # also gets the count that its kernel issues (8 dense taps), as dense_bound_ms.
     ops = {"full": 2.0 * 27 * c * c * 8 * cells, "noshift": 2.0 * 8 * cells * p * p,
            "dot": 2.0 * cells * p * p + 8.0 * p * p, "one_tap": 2.0 * cells * p * p}
     rows = {}
@@ -524,9 +585,10 @@ def phase_conv_timing(pc, shape) -> dict:
         kernel, plain = phase_variant(pc, variant, x, weights)
         weight = weights.get(variant)
         bound, bound_by = bound_ms(ops.get(variant, 0.0), io_bytes + (0 if weight is None else weight.numel() * 2))
-        ms = cuda_ms(kernel, 200, warmup=20)
+        ms = device_ms(kernel, 200)
+        eager_ms = cuda_ms(kernel, 200, warmup=20)
         plain_ms = cuda_ms(lambda: plain(x.dtype), 5, warmup=1)
-        library_ms = None
+        library_ms = library_eager_ms = None
         if variant in library:
             lib_out, out = library[variant](), kernel()
             if variant in channels_first:
@@ -534,16 +596,20 @@ def phase_conv_timing(pc, shape) -> dict:
             rel = ((lib_out.float() - out.float()).abs().max() / out.float().abs().max()).item()
             check(lib_out.shape == out.shape and rel <= TOL_PHASE_BF16_REL,
                   f"the library call of {variant} computes another function: {rel:.3e}")
-            library_ms = cuda_ms(library[variant], 200, warmup=20)
-        rows[variant] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                         "library_ms": library_ms, "unpacked_conv3d_ms": sticks["unpacked"]}
+            library_ms = device_ms(library[variant], 200)
+            library_eager_ms = cuda_ms(library[variant], 200, warmup=20)
+        rows[variant] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": bound_by, "library_ms": library_ms, "library_eager_ms": library_eager_ms,
+                         "unpacked_conv3d_ms": sticks["unpacked"][0]}
         dense = ""
-        if variant in ("full", "dot"):
+        if variant == "full":
             rows[variant]["dense_bound_ms"], _ = bound_ms(2.0 * 8 * cells * p * p, io_bytes + weight.numel() * 2)
             dense = f", dense-count bound {rows[variant]['dense_bound_ms']:.5f} ms"
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"phase conv {variant} {shape} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
-              f"bound {bound:.5f} ms ({bound_by}{dense}); {bound / ms:.1%} of bound")
+        lib = "none" if library_ms is None else \
+            f"{library_ms:.4f} ms on the device ({library_eager_ms:.4f} eagerly; kernel {ms / library_ms:.2f}x)"
+        print(f"phase conv {variant} {shape} bf16: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call "
+              f"eagerly), plain {plain_ms:.4f} ms, library {lib}, bound {bound:.5f} ms ({bound_by}{dense}); "
+              f"{bound / ms:.1%} of bound")
     return rows
 
 
@@ -792,8 +858,12 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    cuda_library.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        cuda_library.build(verbose=True)
+    print(report.getvalue(), end="")
     print(f"kernel library built in {time.perf_counter() - t0:.1f} s")
+    sm90_kernel_report(report.getvalue(), pc)
 
     phase("3 kernels")
     with uncounted(fa):
@@ -1054,17 +1124,19 @@ def main() -> int:
     for name, replaces, _, variants in PHASE_ROWS:
         head = phase_timing[probe][variants[0]]  # the row's first variant at the probe shape
         kernels.append({
-            "name": name, "route": "cuda", "source": "cips_tpu_torch/csrc/phase_conv.cu", "replaces": replaces,
+            "name": name, "route": "cuda", "source": phase_source(variants[0]), "replaces": replaces,
             "launches": sum(entry_launches[name].values()), "max_abs_err": max(phase_err[v] for v in variants),
-            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dense_bound_ms")
-               if k in head},
-            "variants": {v: {"launches": entry_launches[name][v], "max_abs_err": phase_err[v],
+            **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "library_eager_ms", "dense_bound_ms") if k in head},
+            "variants": {v: {"source": phase_source(v), "launches": entry_launches[name][v],
+                             "max_abs_err": phase_err[v],
                              "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
                                                                for k, t in phase_timing[shape][v].items()}
                                     for shape in PHASE_SHAPES}}
                          for v in variants},
         })
-    print(json.dumps({"kernels": kernels}))
+    print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")
+    print(json.dumps({"kernels": kernels, "event_timed": len(EVENT_TIMED)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

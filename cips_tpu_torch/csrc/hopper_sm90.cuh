@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward and dK/dV kernels: TMA tile
-// loads that complete on mbarriers, warpgroup matrix products (wgmma) on swizzled shared-memory
-// tiles, and the host-side tensor maps that describe those tiles. Inline PTX only (no CuTe),
-// so a file that includes this header builds in seconds.
+// Hopper (sm_90a) building blocks of the flash-attention forward and dK/dV kernels and of the
+// phase conv's dot and noshift kernels: TMA tile loads that complete on mbarriers and TMA tile
+// stores, warpgroup matrix products (wgmma) on swizzled shared-memory tiles, and the host-side
+// tensor maps that describe those tiles. Inline PTX only (no CuTe), so a file that includes
+// this header builds in seconds.
 //
 // Tiles. A (ROWS, DH) bf16 tile lies in shared memory as TMA writes it with the swizzle of
 // its row width: rows of S = min(2 DH, 128) bytes (SWIZZLE_64B at DH 32, SWIZZLE_128B at
@@ -64,6 +65,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One plain arrival (a consumer handing a ring stage back to the producer).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Spins until the barrier has completed the phase of parity `parity`.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -96,6 +102,53 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// The box at (c0, .., c4) of a rank-5 tensor map (tile_map_5d). Coordinates may be negative:
+// what lies outside the tensor arrives as zeros, so a shifted window needs no padded copy.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// The shared-memory box `src` to (c0, c1, c2) of a rank-3 tensor map; elements outside the
+// tensor are not written. Completes in the issuing thread's bulk group (bulk_commit, bulk_wait*).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// The shared-memory box `src` to (c0, .., c4) of a rank-5 tensor map; cells outside the
+// tensor are not written.
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, const void* src, int c0, int c1, int c2, int c3,
+                                             int c4) {
+  asm volatile("cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Waits until at most N of this thread's bulk groups still read their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until every bulk group of this thread has completed (its writes are done).
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// Makes this thread's plain shared-memory writes visible to the async proxy (wgmma operands,
+// TMA stores); the threads then synchronise before the async reader starts.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Rows [row0, row0 + ROWS) of head `bh` of a (bh, len, DH) tensor described by `map`
@@ -152,6 +205,11 @@ __device__ __forceinline__ void wgmma_fence() {
 }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Waits until at most N of the warp's committed product groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of an accumulator across wgmma_wait_all or
 // wgmma_fence: the registers are live in the asynchronous product in between.
@@ -223,21 +281,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&
   }
 }
 
-// d (+)= A B^T for an m64nNk16 step, both operands from shared memory, read K-major.
-template <int N>
+// d (+)= A B for an m64nNk16 step, both operands from shared memory. A is read K-major; B is
+// read K-major (TRANS_B = 0: d += A B^T for a B tile whose rows are N) or MN-major (TRANS_B = 1,
+// wgmma's transpose bit: d += A B for a B tile whose rows are the reduction axis).
+template <int N, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
+  static_assert(TRANS_B == 0 || TRANS_B == 1, "wgmma_ss: TRANS_B is 0 or 1");
   if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
           "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
           "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
   }
   if constexpr (N == 64) {
     asm volatile(
@@ -246,14 +307,37 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t desc_a, 
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
           "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
           "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
           "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
           "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+          "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+          "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+          "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),
+          "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]),
+          "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
   }
 }
 
@@ -296,6 +380,28 @@ inline bool tile_map(CUtensorMap* map, const void* base, int bh, int len, int dh
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Map of a contiguous channels-last bf16 volume (b, z, y, x, c), c a multiple of 64, whose
+// boxes are (64 channels, box_x, box_y, box_z, 1): one 128-byte row a cell, x fastest, then y,
+// then z, swizzled as the tiles above. So a box of R cells is the K-major (R, 64) tile of those
+// cells, and with box_x a multiple of 8 a shift of whole y or z rows inside it is a multiple of
+// 8 rows, a valid descriptor start. Cells outside the volume, at negative coordinates too, read
+// as zeros. False on failure.
+inline bool tile_map_5d(CUtensorMap* map, const void* base, int b, int z, int y, int x, int c, int box_x,
+                        int box_y, int box_z) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(x), static_cast<cuuint64_t>(y),
+                              static_cast<cuuint64_t>(z), static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(c) * 2;
+  const cuuint64_t strides[4] = {row, row * x, row * x * y, row * x * y * z};
+  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(box_x), static_cast<cuuint32_t>(box_y),
+                             static_cast<cuuint32_t>(box_z), 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Map of n contiguous floats read in boxes of `box` elements; elements past n read as zeros.

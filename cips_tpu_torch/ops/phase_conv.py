@@ -1,9 +1,10 @@
-"""Phase-structured packed 3-D k3 convolution: a hand-written CUDA kernel, its
+"""Phase-structured packed 3-D k3 convolution: hand-written CUDA kernels, their
 variants, and their plain versions.
 
-The kernel (`csrc/phase_conv.cu`) replaces the Pallas TPU kernel
+The kernels (`csrc/phase_conv.cu`; the bf16 `dot` and `noshift` in
+`csrc/phase_conv_sm90.cu`, TMA + wgmma) replace the Pallas TPU kernel
 `cips_tpu/ops/pallas/phase_conv.py:_kernel` (launched by `phase_conv_apply`) and
-the three TPU probes of it, as variants of one kernel:
+the three TPU probes of it, as variants of one C entry point:
 
   full      `phase_conv_apply`; `scripts/probe_pallas_bisect.py` full;
             `scripts/debug_pallas_stages.py` stage >= 4
@@ -21,7 +22,8 @@ multiple of 128; bf16 or fp32; any Z, Y, X. The function:
 
 zero outside the volume, fp32 accumulation, out in x's dtype, with
 Wp = `s2d.pack_conv_kernel_phase(w)` (2, 2, 2, 8C, 8C). It equals the packed conv
-`s2d.packed_conv`.
+`s2d.packed_conv`. The bf16 `dot` kernel computes x . (sum_k W[k]) with the sum
+rounded once to bf16 (`dot_rounded_reference`), for 8C = 128 or 256.
 
 Each wrapper takes the plain version only for tensors on the CPU. For CUDA tensors
 it launches the kernel or raises; there is no fallback. The JAX function has no
@@ -47,6 +49,7 @@ VARIANTS = {"full": 0, "noshift": 1, "one_tap": 2, "dot": 3, "shift": 4, "copy":
 _SELECT = 6
 WITH_WEIGHTS = ("full", "noshift", "one_tap", "dot")  # the variants with products
 LANES = 128
+DOT_BF16_CHANNELS = (128, 256)  # the bf16 dot kernel keeps sum_k W[k] in shared memory
 
 
 def _check_x(x: torch.Tensor) -> None:
@@ -110,6 +113,15 @@ def phase_conv_stage_reference(x: torch.Tensor, wp: Optional[torch.Tensor], vari
     return acc.to(x.dtype)
 
 
+def dot_rounded_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The bf16 `dot` kernel's own arithmetic: S = sum_k W[k] in fp32, rounded once
+    to x's dtype, then x . S in fp32, the output in x's dtype. It differs from
+    `phase_conv_stage_reference(x, w, "dot")` by the rounding of S."""
+    _check_contract(x, w, "dot")
+    s = w.float().sum(0).to(x.dtype).float()
+    return torch.matmul(x.float(), s).to(x.dtype)
+
+
 def lane_select_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain version of `lane_select`: x on even channels, ((x * 2) * 0.5) * 3 on
     odd ones, rounded to x's dtype after each product."""
@@ -120,7 +132,8 @@ def lane_select_reference(x: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return cuda_library.load({"cips_phase_conv": [ptr] * 3 + [i32] * 7 + [ptr]})
+    return cuda_library.load({"cips_phase_conv": [ptr] * 3 + [i32] * 7 + [ptr],
+                              "cips_phase_conv_smem": [i32, i32, ptr]})
 
 
 def _launch(x: torch.Tensor, wp: Optional[torch.Tensor], code: int) -> torch.Tensor:
@@ -144,6 +157,15 @@ def _launch(x: torch.Tensor, wp: Optional[torch.Tensor], code: int) -> torch.Ten
     return out
 
 
+def kernel_smem(variant: str, pc: int) -> int:
+    """Dynamic shared memory, in bytes, that the bf16 `dot` or `noshift` kernel
+    launches with at ``pc`` packed channels (ptxas reports only static shared memory)."""
+    value = ctypes.c_int(0)
+    cuda_library.check(_library().cips_phase_conv_smem(VARIANTS[variant], pc, ctypes.addressof(value)),
+                       "cips_phase_conv_smem")
+    return value.value
+
+
 def _on_cpu(x: torch.Tensor, wp: Optional[torch.Tensor]) -> bool:
     return x.device.type == "cpu" and (wp is None or wp.device.type == "cpu")
 
@@ -158,6 +180,8 @@ def phase_conv_stage(x: torch.Tensor, wp: Optional[torch.Tensor], variant: str) 
     _check_contract(x, wp, variant)
     if _on_cpu(x, wp):
         return phase_conv_stage_reference(x, wp, variant)
+    if variant == "dot" and x.dtype == torch.bfloat16 and x.shape[-1] not in DOT_BF16_CHANNELS:
+        raise ValueError(f"the bf16 dot kernel takes {DOT_BF16_CHANNELS} packed channels, got {x.shape[-1]}")
     out = _launch(x, wp, VARIANTS[variant])
     phase_conv_stage.launches[variant] += 1
     return out

@@ -2,14 +2,23 @@
 
 The port's s2d helpers and kernel packers are held bit-exact to the JAX ones; the
 plain `phase_conv` to the Pallas kernel itself, run in TPU interpret mode, and to
-the JAX packed convs; each probe variant's plain version to the identity that
-defines it. The CUDA kernel runs only on a card; its test skips elsewhere.
+the JAX packed convs; the plain `dot` and `noshift` to the TPU probes' own Pallas
+kernels (`scripts/probe_pallas_dot.py`, `scripts/probe_pallas_bisect.py`) in TPU
+interpret mode; each probe variant's plain version to the identity that defines
+it; the bf16 `dot` kernel's rounding model to the plain version. The CUDA kernels
+run only on a card; their test skips elsewhere.
 """
 
+import importlib.util
+import pathlib
+import sys
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 import chip_smoke
@@ -19,6 +28,8 @@ from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.ops import phase_conv as pc
 from cips_tpu_torch.ops import s2d
 from cips_tpu_torch.scripts import probe_phase_conv
+
+SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 
 
 def _normal(shape, seed, scale=1.0):
@@ -88,6 +99,99 @@ def test_plain_matches_jax_packed_convs():
                  s2d.packed_conv(torch.from_numpy(x), torch.from_numpy(w)).numpy()):
         assert _rel(got, want) <= 1e-5
     assert torch.equal(pc.packed_conv_phase(torch.from_numpy(x), torch.from_numpy(w)), torch.from_numpy(got))
+
+
+def _probe_module(name, monkeypatch):
+    """A TPU probe script imported by path. Its import-time settings (sys.path, the
+    compilation cache directory) are put back once it is loaded."""
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "")
+    cache_dir = jax.config.jax_compilation_cache_dir
+    spec = importlib.util.spec_from_file_location(f"_tpu_{name}", SCRIPTS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    return module
+
+
+@pytest.mark.parametrize("mode", ["dot4d", "dot2d"])
+def test_plain_dot_matches_the_tpu_probe(mode, monkeypatch):
+    # scripts/probe_pallas_dot.py:run's pallas_call (its grid, specs and scratch) with
+    # the probe's own k_dot4d / k_dot2d at a small shape, in TPU interpret mode. Both
+    # sides round an fp32 sum to bf16: within one bf16 ulp (2^-7) of max|out|.
+    probe = _probe_module("probe_pallas_dot", monkeypatch)
+    b, z, y, xd, p = 1, 4, 4, 8, 128
+    tz, ty = 2, 2
+    x = _normal((b, z, y, xd, p), 12)
+    w = _normal((8, p, p), 13, 0.1)
+    kern = {"dot4d": probe.k_dot4d, "dot2d": probe.k_dot2d}[mode]
+    scratch = [pltpu.VMEM((tz * ty * xd, p) if mode == "dot2d" else (tz, ty, xd, p), jnp.float32)]
+    with pltpu.force_tpu_interpret_mode():
+        want = pl.pallas_call(
+            kern,
+            out_shape=jax.ShapeDtypeStruct((b, z, y, xd, p), jnp.bfloat16),
+            grid=(b, z // tz, y // ty),
+            in_specs=[
+                pl.BlockSpec((1, tz, ty, xd, p), lambda bi, i, j: (bi, i, j, 0, 0), memory_space=pltpu.VMEM),
+                pl.BlockSpec((8, p, p), lambda bi, i, j: (0, 0, 0), memory_space=pltpu.VMEM),
+            ],
+            out_specs=pl.BlockSpec((1, tz, ty, xd, p), lambda bi, i, j: (bi, i, j, 0, 0),
+                                   memory_space=pltpu.VMEM),
+            scratch_shapes=scratch,
+        )(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
+    want = np.asarray(want, np.float32)
+    xt, wt = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w).to(torch.bfloat16)
+    got = pc.phase_conv_stage(xt, wt, "dot")
+    assert got.dtype == torch.bfloat16 and got.shape == (b, z, y, xd, p)
+    assert _rel(got.float().numpy(), want) <= 8e-3
+    # the bf16 kernel's rounding model (sum_k W[k] rounded once) stays inside the same limit
+    assert _rel(pc.dot_rounded_reference(xt, wt).float().numpy(), want) <= 8e-3
+
+
+def test_plain_noshift_matches_the_tpu_probe(monkeypatch):
+    # scripts/probe_pallas_bisect.py:main.f in MODE nosel: the padded, x-shifted inputs,
+    # the probe's own _kernel (its DMAs, halo buffers and 8 window dots), its specs and
+    # scratch, at a small shape in TPU interpret mode. fp32: the sums differ in order only.
+    probe = _probe_module("probe_pallas_bisect", monkeypatch)
+    monkeypatch.setattr(probe, "MODE", "nosel")
+    b, z, y, xd, p = 1, 4, 4, 8, 128
+    tz = 2
+    x = _normal((b, z, y, xd, p), 14)
+    wp = _normal((2, 2, 2, p, p), 15, 0.1)
+    xpad = jnp.pad(jnp.asarray(x), ((0, 0), (1, 1), (1, 1), (1, 1), (0, 0)))
+    shifted = [xpad[:, :, :, kx:kx + xd, :] for kx in range(3)]
+    with pltpu.force_tpu_interpret_mode():
+        want = pl.pallas_call(
+            probe._kernel,
+            out_shape=jax.ShapeDtypeStruct((b, z, y, xd, p), jnp.float32),
+            grid=(b, z // tz),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)] * 3 + [
+                pl.BlockSpec((2, 2, 2, p, p), lambda bi, i: (0, 0, 0, 0, 0), memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec((1, tz, y, xd, p), lambda bi, i: (bi, i, 0, 0, 0), memory_space=pltpu.VMEM),
+            scratch_shapes=[pltpu.VMEM((1, tz + 2, y + 2, xd, p), jnp.float32)] * 3
+            + [pltpu.VMEM((tz + 1, y + 1, xd, p), jnp.float32)] * 2
+            + [pltpu.VMEM((tz, y, xd, p), jnp.float32), pltpu.SemaphoreType.DMA((3,))],
+        )(*shifted, jnp.asarray(wp))
+    want = np.asarray(want)
+    got = pc.phase_conv_stage(torch.from_numpy(x), torch.from_numpy(wp), "noshift")
+    assert got.dtype == torch.float32 and got.shape == (b, z, y, xd, p)
+    assert _rel(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("p", [128, 256])
+def test_dot_rounding_model(p):
+    # the bf16 dot kernel computes x . bf16(sum_k W[k]) (fp32 sums, out in bf16); it stays
+    # within half of the card's 1e-2 limit of the fp32 sum over the 8 products
+    x = torch.from_numpy(_normal((1, 4, 4, 8, p), 16)).to(torch.bfloat16)
+    w = torch.from_numpy(_normal((8, p, p), 17, 0.1)).to(torch.bfloat16)
+    want = pc.phase_conv_stage_reference(x.float(), w.float(), "dot")
+    got = pc.dot_rounded_reference(x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _rel(got.float().numpy(), want.numpy()) <= 0.5e-2
+    # the model rounds S itself: it is not the plain version's arithmetic
+    assert not torch.equal(got, pc.phase_conv_stage_reference(x, w, "dot"))
 
 
 def test_variant_identities():
@@ -162,6 +266,16 @@ def test_wrapper_errors():
     assert (dict(pc.phase_conv_stage.launches), pc.lane_select.launches) == before  # the CPU launches nothing
 
 
+def test_bf16_dot_width_raises_off_the_cpu():
+    # the bf16 dot kernel keeps sum_k W[k] in shared memory: 8C of 128 or 256 only; the
+    # wrapper says so before any launch, while the CPU's plain version takes any width
+    x = torch.zeros((1, 1, 1, 2, 384), dtype=torch.bfloat16)
+    w = torch.zeros((8, 384, 384), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 dot kernel"):
+        pc.phase_conv_stage(x.to("meta"), w.to("meta"), "dot")
+    assert pc.phase_conv_stage(x, w, "dot").shape == x.shape
+
+
 @pytest.mark.parametrize("argv", [["phase"], ["dot"], ["bisect", "nosel"], ["stages"]])
 def test_probe_entry_on_cpu(argv, monkeypatch):
     for name, shape in (("PROBE", (1, 2, 3, 2, 128)), ("WIDE", (1, 2, 2, 2, 256)),
@@ -185,20 +299,24 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 5, 7, 9, 128), (1, 5, 7, 9, 256), (2, 3, 9, 17, 128), (1, 1, 2, 3, 128)],
+                         ids=["ragged", "pc256", "b2-ragged", "under-one-tile"])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)], ids=["bf16", "f32"])
-def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol):
-    # a ragged shape: no axis a multiple of any tile; each variant against its plain
-    # version computed in fp32 from the same inputs, relative to max|out|
+def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol, shape):
+    # ragged shapes (no axis a multiple of any tile), pc 256, batch 2 and a volume of fewer
+    # cells than one tile; each variant against its plain version computed in fp32 from
+    # the same inputs, relative to max|out|
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn((1, 5, 7, 9, 128), device=cuda_device, generator=g).to(dtype)
-    weights = {"dot": torch.randn((8, 128, 128), device=cuda_device, generator=g).to(dtype) * 0.1}
+    p = shape[-1]
+    x = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+    weights = {"dot": torch.randn((8, p, p), device=cuda_device, generator=g).to(dtype) * 0.1}
     for variant in ("full", "noshift", "one_tap"):
-        weights[variant] = torch.randn((2, 2, 2, 128, 128), device=cuda_device, generator=g).to(dtype) * 0.1
+        weights[variant] = torch.randn((2, 2, 2, p, p), device=cuda_device, generator=g).to(dtype) * 0.1
     for variant in pc.VARIANTS:
         wp = weights.get(variant)
         got = pc.phase_conv_stage(x, wp, variant)
         torch.cuda.synchronize()
         want = pc.phase_conv_stage_reference(x.float(), None if wp is None else wp.float(), variant)
-        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert got.dtype == dtype and got.shape == shape and torch.isfinite(got).all()
         assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item(), variant
     assert torch.equal(pc.lane_select(x), pc.lane_select_reference(x))
