@@ -6,14 +6,14 @@ Phases (any failure raises and the script exits non-zero):
   1. device   — the card's name and power limit; TF32 off for the fp32 checks;
   2. build    — nvcc builds the kernel library from cips_tpu_torch/csrc/ (one
                 nvcc per source, all at once) and reports each kernel's
-                registers, spills and static shared memory (-Xptxas -v),
-                with the dynamic shared memory of the TMA + wgmma phase conv
-                kernels;
+                registers, spills (none allowed) and static shared memory
+                (-Xptxas -v) of the bf16 dQ and the TMA + wgmma phase conv
+                kernels, with the dynamic shared memory of each;
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
-                128, and the causal generator's long attention (1, 1, 18432,
-                32); then each kernel's device time (torch.profiler; its
+                128, the causal generator's long attention (1, 1, 18432, 32)
+                and scale -0.3 and 0; then each kernel's device time (torch.profiler; its
                 eager time beside it) at the flagship's (2, 4, 2304, 32)
                 and the causal encoder's level-2 (2, 4, 18432, 32) shape beside
                 its three-term bound (operations, bytes, exponentials), its
@@ -103,7 +103,19 @@ PHASE_CHECKS = ((PHASE_SHAPES[0], torch.bfloat16), (PHASE_SHAPES[1], torch.bfloa
                 ((1, 1, 2, 3, 128), torch.bfloat16))
 PHASE_VARIANTS = ("full", "noshift", "one_tap", "dot", "shift", "copy", "select")
 PHASE_EXACT = ("shift", "copy", "select")  # no sums: the kernel must equal the plain version
-PHASE_SM90 = (("dot", 128), ("dot", 256), ("noshift", 128))  # TMA + wgmma kernels and their widths
+PHASE_SM90 = (("dot", 128), ("dot", 256), ("noshift", 128), ("full", 128), ("full", 256))  # TMA + wgmma kernels
+DESIGNS = {  # each kernel's design, for the kernels line
+    "fwd": "TMA ring + wgmma (sm_90a): two warpgroups on even and odd key tiles, exp2, merged in shared memory",
+    "dq": "TMA ring + wgmma (sm_90a): two warpgroups on even and odd key tiles, exp2, dS as register A, K read "
+          "transposed by wgmma, merged in shared memory",
+    "dkv": "TMA ring + wgmma (sm_90a): two warpgroups on even and odd q tiles, exp2, merged in shared memory",
+    "full": "TMA halo boxes at three x shifts + wgmma, y/z shifts as descriptor offsets per phase group; "
+            "persistent, TMA-store epilogue",
+    "noshift": "TMA halo boxes + wgmma, shifts as descriptor offsets; persistent, TMA-store epilogue",
+    "dot": "TMA stream + wgmma on the summed weights (one GEMM); persistent, TMA-store epilogue",
+    "one_tap": "mma.sync implicit GEMM, zero-filling cp.async at shifted addresses",
+    "shift": "gather, 16 bytes a thread", "copy": "copy, 16 bytes a thread", "select": "elementwise, 16 bytes a thread",
+}
 PHASE_ROWS = (  # TPU kernel, its line, the probe entry's subcommand that runs it, the variants that port it
     ("phase_conv", "cips_tpu/ops/pallas/phase_conv.py:50", "phase", ("full",)),
     ("probe_pallas_dot", "scripts/probe_pallas_dot.py:34", "dot", ("dot", "select")),
@@ -247,12 +259,14 @@ def kernel_checks(fa) -> float:
         ((1, 1, 1, 32), None, bf16), ((1, 2, 17, 32), None, bf16), ((1, 2, 127, 64), None, bf16),
         ((1, 2, 129, 128), None, bf16), ((1, 1, 2305, 32), None, bf16), ((1, 2, 100, 32), 300, bf16),
         ((1, 2, 300, 128), 77, bf16), (CAUSAL_CHECK, None, bf16),
+        # any scale, as JAX's kernel takes: the wrapper maps these onto a positive one
+        ((1, 2, 200, 32), 300, bf16, -0.3), ((1, 2, 200, 64), 150, bf16, 0.0),
     ]
-    for shape, lk, dtype in cases:
+    for shape, lk, dtype, *scales in cases:
         kshape = shape if lk is None else (*shape[:2], lk, shape[3])
         q = torch.randn(shape, device="cuda", generator=g).to(dtype)
         k, v = (torch.randn(kshape, device="cuda", generator=g).to(dtype) for _ in range(2))
-        scale = shape[-1] ** -0.5
+        scale = scales[0] if scales else shape[-1] ** -0.5
         out, lse = fa.flash_attention_forward(q, k, v, scale)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), scale)
@@ -260,7 +274,7 @@ def kernel_checks(fa) -> float:
         rel = err / ref_out.abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tol = TOL_BF16_OUT_REL if dtype == torch.bfloat16 else TOL_F32_OUT_REL
-        print(f"kernel {shape} Lk {kshape[2]} {str(dtype)[6:]}: out max abs err {err:.3e}, / max|out| = "
+        print(f"kernel {shape} Lk {kshape[2]} {str(dtype)[6:]} scale {scale:.4g}: out max abs err {err:.3e}, / max|out| = "
               f"{rel:.3e} (tol {tol:g}), lse max abs err {lse_err:.3e} (tol {TOL_LSE:g})")
         check(torch.isfinite(out).all().item() and rel <= tol and lse_err <= TOL_LSE,
               f"flash kernel disagrees with its plain version at {shape} {dtype}")
@@ -384,11 +398,14 @@ def step_launches(fa, record: list):
         unet_synthesis.make_train_step = make_train_step
 
 
-def bwd_inputs(fa, shape, dtype, seed: int) -> tuple:
-    """q, k, v, out, lse from the forward kernel; dO; delta; the scale."""
+def bwd_inputs(fa, shape, dtype, seed: int, lk=None, scale=None) -> tuple:
+    """q, k, v, out, lse from the forward kernel; dO; delta; the scale (1/sqrt(Dh) unless
+    given). k and v have ``lk`` rows (Lq unless given)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, dout = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(4))
-    scale = shape[-1] ** -0.5
+    kshape = shape if lk is None else (*shape[:2], lk, shape[3])
+    q, dout = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(kshape, device="cuda", generator=g).to(dtype) for _ in range(2))
+    scale = shape[-1] ** -0.5 if scale is None else scale
     out, lse = fa.flash_attention_forward(q, k, v, scale)
     delta = (dout.float() * out.float()).sum(-1)
     return q, k, v, out, lse, dout, delta, scale
@@ -405,9 +422,15 @@ def bwd_kernel_checks(fa) -> dict:
         ((1, 2, 4608, 64), torch.bfloat16), ((1, 2, 4608, 64), torch.float32),
         ((1, 1, 1, 32), torch.bfloat16), ((1, 2, 17, 32), torch.bfloat16), ((1, 2, 129, 128), torch.bfloat16),
         ((1, 1, 2305, 32), torch.bfloat16), (CAUSAL_CHECK, torch.bfloat16),
+        # the dQ kernel's key-side edges (fewer keys than a tile, Lq != Lk both ways, ragged, at
+        # Dh 128 too, one q row), then a negative and a zero scale, mapped by the wrapper
+        ((1, 2, 100, 32), torch.bfloat16, 40), ((1, 2, 130, 64), torch.bfloat16, 77),
+        ((1, 2, 77, 64), torch.bfloat16, 130), ((1, 1, 129, 128), torch.bfloat16, 191),
+        ((1, 2, 1, 128), torch.bfloat16, 130), ((1, 2, 200, 32), torch.bfloat16, 300, -0.3),
+        ((1, 2, 200, 64), torch.bfloat16, 150, 0.0), ((1, 2, 200, 64), torch.float32, 150, -0.3),
     ]
-    for i, (shape, dtype) in enumerate(cases):
-        q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, seed=10 + i)
+    for i, (shape, dtype, *extra) in enumerate(cases):
+        q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, 10 + i, *extra)
         got = (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
                *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale))
         torch.cuda.synchronize()
@@ -416,42 +439,52 @@ def bwd_kernel_checks(fa) -> dict:
                 *fa.flash_attention_bwd_dkv_reference(*f32, lse, delta, scale))
         tol = TOL_BF16_GRAD_REL if dtype == torch.bfloat16 else TOL_F32_GRAD_REL
         errs = []
-        # At L = 1 the softmax is constant and dQ = dK = 0 exactly: a grad whose reference is
-        # all zero is held to the largest max|grad| of the three (dV's, which is dO's there).
+        # At Lk = 1 or scale 0 the softmax is constant and dQ = dK = 0 exactly; both sides hold
+        # only fp32 rounding noise of dP - delta there (about 1e-8), so they are held to the
+        # largest max|grad| of the three (dV's).
         largest = max(b.abs().max().item() for b in want)
+        constant = k.shape[2] == 1 or scale == 0
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             err = (a.float() - b).abs().max().item()
-            rel = err / (b.abs().max().item() or largest)
+            rel = err / (largest if constant and name != "dv" else b.abs().max().item())
             errs.append(f"{name} {err:.3e} abs, {rel:.3e} of max|grad| {b.abs().max().item():.3e}")
             check(a.dtype == dtype and torch.isfinite(a).all().item() and rel <= tol,
                   f"{name} kernel disagrees with its plain version at {shape} {dtype}: {rel:.3e} > {tol:g}")
             if shape == TRAIN_ATTN and dtype == torch.bfloat16:
                 key = "dq" if name == "dq" else "dkv"
                 worst[key] = max(worst.get(key, 0.0), err)
-        print(f"bwd kernels {shape} {str(dtype)[6:]} (tol {tol:g} of max|grad|): " + "; ".join(errs))
+        print(f"bwd kernels {shape} Lk {k.shape[2]} scale {scale:.4g} {str(dtype)[6:]} (tol {tol:g} of max|grad|): "
+              + "; ".join(errs))
     return worst
 
 
-def sm90_kernel_report(report: str, pc) -> None:
-    """One line for each kernel of csrc/phase_conv_sm90.cu from nvcc's -Xptxas -v
-    report (registers, spills, static shared memory), then the dynamic shared
-    memory that its launcher asks for."""
+def sm90_kernel_report(report: str, fa, pc) -> None:
+    """One line for each TMA + wgmma kernel that has no other report here (the bf16 dQ
+    kernel at each Dh, every kernel of csrc/phase_conv_sm90.cu) from nvcc's -Xptxas -v
+    report (registers, spills, static shared memory), then the dynamic shared memory
+    that its launcher asks for."""
     found = 0
     for name, body in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)(?=Compiling entry|\Z)",
                                  report, flags=re.S):
-        kernel = re.search(r"phase_conv_sm90_cu\w*?(dot_kernel|noshift_kernel)(?:ILi(\d+))?", name)
+        kernel = re.search(r"(flash_bwd_dq_bf16_kernel|phase_conv_sm90_cu\w*?(?:dot_kernel|noshift_kernel|full_kernel))"
+                           r"(?:ILi(\d+))?", name)
         if kernel is None:
             continue
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         static = re.search(r"(\d+) bytes smem", body)
-        label = kernel.group(1) + (f"<{kernel.group(2)}>" if kernel.group(2) else "")
+        label = re.sub(r"^phase_conv_sm90_cu\w*?(?=dot|noshift|full)", "", kernel.group(1)) + (
+            f"<{kernel.group(2)}>" if kernel.group(2) else "")
         print(f"ptxas {label}: {regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{' / '.join(spills.groups()) if spills else '?'} bytes, static shared memory "
               f"{static.group(1) if static else 0} bytes")
+        check(spills is None or spills.groups() == ("0", "0"), f"ptxas reports spills in {label}")
         found += 1
     if "nvcc done" in report:  # else the library was up to date and nothing was compiled
-        check(found > 0, "the build report names no kernel of phase_conv_sm90.cu")
+        check(found == 7, f"the build report names {found} of the 7 kernels above (dQ at 3 Dh, dot at 2 pc, "
+                          f"noshift, full)")
+    for dh in fa.HEAD_DIMS:
+        print(f"dynamic shared memory: bf16 dQ at Dh {dh}: {fa.dq_kernel_smem(dh)} bytes (a block may have 232,448)")
     for variant, width in PHASE_SM90:
         print(f"dynamic shared memory: bf16 {variant} at pc {width}: {pc.kernel_smem(variant, width)} bytes "
               f"(a block may have 232,448)")
@@ -863,7 +896,7 @@ def main() -> int:
         cuda_library.build(verbose=True)
     print(report.getvalue(), end="")
     print(f"kernel library built in {time.perf_counter() - t0:.1f} s")
-    sm90_kernel_report(report.getvalue(), pc)
+    sm90_kernel_report(report.getvalue(), fa, pc)
 
     phase("3 kernels")
     with uncounted(fa):
@@ -1115,8 +1148,8 @@ def main() -> int:
          bwd_err["dkv"]),
     ):
         source = "cips_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if kind == "fwd" else "flash_attention_bwd.cu")
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches, "max_abs_err": err, **flash_at[TRAIN_ATTN][kind],
+        kernels.append({"name": name, "route": "cuda", "source": source, "design": DESIGNS[kind],
+                        "replaces": replaces, "launches": launches, "max_abs_err": err, **flash_at[TRAIN_ATTN][kind],
                         "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
                                                            for k, t in rows[kind].items()}
                                for shape, rows in flash_at.items()}})
@@ -1124,11 +1157,12 @@ def main() -> int:
     for name, replaces, _, variants in PHASE_ROWS:
         head = phase_timing[probe][variants[0]]  # the row's first variant at the probe shape
         kernels.append({
-            "name": name, "route": "cuda", "source": phase_source(variants[0]), "replaces": replaces,
+            "name": name, "route": "cuda", "source": phase_source(variants[0]), "design": DESIGNS[variants[0]],
+            "replaces": replaces,
             "launches": sum(entry_launches[name].values()), "max_abs_err": max(phase_err[v] for v in variants),
             **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "library_eager_ms", "dense_bound_ms") if k in head},
-            "variants": {v: {"source": phase_source(v), "launches": entry_launches[name][v],
+            "variants": {v: {"source": phase_source(v), "design": DESIGNS[v], "launches": entry_launches[name][v],
                              "max_abs_err": phase_err[v],
                              "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
                                                                for k, t in phase_timing[shape][v].items()}

@@ -21,32 +21,39 @@
 //
 // What the designs do about that. Blocks run in no order on a GPU, so the TPU's sequential
 // grid axis becomes a loop inside the block, and each output tile has one owner. S, P, dP
-// and dS stay in registers: nothing of size L^2 touches memory.
-//   dQ (bf16): one block of 4 warps per (64 q rows, batch*head) on mma.sync m16n8k16; each
-//         warp owns 16 q rows and loops over all key tiles. Q and dO stay in registers as A
-//         fragments; K and V stream through shared memory row-major (the B operand of Q K^T
-//         and dO V^T) and K also transposed (the B operand of dS K). Rows are padded by 8
-//         elements, which makes the 32-bit fragment loads free of bank conflicts; at Dh 128
-//         the key tile is 32 (else 64). wgmma and TMA are later work for this kernel.
-//   dK/dV (bf16): one CTA of two warpgroups per (64 keys, batch*head). It computes
-//         S^T = K Q^T and dP^T = V dO^T, as the TPU kernel does, so P^T and dS^T come out
-//         as accumulators that are already register A operands of P^T dO and dS^T Q.
-//         - Tensor cores: all four products are wgmma (m64nNk16, fp32 accumulators). K and
-//           V arrive once by TMA and are the shared-memory A of S^T and dP^T; the B of
-//           P^T dO and dS^T Q is the same swizzled Q or dO tile read with wgmma's transpose
-//           bit, so nothing is transposed by hand.
-//         - Memory latency: Q, dO, lse and delta tiles (64 q rows; 32 at Dh 128) stream
-//           through a ring of 3 stages (2 at Dh 128) per warpgroup, filled by TMA and
-//           completed on mbarriers, so the next tiles load while this one is multiplied.
-//         - Exponentials: p = 2^(s c - lse log2 e) with c = scale log2 e, one FFMA and one
-//           ex2 per score.
-//         - Warps in flight: the two warpgroups split the q loop (even and odd tiles) and
-//           sum their dK/dV partials in shared memory before the one store; no atomics. At
-//           the flagship shape: 288 CTAs of 8 warps, twice the warps of one group a CTA.
+// and dS stay in registers: nothing of size L^2 touches memory. Both bf16 kernels are one CTA
+// of two warpgroups per 64 output rows, on the building blocks of hopper_sm90.cuh.
+//   - Tensor cores: every product is wgmma (m64nNk16, fp32 accumulators). The tile a product
+//     reads once as its K-major B is read again with wgmma's transpose bit where the next
+//     product needs it MN-major, so nothing is transposed by hand.
+//   - Memory latency: one operand pair arrives once by TMA; the other streams through a ring
+//     of 3 stages (2 at Dh 128) per warpgroup, filled by TMA (hardware zero fill past the
+//     end) and completed on mbarriers, so the next tiles load while this one is multiplied.
+//   - Exponentials: p = 2^(s c - lse log2 e) with c = scale log2 e, one FFMA and one ex2 per
+//     score.
+//   - Warps in flight: the two warpgroups split the loop (even and odd tiles) and sum their
+//     fp32 partials in shared memory (the ring, once both are done with it) before the one
+//     store; no atomics. At the flagship shape: 288 CTAs of 8 warps.
+//   dQ: a CTA owns 64 q rows; Q and dO arrive once, K and V tiles of 64 keys stream. It is the
+//     forward's loop with lse and delta given: S = Q K^T and dP = dO V^T from shared memory,
+//     dS = P (dP - delta) rounded to bf16 straight into register A fragments, and
+//     dQ += dS K with K read MN-major from the tile S read it K-major. Each thread keeps
+//     -lse log2 e and delta of its two accumulator rows in registers. At Dh 128 a thread
+//     holds S and dP (32 + 32 floats) and dQ (64). The first dQ kernel, on mma.sync with K and V
+//     loaded synchronously by all threads and K transposed by hand in shared memory, took
+//     0.107 ms at the flagship shape and 4.13 ms at (2, 4, 18432, 32) (PERF.md). Not tried:
+//     folding dQ into the dK/dV kernel, which needs a sum across CTAs (atomics or a second
+//     pass).
+//   dK/dV: a CTA owns 64 keys and computes S^T = K Q^T and dP^T = V dO^T, as the TPU kernel
+//     does, so P^T and dS^T come out as accumulators that are already register A operands of
+//     P^T dO and dS^T Q. K and V arrive once, as the shared-memory A of S^T and dP^T; Q, dO,
+//     lse and delta tiles (64 q rows; 32 at Dh 128) stream, Q and dO read transposed as the
+//     B of dS^T Q and P^T dO.
 // Any L: rows past L read as zeros, and P is set to 0 explicitly for keys past lk (dQ) and
 // q rows past lq (dK/dV), so neither padded lse/delta values nor padded rows add anything.
-// fp32 inputs take plain-FMA kernels of the same structure (one row per thread), so the fp32
-// path is not rounded through TF32.
+// The bf16 kernels take scale > 0 (the wrapper maps a negative scale to a negated K and
+// scale 0 to a zero K). fp32 inputs take plain-FMA kernels of the same structure (one row
+// per thread), so the fp32 path is not rounded through TF32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,80 +69,13 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
-constexpr int kWarps = 4;
-constexpr int kRows = kWarps * 16;  // q rows (dQ) or keys (dK/dV) owned by a block
-constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 64;  // q rows (dQ) or keys (dK/dV) owned by a CTA: one wgmma M
+constexpr int kGroups = 2;  // warpgroups per CTA; group w takes key (dQ) or q (dK/dV) tiles w, w + 2, ...
+constexpr int kGroupThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
-constexpr int kLoopTile = DH >= 128 ? 32 : 64;  // keys (dQ) or q rows (dK/dV) per smem tile
-
-// Copies rows [r0, r0 + ROWS) of a (len, DH) bf16 matrix to shared memory: row-major with
-// row stride DH + 8 into `rm`, and transposed with row stride ROWS + 8 into `tr` when it is
-// not null. Rows past `len` are zero.
-template <int ROWS, int DH>
-__device__ __forceinline__ void load_tile(const bf16* src, int r0, int len, bf16* rm, bf16* tr) {
-  for (int i = threadIdx.x; i < ROWS * DH / 8; i += kThreads) {
-    const int row = i / (DH / 8);
-    const int col = (i % (DH / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + row < len) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * DH + col);
-    *reinterpret_cast<uint4*>(rm + row * (DH + 8) + col) = val;
-    if (tr != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[(col + j) * (ROWS + 8) + row] = e[j];
-    }
-  }
-}
-
-// A fragments of rows r and r + 8 of a (len, DH) bf16 matrix over the whole head dimension;
-// zero for rows past len.
-template <int DH>
-__device__ __forceinline__ void load_a_frags(const bf16* src, int r, int len, int t,
-                                             uint32_t (&f)[DH / 16][4]) {
-#pragma unroll
-  for (int c = 0; c < DH / 16; ++c) {
-    const int col = c * 16 + t * 2;
-    f[c][0] = r < len ? load_u32(src + (size_t)r * DH + col) : 0u;
-    f[c][1] = r + 8 < len ? load_u32(src + (size_t)(r + 8) * DH + col) : 0u;
-    f[c][2] = r < len ? load_u32(src + (size_t)r * DH + col + 8) : 0u;
-    f[c][3] = r + 8 < len ? load_u32(src + (size_t)(r + 8) * DH + col + 8) : 0u;
-  }
-}
-
-// acc = A M^T for a 16 x DH A (fragments in registers) and the first NCH * 8 rows of M,
-// stored row-major with stride DH + 8 in shared memory: acc[n] is the 16 x 8 tile of the
-// columns n*8 .. n*8 + 7 (rows of M).
-template <int DH, int NCH>
-__device__ __forceinline__ void mma_abt(const uint32_t (&a)[DH / 16][4], const bf16* m, int g,
-                                        int t, float (&acc)[NCH][4]) {
-#pragma unroll
-  for (int n = 0; n < NCH; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    const bf16* row = m + (n * 8 + g) * (DH + 8) + t * 2;
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) {
-      const uint32_t b[2] = {load_u32(row + c * 16), load_u32(row + c * 16 + 8)};
-      mma_16816(acc[n], a[c], b);
-    }
-  }
-}
-
-// acc += A N for a 16 x (KS * 16) A (fragments in registers) and N of shape (KS * 16) x DH,
-// stored transposed (N^T, DH rows of stride `stride`) in shared memory.
-template <int DH, int KS>
-__device__ __forceinline__ void mma_ab(const uint32_t (&a)[KS][4], const bf16* nt, int stride,
-                                       int g, int t, float (&acc)[DH / 8][4]) {
-#pragma unroll
-  for (int c = 0; c < KS; ++c) {
-#pragma unroll
-    for (int d = 0; d < DH / 8; ++d) {
-      const bf16* row = nt + (d * 8 + g) * stride + c * 16 + t * 2;
-      const uint32_t b[2] = {load_u32(row), load_u32(row + 8)};
-      mma_16816(acc[d], a[c], b);
-    }
-  }
-}
+constexpr int kLoopTile = DH >= 128 ? 32 : 64;  // q rows per ring tile of dK/dV
 
 // Stores rows r, r + 8 of the 16 x DH fp32 tile acc, times `mul`, as bf16 (rows past len
 // are not stored).
@@ -156,72 +96,164 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 8]
   }
 }
 
+// dQ, bf16: one CTA of two warpgroups per (64 q rows, batch*head); see the note at the top.
 template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int lq, int lk, float scale) {
-  constexpr int BK = kLoopTile<DH>;
-  constexpr int kTStride = BK + 8;
-  __shared__ __align__(16) bf16 ks[BK * (DH + 8)];
-  __shared__ __align__(16) bf16 vs[BK * (DH + 8)];
-  __shared__ __align__(16) bf16 kts[DH * kTStride];
+struct DqLayout {
+  static constexpr int kStages = DH >= 128 ? 2 : 3;
+  static constexpr int kTile = kTileBytes<kRows, DH>;  // one Q, dO, K or V tile
+  static constexpr int kStage = 2 * kTile;             // K and V
+  static constexpr int kRing = 2 * kTile;              // after the Q and dO tiles
+  static constexpr int kBars = kRing + kGroups * kStages * kStage;
+  static constexpr int kBytes = kBars + (1 + kGroups * kStages) * 8;
+  static constexpr int kMerge = DH / 2;  // floats a thread of group 1 hands to group 0
+  static_assert(kMerge * kGroupThreads * 4 <= kGroups * kStages * kStage, "merge buffer fits in the ring");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kGroups * kGroupThreads) flash_bwd_dq_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq, int lq, int lk,
+    float scale) {
+  using L = DqLayout<DH>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const bf16* qs = reinterpret_cast<const bf16*>(smem);
+  const bf16* dos = reinterpret_cast<const bf16*>(smem + L::kTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);  // Q/dO, then [group][stage]
 
   const int bh = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) / 4;
-  const int t = threadIdx.x % 4;
-  const int r0 = blockIdx.x * kRows + warp * 16 + g;  // this thread's rows: r0, r0 + 8
-  const size_t qoff = (size_t)bh * lq * DH;
-  const size_t koff = (size_t)bh * lk * DH;
+  const int q0 = blockIdx.x * kRows;
+  const int group = threadIdx.x / kGroupThreads;
+  const int tid = threadIdx.x % kGroupThreads;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int r0 = q0 + (tid / 32) * 16 + g;  // this thread's rows: r0, r0 + 8
+  const int n_tiles = (lk + kRows - 1) / kRows;
+  const int mine = (n_tiles - group + 1) / 2;  // this group's key tiles: group + 2 i
+  const float scale_log2 = scale * kLog2e;
+  uint64_t* full = bars + 1 + group * kStages;
+  uint8_t* ring = smem + L::kRing + group * kStages * L::kStage;
 
-  uint32_t qf[DH / 16][4];
-  uint32_t df[DH / 16][4];
-  load_a_frags<DH>(q + qoff, r0, lq, t, qf);
-  load_a_frags<DH>(dout + qoff, r0, lq, t, df);
-  float lse_r[2], delta_r[2];
+  auto issue = [&](int i) {  // this group's key tile i into stage i % kStages
+    uint8_t* stage = ring + (i % kStages) * L::kStage;
+    uint64_t* bar = &full[i % kStages];
+    const int k0 = (group + 2 * i) * kRows;
+    mbar_expect_tx(bar, L::kStage);
+    tma_load_tile<kRows, DH>(reinterpret_cast<bf16*>(stage), &k_map, bar, k0, bh);
+    tma_load_tile<kRows, DH>(reinterpret_cast<bf16*>(stage + L::kTile), &v_map, bar, k0, bh);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kGroups * kStages; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (group == 0) {
+      mbar_expect_tx(&bars[0], 2 * L::kTile);
+      tma_load_tile<kRows, DH>(reinterpret_cast<bf16*>(smem), &q_map, &bars[0], q0, bh);
+      tma_load_tile<kRows, DH>(reinterpret_cast<bf16*>(smem + L::kTile), &do_map, &bars[0], q0, bh);
+    }
+    for (int i = 0; i < kStages && i < mine; ++i) issue(i);
+  }
+
+  // -lse log2(e) and delta of this thread's two rows (0 past lq, where Q and dO are zero).
+  float nl[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    lse_r[i] = r < lq ? lse[(size_t)bh * lq + r] : 0.f;
-    delta_r[i] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    nl[r] = row < lq ? -lse[(size_t)bh * lq + row] * kLog2e : 0.f;
+    dl[r] = row < lq ? delta[(size_t)bh * lq + row] : 0.f;
   }
   float acc[DH / 8][4];
+  float s[kRows / 8][4];
+  float dp[kRows / 8][4];
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-
-  for (int k0 = 0; k0 < lk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<BK, DH>(k + koff, k0, lk, ks, kts);
-    load_tile<BK, DH>(v + koff, k0, lk, vs, nullptr);
-    __syncthreads();
-
-    float s[BK / 8][4];
-    float dp[BK / 8][4];
-    mma_abt<DH, BK / 8>(qf, ks, g, t, s);   // Q K^T
-    mma_abt<DH, BK / 8>(df, vs, g, t, dp);  // dO V^T
-    uint32_t dsf[BK / 16][4];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+  for (int n = 0; n < kRows / 8; ++n) {
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  }
+  mbar_wait(&bars[0], 0);
+
+  for (int i = 0; i < mine; ++i) {
+    const int k0 = (group + 2 * i) * kRows;
+    const bf16* ks = reinterpret_cast<const bf16*>(ring + (i % kStages) * L::kStage);
+    const bf16* vs = reinterpret_cast<const bf16*>(ring + (i % kStages) * L::kStage + L::kTile);
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T for the CTA's 64 q rows and the tile's 64 keys.
+    fence_operand(s);
+    fence_operand(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      wgmma_ss<kRows>(s, desc_k_major<kRows, DH>(qs, c), desc_k_major<kRows, DH>(ks, c), c > 0);
+    }
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      wgmma_ss<kRows>(dp, desc_k_major<kRows, DH>(dos, c), desc_k_major<kRows, DH>(vs, c), c > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(s);
+    fence_operand(dp);
+
+    // P = 2^(s c - lse log2 e), 0 for keys past lk (TMA fills them with zeros, and a zero
+    // score is not P = 0); dS = P (dP - delta), rounded to bf16 into the A fragments of dS K.
+    const bool ragged = k0 + kRows > lk;
+    uint32_t dsf[kRows / 16][4];
+#pragma unroll
+    for (int n = 0; n < kRows / 8; ++n) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + t * 2 + (e & 1);
-        const float p = key < lk ? __expf(s[n][e] * scale - lse_r[e >> 1]) : 0.f;
-        ds[e] = p * (dp[n][e] - delta_r[e >> 1]);
+        const int r = e >> 1;
+        const bool live = !ragged || k0 + n * 8 + t * 2 + (e & 1) < lk;
+        const float p = live ? ex2(fmaf(s[n][e], scale_log2, nl[r])) : 0.f;
+        ds[e] = p * (dp[n][e] - dl[r]);
       }
       to_a_frag(dsf, n, ds);
     }
-    mma_ab<DH, BK / 16>(dsf, kts, kTStride, g, t, acc);  // dQ += dS K
+
+    // dQ += dS K, K read MN-major (transposed) from the same swizzled tile as Q K^T read it.
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kRows / 16; ++c) wgmma_rs<DH>(acc, dsf[c], desc_mn_major<kRows, DH>(ks, c), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(acc);
+
+    named_barrier_sync(1 + group, kGroupThreads);  // the group is done with this stage
+    if (tid == 0 && i + kStages < mine) issue(i + kStages);
   }
-  store_rows<DH>(dq + qoff, acc, scale, r0, lq, t);
+
+  // Group 1 hands its partial dQ to the thread of group 0 that holds the same rows and
+  // columns; group 0 adds it and stores.
+  __syncthreads();  // both groups are done with the ring, which now holds the hand-over
+  float* merge = reinterpret_cast<float*>(smem + L::kRing) + tid;
+  if (group == 1) {
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) merge[(d * 4 + e) * kGroupThreads] = acc[d][e];
+    }
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] += merge[(d * 4 + e) * kGroupThreads];
+  }
+  store_rows<DH>(dq + (size_t)bh * lq * DH, acc, scale, r0, lq, t);
 }
 
 // dK/dV, bf16: one CTA of two warpgroups per (64 keys, batch*head); see the note at the top.
-constexpr int kGroups = 2;  // warpgroups per CTA; group w takes q tiles w, w + 2, ...
-constexpr int kGroupThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int DH>
 struct DkvLayout {
   static constexpr int BQ = kLoopTile<DH>;  // q rows per ring tile
@@ -549,11 +581,19 @@ struct Args {
 template <int DH>
 int launch_dq(int is_bf16, const Args& a) {
   if (is_bf16) {
+    using L = DqLayout<DH>;
+    CUtensorMap q_map, k_map, v_map, do_map;
+    if (!tile_map(&q_map, a.q, a.bh, a.lq, DH, kRows) || !tile_map(&do_map, a.dout, a.bh, a.lq, DH, kRows) ||
+        !tile_map(&k_map, a.k, a.bh, a.lk, DH, kRows) || !tile_map(&v_map, a.v, a.bh, a.lk, DH, kRows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    constexpr int kSmem = L::kBytes + 1024;  // + the slack align_1024 takes
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.lq + kRows - 1) / kRows, a.bh);
-    flash_bwd_dq_bf16_kernel<DH><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.out0), a.lq, a.lk, a.scale);
+    flash_bwd_dq_bf16_kernel<DH><<<grid, kGroups * kGroupThreads, kSmem, a.stream>>>(
+        q_map, k_map, v_map, do_map, a.lse, a.delta, static_cast<bf16*>(a.out0), a.lq, a.lk, a.scale);
   } else {
     const dim3 grid((a.lq + kF32Rows - 1) / kF32Rows, a.bh);
     flash_bwd_dq_f32_kernel<DH><<<grid, kF32Rows, 0, a.stream>>>(
@@ -570,7 +610,7 @@ int launch_dkv(int is_bf16, const Args& a) {
     using L = DkvLayout<DH>;
     CUtensorMap q_map, k_map, v_map, do_map, lse_map, delta_map;
     const size_t rows = (size_t)a.bh * a.lq;
-    if (!(a.scale > 0.f) || !tile_map(&q_map, a.q, a.bh, a.lq, DH, L::BQ) ||
+    if (!tile_map(&q_map, a.q, a.bh, a.lq, DH, L::BQ) ||
         !tile_map(&do_map, a.dout, a.bh, a.lq, DH, L::BQ) || !tile_map(&k_map, a.k, a.bh, a.lk, DH, kRows) ||
         !tile_map(&v_map, a.v, a.bh, a.lk, DH, kRows) || !row_map(&lse_map, a.lse, rows, L::kRowBox) ||
         !row_map(&delta_map, a.delta, rows, L::kRowBox)) {
@@ -614,10 +654,10 @@ int dispatch(int dh, int is_bf16, const Args& a) {
 }  // namespace
 
 // Both entry points launch on `stream` and return their CUDA error (0 on success), or
-// cudaErrorInvalidValue for sizes or a head dimension the kernels do not take (bf16 dK/dV
-// also needs scale > 0). q and dout:
-// (bh, lq, dh); k and v: (bh, lk, dh); all contiguous, 16-byte aligned and of one dtype
-// (is_bf16 = 1: bfloat16, 0: float32); lse and delta: (bh, lq) float32. The outputs have
+// cudaErrorInvalidValue for sizes or a head dimension the kernels do not take. The bf16
+// kernels need scale > 0 (their wrapper maps any other scale onto one: negated or zero K).
+// q and dout: (bh, lq, dh); k and v: (bh, lk, dh); all contiguous, 16-byte aligned and of one
+// dtype (is_bf16 = 1: bfloat16, 0: float32); lse and delta: (bh, lq) float32. The outputs have
 // the shape and dtype of their inputs.
 extern "C" int cips_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* delta,
@@ -636,4 +676,15 @@ extern "C" int cips_flash_attention_bwd_dkv(const void* q, const void* k, const 
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                dk, dv, bh, lq, lk, scale, static_cast<cudaStream_t>(stream)};
   return dispatch<launch_dkv<32>, launch_dkv<64>, launch_dkv<128>>(dh, is_bf16, a);
+}
+
+// Writes to *bytes the dynamic shared memory that the bf16 dQ kernel launches with at head
+// dimension dh (ptxas reports only static shared memory). Returns a CUDA error code.
+extern "C" int cips_flash_attention_bwd_dq_smem(int dh, void* bytes) {
+  int* out = static_cast<int*>(bytes);
+  if (dh == 32) *out = DqLayout<32>::kBytes + 1024;
+  else if (dh == 64) *out = DqLayout<64>::kBytes + 1024;
+  else if (dh == 128) *out = DqLayout<128>::kBytes + 1024;
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }

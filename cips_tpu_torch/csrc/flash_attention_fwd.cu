@@ -349,14 +349,15 @@ int launch(int is_bf16, const void* q, const void* k, const void* v, void* out, 
 }  // namespace
 
 // Launches the forward on `stream` and returns its CUDA error (0 on success), or
-// cudaErrorInvalidValue for sizes or a head dimension the kernels do not take (bf16 also
-// needs scale > 0, the row max being taken before the scale). q: (bh, lq, dh), k and v:
+// cudaErrorInvalidValue for sizes or a head dimension the kernels do not take. The bf16
+// kernel needs scale > 0, the row max being taken before the scale (its wrapper maps any
+// other scale onto one: negated or zero K). q: (bh, lq, dh), k and v:
 // (bh, lk, dh), out: (bh, lq, dh), all contiguous, 16-byte aligned and of one dtype
 // (is_bf16 = 1: bfloat16, 0: float32); lse: (bh, lq) float32.
 extern "C" int cips_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                         void* lse, int bh, int lq, int lk, int dh, int is_bf16,
                                         float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0 || (is_bf16 && !(scale > 0.f))) {
+  if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward and dK/dV kernels and of the
-// phase conv's dot and noshift kernels: TMA tile loads that complete on mbarriers and TMA tile
+// Hopper (sm_90a) building blocks of the flash-attention forward, dQ and dK/dV kernels and of
+// the phase conv's dot, noshift and full kernels: TMA tile loads that complete on mbarriers and TMA tile
 // stores, warpgroup matrix products (wgmma) on swizzled shared-memory tiles, and the host-side
 // tensor maps that describe those tiles. Inline PTX only (no CuTe), so a file that includes
 // this header builds in seconds.
@@ -101,6 +101,16 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// The box at (c0, .., c3) of a rank-4 tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -1,5 +1,5 @@
-// Tensor-core helpers shared by the flash-attention kernels (sm_90a): bf16 packing, 32-bit
-// fragment loads and the mma.sync m16n8k16 product, in the fragment layouts of the PTX ISA.
+// Tensor-core helpers shared by the flash-attention and phase conv kernels (sm_90a): bf16
+// packing and the mma.sync m16n8k16 product, in the fragment layouts of the PTX ISA.
 //
 // With g = lane / 4 and t = lane % 4, a thread holds
 //   A (16x16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..), a[2] = (g, 2t+8..),
@@ -20,10 +20,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   uint32_t bits;
   memcpy(&bits, &v, sizeof(bits));
   return bits;
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // c += a * b on the tensor cores: a is a 16x16 row-major bf16 tile, b a 16x8 bf16 tile

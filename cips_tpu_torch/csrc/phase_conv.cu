@@ -7,8 +7,8 @@
 //   scripts/probe_pallas_bisect.py:_kernel (MODE nosel, sel, full),
 //   scripts/debug_pallas_stages.py:_kernel (STAGE 1, 2, 3, >= 4),
 // as one kernel whose variants are template parameters, plus two elementwise kernels. The
-// bf16 dot and noshift variants are TMA + wgmma kernels of their own (phase_conv_sm90.cu),
-// launched from cips_phase_conv below.
+// bf16 full, noshift and dot variants are TMA + wgmma kernels of their own
+// (phase_conv_sm90.cu), launched from cips_phase_conv below.
 //
 // The function. x is a space-to-depth packed volume (B, Z, Y, X, pc), channels last,
 // pc = 8C, phase-major: channel q*C + c holds input phase q = (qz*2 + qy)*2 + qx. With
@@ -37,10 +37,11 @@
 // all pc x pc weights, as the TPU kernel and this one do, the work is 2*8*cells*pc^2 =
 // 3.09e11 operations at pc = 128 (0.3127 ms): 2.37x the function's.
 //
-// What the design of the bf16 full and one_tap kernel does about that. An implicit GEMM:
+// What the design of the bf16 one_tap kernel (and of fp32 for every variant with products)
+// does about that. An implicit GEMM:
 // M = output cells (the flattened b, z, y, x index, any Z, Y, X; the ragged last tile is
-// masked), N = 128 output channels a block (pc = 256 takes two N blocks), K = 8 taps x pc
-// input channels in chunks of 32. A block of 8 warps computes 128 cells x 128 channels; its A
+// masked), N = 128 output channels a block (pc = 256 takes two N blocks), K = the variant's
+// taps x pc input channels in chunks of 32. A block of 8 warps computes 128 cells x 128 channels; its A
 // rows come straight from x by cp.async (16 bytes each, zero-filled where the shifted cell
 // leaves the volume), so x' is never materialised and the phase shift costs one address
 // computation per 16 bytes. Wp streams through shared memory one (tap, K chunk) at a time (Wp
@@ -50,9 +51,9 @@
 // for every variant with products. The epilogue rounds to x's dtype and stores channels
 // last. All offsets are 64-bit. The N blocks of one cell tile are neighbours in launch
 // order, so the second can find its A rows in L2.
-// Left for later work: skipping the 37 of 64 (q, p) weight blocks that are zero in Wp
-// (the 2.37x above), and moving full onto the TMA + wgmma mainloop of the noshift kernel
-// (phase_conv_sm90.cu) with one shifted 32-byte box per phase group.
+// The bf16 full variant runs on noshift's TMA + wgmma mainloop (phase_conv_sm90.cu), with a
+// shift per phase group. Not tried: skipping the 37 of 64 (q, p) weight blocks that are zero
+// in Wp (the 2.37x above), which needs N split by output phase group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -383,10 +384,10 @@ int elementwise_blocks(long long vectors) {
   return static_cast<int>(blocks < 132 * 32 ? blocks : 132 * 32);
 }
 
-// bf16 on the mma.sync kernel: full and one_tap only.
+// bf16 on the mma.sync kernel: one_tap only.
 template <int V>
 void launch_bf16(const void* x, const void* w, void* out, const Geometry& g, cudaStream_t s) {
-  static_assert(V == kFull || V == kOneTap, "bf16 dot and noshift run on phase_conv_sm90.cu");
+  static_assert(V == kOneTap, "bf16 full, noshift and dot run on phase_conv_sm90.cu");
   const long long blocks = (g.cells + kBM - 1) / kBM * (g.pc / kBN);
   phase_conv_bf16_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
@@ -412,8 +413,10 @@ void launch_gather(bool bf16, const void* x, void* out, const Geometry& g, cudaS
 
 }  // namespace
 
-// The bf16 dot and noshift kernels (phase_conv_sm90.cu); each returns a CUDA error code.
+// The bf16 dot, noshift and full kernels (phase_conv_sm90.cu); each returns a CUDA error code.
 int phase_conv_dot_sm90(const void* x, const void* w, void* out, long long cells, int pc, cudaStream_t stream);
+int phase_conv_full_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
+                         cudaStream_t stream);
 int phase_conv_noshift_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
                             cudaStream_t stream);
 
@@ -430,7 +433,8 @@ extern "C" int cips_phase_conv(const void* x, const void* w, void* out, int vari
   const bool bf16 = is_bf16 != 0;
   switch (variant) {
     case kFull:
-      bf16 ? launch_bf16<kFull>(x, w, out, g, s) : launch_f32<kFull>(x, w, out, g, s);
+      if (bf16) return phase_conv_full_sm90(x, w, out, b, z, y, xdim, pc, s);
+      launch_f32<kFull>(x, w, out, g, s);
       break;
     case kNoShift:
       if (bf16) return phase_conv_noshift_sm90(x, w, out, b, z, y, xdim, pc, s);

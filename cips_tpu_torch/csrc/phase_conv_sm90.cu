@@ -1,12 +1,14 @@
-// The bf16 `dot` and `noshift` variants of the phase conv for Hopper (sm_90a): TMA tile loads
-// that complete on mbarriers, wgmma on 128-byte-swizzled shared-memory tiles, persistent CTAs
-// (one an SM) of one producer warp and two consumer warpgroups. Launched by cips_phase_conv
-// (phase_conv.cu, variant codes kDot and kNoShift) for bf16; fp32 and the other variants stay
-// in phase_conv.cu.
+// The bf16 `dot`, `noshift` and `full` variants of the phase conv for Hopper (sm_90a): TMA tile
+// loads that complete on mbarriers, wgmma on 128-byte-swizzled shared-memory tiles, persistent
+// CTAs (one an SM) of one producer warp and two consumer warpgroups. Launched by
+// cips_phase_conv (phase_conv.cu, variant codes kDot, kNoShift and kFull) for bf16; fp32 and
+// the other variants stay in phase_conv.cu.
 //
 // Replaces the Pallas TPU kernels
 //   scripts/probe_pallas_dot.py:k_dot4d, k_dot2d       (dot)
 //   scripts/probe_pallas_bisect.py:_kernel, MODE nosel (noshift)
+//   cips_tpu/ops/pallas/phase_conv.py:_kernel          (full; also bisect MODE full and
+//                                                       scripts/debug_pallas_stages.py stage >= 4)
 //
 // dot: out = sum_{k<8} x . W[k]; x (cells, pc) channels last, W (8, pc, pc), out bf16.
 //   What bounds it on an H100 SXM. The function is x . S with S = sum_k W[k]: 2 cells pc^2
@@ -64,8 +66,43 @@
 //   not found), and warpgroup 1 started two taps after warpgroup 0 so that the epilogues
 //   interleave (no gain). A first (16, 8, 2) tile reads a halo of 432 rows for 256 cells
 //   against 360 for this one.
-//   Left for `full`, which still runs the mma.sync kernel: with a 32-byte box per phase group
-//   (16 channels) each wgmma k-step can carry its own shift.
+//
+// full: out[c] = sum_{k in {0,1}^3} x'[c + k] . Wp[k], where the channels of phase group q
+//   (q = (qz 2 + qy) 2 + qx, pc / 8 channels each) read x[c + k - q], zero outside the volume.
+//   What bounds it. The function is 1.305e11 operations at (8, 48, 64, 48, 128) and bound by
+//   its bytes (0.180 ms); run densely over 8 taps x pc^2, as here, it is noshift's 3.09e11
+//   operations (0.313 ms): bound by the products it issues.
+//   The design: noshift's mainloop with a shift per phase group. k - q is -1, 0 or +1 on each
+//   axis, so the halo box grows to (64, 8, 10, 6): 480 rows, 61,440 bytes. The y and z shifts
+//   stay descriptor offsets inside it, 8 (dy + 1) + 80 (p + dz + 1) rows, multiples of 8. The
+//   x shift takes three boxes, at x0 - 1, x0 and x0 + 1. A wgmma k-step is 16 channels, one
+//   phase group at pc 128 and half of one at pc 256, so each k-step's A descriptor starts at
+//   its own (box, row offset). Three boxes beside a Wp ring and the staging tiles do not fit
+//   in 227 KB (3 x 61,440 + 32 KB of staging leaves less than one 16 KB Wp stage), so the
+//   boxes go through a ring of 2 in (64-channel block, x shift) order. Box dx serves the
+//   k-steps whose group has qx = kx - dx: for each (kz, ky) 2 of the block's 4 k-steps at
+//   dx = -1 and +1, all 4 at dx = 0 (pc 128 and 256). Each box's schedule is computed once
+//   and packed in one register (BoxSteps). Wp streams by k-step, (16 input x 128 output
+//   channels) MN-major, 4 KB, one TMA copy each through a rank-4 map whose 64-column block is
+//   a dimension of its own (kstep_map), in stages of 4 consecutive k-steps of a box (a box
+//   serves 4 n, a multiple of 4): a ring of 4 stages of 16 KB, each k-step loaded once a
+//   tile, and one commit group of 8 wgmma a stage, as noshift's. Products stay dense (no
+//   k-step is ever all zero: per axis, tap 0 lacks only the (q, p) = (1, 1) block and tap 1
+//   only (0, 0)); the epilogue is noshift's. L2 reads per tile at pc 128: 6 halo boxes and 8
+//   taps of Wp's (128, 128) slab, 630,784 bytes, 2,464 a cell: 2.91 GB a call at
+//   (8, 48, 64, 48, 128), against noshift's 2.06 and 4.83 for the mma.sync kernel that ran
+//   full before (11.6 GB at pc 256, against 8.23 and 19.3). Any pc that is a multiple of 128;
+//   a 64-channel block that lies in one phase group (pc >= 512) skips the box no k-step of it
+//   reads.
+//   Tried in bring-up (PERF.md): stages of one (box, kz, ky), 2 or 4 k-steps, with the
+//   invalid steps skipped by a branch around the wgmma, which ptxas serialized (C7520,
+//   "WG.AR in divergent path"); stages of 2 k-steps with each step's (tap, c) found by
+//   divisions per step, slower still. cips_tpu_torch/scripts/time_full_kernel.py times this
+//   kernel beside noshift and beside copies of it with one thing changed: stages of 2 k-steps
+//   and two 2 KB copies a Wp k-step are both slower; a copy without the products (loads and
+//   barriers only) takes 0.64-0.80x noshift's whole time, so the load side (6 halo boxes
+//   and 64 Wp copies a tile) is what keeps full above noshift. A second producer warp, one
+//   for the boxes and one for Wp, did not help (scratch copy, one call).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -277,6 +314,36 @@ __device__ __forceinline__ Tile tile_of(int t, const Volume& v) {
   return tile;
 }
 
+// The epilogue of noshift and full: each m64 block of a consumer warpgroup's accumulators (one
+// z plane of 8 x 8 cells) goes through the warpgroup's swizzled staging tile and one TMA store,
+// which clips cells past the volume.
+__device__ __forceinline__ void store_planes(float (&acc)[2][16][4], uint8_t* staging, const CUtensorMap* out_map,
+                                             const Tile& tile, int wg, int tid) {
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (tid == 0) bulk_wait_read<0>();  // the store before has read the staging tile
+    named_barrier_sync(1 + wg, 128);
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        *reinterpret_cast<uint32_t*>(staging + (n / 8) * 8192 + r * 128 + (((n % 8) ^ (r % 8)) * 16) + qd * 4) =
+            pack_bf16x2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+    if (tid == 0) {
+      const int z = tile.z0 + 2 * wg + i;
+      tma_store_5d(out_map, staging, tile.n0, tile.x0, tile.y0, z, tile.b);
+      tma_store_5d(out_map, staging + 8192, tile.n0 + 64, tile.x0, tile.y0, z, tile.b);
+      bulk_commit();
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1) noshift_kernel(const __grid_constant__ CUtensorMap x_map,
                                                               const __grid_constant__ CUtensorMap w_map,
                                                               const __grid_constant__ CUtensorMap out_map, Volume v,
@@ -331,7 +398,7 @@ __global__ void __launch_bounds__(kThreads, 1) noshift_kernel(const __grid_const
       }
     }
   } else {
-    const int warp = tid / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+    const int lane = tid % 32;
     uint8_t* staging = smem + kNsOut + wg * kOutBlock;
     float acc[2][16][4];  // the two z planes 2 wg and 2 wg + 1 of the tile, 64 cells each
     int ja = 0, jb = 0;   // halo boxes and Wp tiles consumed so far
@@ -377,33 +444,205 @@ __global__ void __launch_bounds__(kThreads, 1) noshift_kernel(const __grid_const
         mbar_arrive(&empty_a[(ja - 1) % kAStages]);
       }
 
-      // Epilogue: each m64 block (one z plane of 8 x 8 cells) goes through this warpgroup's
-      // swizzled staging tile and one TMA store, which clips cells past the volume.
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (tid == 0) bulk_wait_read<0>();  // the store before has read the staging tile
-        named_barrier_sync(1 + wg, 128);
-#pragma unroll
-        for (int n = 0; n < 16; ++n) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = 16 * warp + g + 8 * h;
-            *reinterpret_cast<uint32_t*>(staging + (n / 8) * 8192 + r * 128 + (((n % 8) ^ (r % 8)) * 16) + qd * 4) =
-                pack_bf16x2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
-          }
-        }
-        fence_proxy_async();
-        named_barrier_sync(1 + wg, 128);
-        if (tid == 0) {
-          const int z = tile.z0 + 2 * wg + i;
-          tma_store_5d(&out_map, staging, tile.n0, tile.x0, tile.y0, z, tile.b);
-          tma_store_5d(&out_map, staging + 8192, tile.n0 + 64, tile.x0, tile.y0, z, tile.b);
-          bulk_commit();
-        }
-      }
+      store_planes(acc, staging, &out_map, tile, wg, tid);
     }
     if (tid == 0) bulk_wait_all();
   }
+}
+
+// ---- full -----------------------------------------------------------------------------------
+
+constexpr int kFullPlaneRows = kTX * (kTY + 2);              // rows of one z plane of a full halo box
+constexpr int kFullHaloRows = kFullPlaneRows * (kTZ + 2);    // 480 cells of one halo box
+constexpr int kFullABox = kFullHaloRows * 128;               // 61,440 bytes: 64 channels of it
+constexpr int kKStep = 16 * 128 * 2;                         // Wp[k][16 input][128 output channels]
+constexpr int kStageSteps = 4;                               // k-steps a Wp stage: a box serves 4 n
+constexpr int kFullBStage = kStageSteps * kKStep;
+constexpr int kFullAStages = 2, kFullBStages = 65536 / kFullBStage;
+constexpr int kFullB = kFullAStages * kFullABox;             // the B ring, after the A ring
+constexpr int kFullOut = kFullB + kFullBStages * kFullBStage;
+constexpr int kFullBars = kFullOut + kConsumers * kOutBlock;
+constexpr int kFullBytes = kFullBars + 2 * (kFullAStages + kFullBStages) * 8;
+
+// The k-steps that the box of 64-channel block cb at x shift dx serves, for each (kz, ky): the
+// step's 16 channels lie in phase group q = channels / (pc / 8), which reads x[cell + k - q],
+// so the box serves tap kx = qx + dx where that is 0 or 1. Computed once a box and packed 5
+// bits a k-step (c, qy, qz, kx), so that the per-step work is shifts and masks.
+struct BoxSteps {
+  int n;         // k-steps for each (kz, ky), 0 to 4
+  uint32_t bits;  // step j: c at 5 j, qy at 5 j + 2, qz at 5 j + 3, kx at 5 j + 4
+};
+
+__device__ __forceinline__ BoxSteps box_steps(int cb, int dx, int pc) {
+  BoxSteps b{0, 0u};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int q = (cb * 64 + c * 16) / (pc / 8);
+    const int kx = (q & 1) + dx;
+    if (kx == 0 || kx == 1) {
+      b.bits |= static_cast<uint32_t>(c | ((q >> 1) & 1) << 2 | (q >> 2) << 3 | kx << 4) << (5 * b.n);
+      ++b.n;
+    }
+  }
+  return b;
+}
+
+// Walks a box's 4 n k-steps, (kz, ky) major.
+struct StepWalk {
+  int kzy = 0, j = 0;
+  __device__ __forceinline__ uint32_t step(const BoxSteps& b) const { return b.bits >> (5 * j) & 31u; }
+  __device__ __forceinline__ void next(const BoxSteps& b) {
+    if (++j == b.n) {
+      j = 0;
+      ++kzy;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1) full_kernel(const __grid_constant__ CUtensorMap x_map,
+                                                           const __grid_constant__ CUtensorMap w_map,
+                                                           const __grid_constant__ CUtensorMap out_map, Volume v,
+                                                           int n_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(smem + kFullBars);
+  uint64_t* empty_a = full_a + kFullAStages;
+  uint64_t* full_b = empty_a + kFullAStages;
+  uint64_t* empty_b = full_b + kFullBStages;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int blocks = v.pc / 64;  // 64-channel blocks of the reduction
+  const int block = static_cast<int>(blockIdx.x), grid = static_cast<int>(gridDim.x);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFullAStages; ++i) {
+      mbar_init(&full_a[i], 1);
+      mbar_init(&empty_a[i], kReleases);
+    }
+    for (int i = 0; i < kFullBStages; ++i) {
+      mbar_init(&full_b[i], 1);
+      mbar_init(&empty_b[i], kReleases);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    if (tid == 0) {  // the producer: one thread issues every load, in consumption order
+      int ja = 0, jb = 0;  // halo boxes and Wp stages issued so far
+      for (int t = block; t < n_tiles; t += grid) {
+        const Tile tile = tile_of(t, v);
+        for (int cb = 0; cb < blocks; ++cb) {
+          for (int dx = -1; dx <= 1; ++dx) {
+            const BoxSteps steps = box_steps(cb, dx, v.pc);
+            if (steps.n == 0) continue;
+            const int sa = ja % kFullAStages;
+            if (ja >= kFullAStages) mbar_wait(&empty_a[sa], (ja / kFullAStages - 1) & 1);
+            mbar_expect_tx(&full_a[sa], kFullABox);
+            tma_load_5d(smem + sa * kFullABox, &x_map, &full_a[sa], cb * 64, tile.x0 + dx, tile.y0 - 1, tile.z0 - 1,
+                        tile.b);
+            ++ja;
+            StepWalk walk;
+            for (int s = 0; s < 4 * steps.n; s += kStageSteps, ++jb) {
+              const int sb = jb % kFullBStages;
+              if (jb >= kFullBStages) mbar_wait(&empty_b[sb], (jb / kFullBStages - 1) & 1);
+              mbar_expect_tx(&full_b[sb], kFullBStage);
+              bf16* dst = reinterpret_cast<bf16*>(smem + kFullB + sb * kFullBStage);
+              for (int h = 0; h < kStageSteps; ++h, dst += kKStep / 2, walk.next(steps)) {
+                const uint32_t k = walk.step(steps);
+                const int ch = cb * 64 + static_cast<int>(k & 3u) * 16;
+                const int tap = walk.kzy * 2 + static_cast<int>(k >> 4);  // Wp[kz][ky][kx]
+                tma_load_4d(dst, &w_map, &full_b[sb], 0, ch, tile.n0 / 64, tap);
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    const int lane = tid % 32;
+    uint8_t* staging = smem + kFullOut + wg * kOutBlock;
+    float acc[2][16][4];  // the two z planes 2 wg and 2 wg + 1 of the tile, 64 cells each
+    int ja = 0, jb = 0;   // halo boxes and Wp stages consumed so far
+    for (int t = block; t < n_tiles; t += grid) {
+      const Tile tile = tile_of(t, v);
+      bool first = true;  // the tile's first stage
+      for (int cb = 0; cb < blocks; ++cb) {
+        for (int dx = -1; dx <= 1; ++dx) {
+          const BoxSteps steps = box_steps(cb, dx, v.pc);
+          if (steps.n == 0) continue;
+          const int sa = ja % kFullAStages;
+          mbar_wait(&full_a[sa], (ja / kFullAStages) & 1);
+          const bf16* box = reinterpret_cast<const bf16*>(smem + sa * kFullABox);
+          StepWalk walk;
+          for (int s = 0; s < 4 * steps.n; s += kStageSteps, ++jb) {
+            // Each k-step's A descriptor: group q of its channels reads y + ky - qy and
+            // z + kz - qz, whole rows of 8 and planes of 80 cells into the box (valid starts).
+            uint64_t da[kStageSteps][2];
+#pragma unroll
+            for (int h = 0; h < kStageSteps; ++h, walk.next(steps)) {
+              const uint32_t k = walk.step(steps);
+              const int dy = (walk.kzy & 1) - static_cast<int>(k >> 2 & 1u);
+              const int dz = (walk.kzy >> 1) - static_cast<int>(k >> 3 & 1u);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                da[h][i] = desc_k_major<kFullHaloRows, 64>(
+                    box + (kTX * (dy + 1) + kFullPlaneRows * (2 * wg + i + dz + 1)) * 64, static_cast<int>(k & 3u));
+              }
+            }
+            const int sb = jb % kFullBStages;
+            mbar_wait(&full_b[sb], (jb / kFullBStages) & 1);
+            const bf16* wt = reinterpret_cast<const bf16*>(smem + kFullB + sb * kFullBStage);
+            fence_operand(acc[0]);
+            fence_operand(acc[1]);
+            wgmma_fence();
+#pragma unroll
+            for (int h = 0; h < kStageSteps; ++h) {
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                wgmma_ss<128, 1>(acc[i], da[h][i], desc_mn_major<16, 128>(wt + h * (kKStep / 2), 0),
+                                 first && h == 0 ? 0 : 1);
+              }
+            }
+            wgmma_commit();
+            wgmma_wait<1>();  // the stage before this one has been read
+            if (!first && lane == 0) {
+              mbar_arrive(&empty_b[(jb - 1) % kFullBStages]);
+              if (s == 0) mbar_arrive(&empty_a[(ja - 1) % kFullAStages]);  // its box's last stage
+            }
+            first = false;
+          }
+          ++ja;
+        }
+      }
+      wgmma_wait_all();
+      fence_operand(acc[0]);
+      fence_operand(acc[1]);
+      if (lane == 0) {
+        mbar_arrive(&empty_b[(jb - 1) % kFullBStages]);
+        mbar_arrive(&empty_a[(ja - 1) % kFullAStages]);
+      }
+
+      store_planes(acc, staging, &out_map, tile, wg, tid);
+    }
+    if (tid == 0) bulk_wait_all();
+  }
+}
+
+// Map of Wp (8 taps, pc input, pc output channels) whose box is one wgmma k-step of B: 16 input
+// channels by 128 output channels, as two 64-column blocks one after the other (the column
+// block is a dimension of its own, between the input channel and the tap), 128-byte swizzled.
+bool kstep_map(CUtensorMap* map, const void* wp, int pc) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(pc) * 2;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(pc), static_cast<cuuint64_t>(pc / 64), 8};
+  const cuuint64_t strides[3] = {row, 128, row * pc};
+  const cuuint32_t box[4] = {64, 16, 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(wp), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -436,14 +675,35 @@ int phase_conv_noshift_sm90(const void* x, const void* wp, void* out, int b, int
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 full variant (see the header): x, out (b, z, y, xdim, pc), wp (2, 2, 2, pc, pc);
+// pc a multiple of 128.
+int phase_conv_full_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
+                         cudaStream_t stream) {
+  if (pc % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Volume v{pc, (xdim + kTX - 1) / kTX, (y + kTY - 1) / kTY, (z + kTZ - 1) / kTZ, pc / 128};
+  const long long n_tiles = static_cast<long long>(b) * v.tiles_z * v.tiles_y * v.tiles_x * v.n_blocks;
+  if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map, w_map, out_map;
+  if (!tile_map_5d(&x_map, x, b, z, y, xdim, pc, kTX, kTY + 2, kTZ + 2) || !kstep_map(&w_map, wp, pc) ||
+      !tile_map_5d(&out_map, out, b, z, y, xdim, pc, kTX, kTY, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = kFullBytes + 1024;  // + the slack align_1024 takes
+  const cudaError_t err = cudaFuncSetAttribute(full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = n_tiles < sm_count() ? static_cast<int>(n_tiles) : sm_count();
+  full_kernel<<<grid, kThreads, kSmem, stream>>>(x_map, w_map, out_map, v, static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Writes to *bytes the dynamic shared memory that the bf16 kernel of `variant` (cips_phase_conv's
-// code: 3 dot, 1 noshift) launches with at `pc` (ptxas reports only static shared memory).
-// Returns a CUDA error code.
+// code: 3 dot, 1 noshift, 0 full) launches with at `pc` (ptxas reports only static shared
+// memory). Returns a CUDA error code.
 extern "C" int cips_phase_conv_smem(int variant, int pc, void* bytes) {
   int* out = static_cast<int*>(bytes);
   if (variant == 3 && pc == 128) *out = DotLayout<128>::kBytes + 1024;
   else if (variant == 3 && pc == 256) *out = DotLayout<256>::kBytes + 1024;
   else if (variant == 1 && pc % 128 == 0 && pc > 0) *out = kNsBytes + 1024;
+  else if (variant == 0 && pc % 128 == 0 && pc > 0) *out = kFullBytes + 1024;
   else return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }

@@ -15,6 +15,10 @@ Each kernel wrapper takes the plain version only for tensors on the CPU. For
 CUDA tensors it launches the kernel or raises; there is no fallback. Its
 `launches` attribute counts kernel launches.
 
+Any scale, as in the JAX package: the bf16 kernels take the row max before the
+scale, so the wrappers hand every kernel a positive one (`_positive_scale`:
+a negated K for a negative scale, a zero K for scale 0).
+
 Layout: q (B, H, Lq, Dh), k and v (B, H, Lk, Dh); any L.
 """
 
@@ -96,7 +100,17 @@ def _library() -> ctypes.CDLL:
         "cips_flash_attention_fwd": [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr],
         "cips_flash_attention_bwd_dq": [ptr] * 7 + [i32] * 5 + [ctypes.c_float, ptr],
         "cips_flash_attention_bwd_dkv": [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr],
+        "cips_flash_attention_bwd_dq_smem": [i32, ptr],
     })
+
+
+def dq_kernel_smem(head_dim: int) -> int:
+    """Dynamic shared memory, in bytes, that the bf16 dQ kernel launches with at
+    ``head_dim`` (ptxas reports only static shared memory)."""
+    value = ctypes.c_int(0)
+    cuda_library.check(_library().cips_flash_attention_bwd_dq_smem(head_dim, ctypes.addressof(value)),
+                       "cips_flash_attention_bwd_dq_smem")
+    return value.value
 
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
@@ -138,12 +152,23 @@ def _check_cuda_residuals(q: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _positive_scale(k: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float, float]:
+    """(k', scale', dk_sign) with scale' > 0 and scale' q k'^T = scale q k^T, for
+    the kernels, whose bf16 versions take the row max before the scale: a negative
+    scale negates k (exact in every dtype), and scale 0 zeroes k with scale' 1
+    (uniform P, lse = log Lk, dQ = 0). The kernels' dK is the gradient for k', so
+    the gradient for k is dk_sign times it (0 at scale 0, where dK is 0)."""
+    if scale > 0:
+        return k, scale, 1.0
+    if scale < 0:
+        return -k, -scale, -1.0
+    return torch.zeros_like(k), 1.0, 0.0
+
+
 def _launch(name: str, q: torch.Tensor, k: torch.Tensor, *pointers: int, scale: float) -> None:
     """Calls the C entry point ``name`` with the data pointers, then the sizes,
     dtype flag, scale and q's current stream; raises on a CUDA error."""
     b, h, lq, d = q.shape
-    if q.dtype == torch.bfloat16 and not scale > 0:
-        raise ValueError(f"the bf16 kernels take scale > 0 (the row max is taken before the scale), got {scale}")
     with torch.cuda.device(q.device):
         rc = getattr(_library(), name)(
             *pointers, b * h, lq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(scale),
@@ -166,6 +191,7 @@ def flash_attention_forward(
     if _is_cpu(q, k, v):
         return flash_attention_reference(q, k, v, scale)
     _check_cuda_inputs(q, k, v)
+    k, scale, _ = _positive_scale(k, scale)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("cips_flash_attention_fwd", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -183,6 +209,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Ten
         return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta, scale)
     _check_cuda_inputs(q, k, v)
     _check_cuda_residuals(q, dout, lse, delta)
+    k, scale, _ = _positive_scale(k, scale)
     dq = torch.empty_like(q)
     _launch("cips_flash_attention_bwd_dq", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), scale=scale)
@@ -199,10 +226,13 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float) -> Tuple[to
         return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale)
     _check_cuda_inputs(q, k, v)
     _check_cuda_residuals(q, dout, lse, delta)
+    k, scale, dk_sign = _positive_scale(k, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("cips_flash_attention_bwd_dkv", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), scale=scale)
     flash_attention_bwd_dkv.launches += 1
+    if dk_sign != 1.0:
+        dk.mul_(dk_sign)
     return dk, dv
 
 

@@ -1,7 +1,7 @@
 """Phase-structured packed 3-D k3 convolution: hand-written CUDA kernels, their
 variants, and their plain versions.
 
-The kernels (`csrc/phase_conv.cu`; the bf16 `dot` and `noshift` in
+The kernels (`csrc/phase_conv.cu`; the bf16 `full`, `noshift` and `dot` in
 `csrc/phase_conv_sm90.cu`, TMA + wgmma) replace the Pallas TPU kernel
 `cips_tpu/ops/pallas/phase_conv.py:_kernel` (launched by `phase_conv_apply`) and
 the three TPU probes of it, as variants of one C entry point:
@@ -158,8 +158,8 @@ def _launch(x: torch.Tensor, wp: Optional[torch.Tensor], code: int) -> torch.Ten
 
 
 def kernel_smem(variant: str, pc: int) -> int:
-    """Dynamic shared memory, in bytes, that the bf16 `dot` or `noshift` kernel
-    launches with at ``pc`` packed channels (ptxas reports only static shared memory)."""
+    """Dynamic shared memory, in bytes, that the bf16 `full`, `noshift` or `dot`
+    kernel launches with at ``pc`` packed channels (ptxas reports only static shared memory)."""
     value = ctypes.c_int(0)
     cuda_library.check(_library().cips_phase_conv_smem(VARIANTS[variant], pc, ctypes.addressof(value)),
                        "cips_phase_conv_smem")

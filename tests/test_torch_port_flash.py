@@ -131,8 +131,16 @@ def test_kernel_rejects_bad_inputs_on_card(cuda_device):
         fa.flash_attention_forward(q[..., :16], q[..., :16], q[..., :16])
     with pytest.raises(ValueError):
         fa.flash_attention_forward(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
-    with pytest.raises(ValueError):  # the bf16 kernel takes the row max before a positive scale
-        fa.flash_attention_forward(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.0)
+    # Any scale, as JAX's kernel takes: the wrapper maps a negative or zero scale onto a positive
+    # one (negated or zero K) before the bf16 kernel, which takes the row max before the scale.
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    qs = torch.randn((1, 2, 100, 32), device=cuda_device, generator=g).bfloat16()
+    ks, vs = (torch.randn((1, 2, 77, 32), device=cuda_device, generator=g).bfloat16() for _ in range(2))
+    for scale in (-0.3, 0.0):
+        out, lse = fa.flash_attention_forward(qs, ks, vs, scale)
+        ref_out, ref_lse = fa.flash_attention_reference(qs.float(), ks.float(), vs.float(), scale)
+        assert (out.float() - ref_out).abs().max().item() <= 1e-2 * ref_out.abs().max().item()
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
     # Inputs that need a gradient are served: FlashAttention records the backward.
     qg = q.clone().requires_grad_()
     before = fa.flash_attention_forward.launches

@@ -67,6 +67,33 @@ def test_plain_backward_matches_pallas_interpret_bf16(shape, block_q, block_k):
         np.testing.assert_allclose(t.float().numpy(), w, atol=1e-2 * np.abs(w).max(), rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("scale", [-0.3, 0.0], ids=["negative", "zero"])
+def test_scale_mapping_matches_pallas_interpret(scale):
+    # The CUDA branch runs every kernel on (k', scale') = fa._positive_scale(k, scale) and
+    # multiplies dK by its sign; composed with the plain versions, that mapping must give
+    # JAX's forward and backward at the scale itself. fp32 throughout: the tolerance of
+    # test_plain_backward_matches_pallas_interpret_f32.
+    shape, block_q, block_k = (1, 2, 256, 32), 64, 128
+    q, k, v, g = _arrays(shape, 4, seed=4)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    out, lse = _flash_forward(jq, jk, jv, scale, block_q, block_k, True)
+    want = _flash_backward_pallas(scale, block_q, block_k, True, (jq, jk, jv, out, lse), jnp.asarray(g))
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    k2, scale2, dk_sign = fa._positive_scale(tk, scale)
+    assert scale2 > 0
+    got_out, got_lse = fa.flash_attention_reference(tq, k2, tv, scale2)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(out), atol=2e-5, rtol=2e-5, err_msg="out")
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse), atol=2e-5, rtol=2e-5, err_msg="lse")
+    t_out, t_lse = torch.from_numpy(np.array(out)), torch.from_numpy(np.array(lse))
+    delta = fa._delta(tg, t_out)
+    dq = fa.flash_attention_bwd_dq_reference(tq, k2, tv, tg, t_lse, delta, scale2)
+    dk, dv = fa.flash_attention_bwd_dkv_reference(tq, k2, tv, tg, t_lse, delta, scale2)
+    for name, w, t in zip(("dq", "dk", "dv"), want, (dq, dk * dk_sign, dv)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), atol=2e-5, rtol=2e-5, err_msg=name)
+    if scale == 0:  # the softmax is uniform: dQ and dK are exactly 0
+        assert not dq.any() and not (dk * dk_sign).any()
+
+
 @pytest.mark.parametrize("shape", [(1, 2, 256, 32), (1, 1, 200, 64)])
 def test_autograd_function_matches_jax_grad(shape):
     # The loss of tests/test_flash_attention.py: sum((attention - target)^2);
@@ -149,13 +176,20 @@ def test_bwd_kernels_match_plain_version_on_card(cuda_device, dtype, tol):
     # plain backward in fp32 on the same inputs: bf16 rounds dS, P and the grads
     # (measured worst about 0.55 %); fp32 differs in summation order only.
     # Every tile edge (L 1, 17, 127, 129 and the flagship's 2,304 plus one, at Dh 32, 64
-    # and 128) and the causal generator's 18,432 tokens.
+    # and 128), the causal generator's 18,432 tokens, and the dQ kernel's key-side edges:
+    # fewer keys than one tile, Lq != Lk both ways and ragged, at Dh 128 too; then a
+    # negative and a zero scale, which the wrapper maps onto a positive one.
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    for shape in ((1, 4, 2304, 32), (1, 2, 1000, 32), (1, 1, 333, 64), (1, 1, 130, 128), (1, 2, 1, 32),
-                  (1, 2, 17, 64), (1, 2, 127, 128), (1, 2, 129, 32), (1, 1, 2305, 32), (1, 1, 129, 64),
-                  (1, 1, 18432, 32)):
-        q, k, v, dout = (torch.randn(shape, device=cuda_device, generator=g).to(dtype) for _ in range(4))
-        scale = shape[-1] ** -0.5
+    cases = [((1, 4, 2304, 32), None), ((1, 2, 1000, 32), None), ((1, 1, 333, 64), None), ((1, 1, 130, 128), None),
+             ((1, 2, 1, 32), None), ((1, 2, 17, 64), None), ((1, 2, 127, 128), None), ((1, 2, 129, 32), None),
+             ((1, 1, 2305, 32), None), ((1, 1, 129, 64), None), ((1, 1, 18432, 32), None),
+             ((1, 2, 100, 32), 40), ((1, 2, 130, 64), 77), ((1, 2, 77, 64), 130), ((1, 1, 129, 128), 191),
+             ((1, 2, 1, 128), 130), ((1, 2, 200, 32), 300, -0.3), ((1, 2, 200, 64), 150, 0.0)]
+    for shape, lk, *scales in cases:
+        kshape = shape if lk is None else (*shape[:2], lk, shape[3])
+        q, dout = (torch.randn(shape, device=cuda_device, generator=g).to(dtype) for _ in range(2))
+        k, v = (torch.randn(kshape, device=cuda_device, generator=g).to(dtype) for _ in range(2))
+        scale = scales[0] if scales else shape[-1] ** -0.5
         out, lse = fa.flash_attention_forward(q, k, v, scale)
         delta = (dout.float() * out.float()).sum(-1)
         before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
@@ -167,12 +201,15 @@ def test_bwd_kernels_match_plain_version_on_card(cuda_device, dtype, tol):
         f32 = [t.float() for t in (q, k, v, dout)]
         want = (fa.flash_attention_bwd_dq_reference(*f32, lse, delta, scale),
                 *fa.flash_attention_bwd_dkv_reference(*f32, lse, delta, scale))
-        # At L = 1 the softmax is constant, so dQ and dK are exactly 0: a grad whose reference
-        # is all zero is held to the largest max|grad| of the three (dV's, which is dO's there).
+        # At Lk = 1 or scale 0 the softmax is constant, so dQ and dK are exactly 0 and both sides
+        # hold only fp32 rounding noise of dP - delta (about 1e-8): they are held to the largest
+        # max|grad| of the three (dV's).
         largest = max(w.abs().max().item() for w in want)
-        for t, w in zip(got, want):
+        constant = kshape[2] == 1 or scale == 0
+        for name, t, w in zip(("dq", "dk", "dv"), got, want):
             assert t.dtype == dtype
-            assert (t.float() - w).abs().max().item() <= tol * (w.abs().max().item() or largest)
+            ref = largest if constant and name != "dv" else w.abs().max().item()
+            assert (t.float() - w).abs().max().item() <= tol * ref, (shape, lk, scale, name)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ from cips_tpu.ops.pallas.phase_conv import phase_conv as jax_phase_conv
 from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.ops import phase_conv as pc
 from cips_tpu_torch.ops import s2d
-from cips_tpu_torch.scripts import probe_phase_conv
+from cips_tpu_torch.scripts import probe_phase_conv, time_full_kernel
 
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 
@@ -289,6 +289,17 @@ def test_probe_entry_on_cpu(argv, monkeypatch):
         assert set(result) == set(probe_phase_conv.MODES[argv[0]] if len(argv) == 1 else argv[1:])
     if argv[0] == "stages":
         assert all(r["finite"] for r in result.values())
+
+
+def test_full_timing_copies_edit_the_source():
+    # The timing-only copies of the bf16 full kernel are text edits of its source; each must
+    # find its target exactly once, so that they follow the kernel as it changes.
+    with open(pathlib.Path(pc.cuda_library.CSRC) / "phase_conv_sm90.cu", encoding="utf-8") as f:
+        source = f.read()
+    for name, edits in time_full_kernel.COPIES.items():
+        assert (time_full_kernel.edited(source, edits) == source) == (name == "kernel"), name
+    with pytest.raises(ValueError, match="found 0 times"):
+        time_full_kernel.edited(source, [("no such text", "")])
 
 
 @pytest.fixture
