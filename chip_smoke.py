@@ -7,18 +7,21 @@ Phases (any failure raises and the script exits non-zero):
   2. build    — nvcc builds the kernel library from cips_tpu_torch/csrc/ (one
                 nvcc per source, all at once) and reports each kernel's
                 registers, spills (none allowed) and static shared memory
-                (-Xptxas -v) of the bf16 dQ and the TMA + wgmma phase conv
-                kernels, with the dynamic shared memory of each;
+                (-Xptxas -v) of the bf16 dQ and the Hopper phase conv
+                kernels (csrc/phase_conv_sm90.cu), with the dynamic shared
+                memory of each;
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
                 128, the causal generator's long attention (1, 1, 18432, 32)
                 and scale -0.3 and 0; then each kernel's device time (torch.profiler; its
                 eager time beside it) at the flagship's (2, 4, 2304, 32)
-                and the causal encoder's level-2 (2, 4, 18432, 32) shape beside
-                its three-term bound (operations, bytes, exponentials), its
-                plain version's time (flagship shape only) and the fastest of
-                SDPA's flash, efficient and cuDNN backends, each pinned
+                and the causal encoder's level-2 (2, 4, 18432, 32) shape in
+                bf16, and the fp32 kernels (--dtype f32) at the flagship's,
+                beside its three-term bound (operations, bytes, exponentials),
+                its plain version's time (flagship shape only) and the fastest
+                of SDPA's flash, efficient and cuDNN backends, each pinned and,
+                at the flagship's shape, first held to the plain versions
                 (library yardstick);
   4. serving  — cips_tpu_torch.cli.output_predict at the flagship's full width
                 and the full (96, 128, 96) volume in bf16 on a synthetic NIfTI
@@ -77,10 +80,11 @@ import torch
 FLAGSHIP_K = 5  # AV45 covariates: ABETA, Age, Sex, APOE4, PTEDUCAT
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
-# ex2 results per clock per SM on the special-function units (CUDA C Programming
-# Guide, arithmetic instruction throughput, compute capability 9.0); times the SM
-# count and the card's maximum SM clock from nvidia-smi.
+# ex2 results per clock per SM on the special-function units, and fp32 FMA lanes
+# per SM (CUDA C Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0); times the SM count and the card's maximum SM clock from nvidia-smi.
 EX2_PER_CLOCK_PER_SM = 16
+FP32_LANES_PER_SM = 128  # 2 operations a lane a clock (an FMA)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 SERVING_BATCH = 2
 N_SUBJECTS = 8
@@ -103,7 +107,9 @@ PHASE_CHECKS = ((PHASE_SHAPES[0], torch.bfloat16), (PHASE_SHAPES[1], torch.bfloa
                 ((1, 1, 2, 3, 128), torch.bfloat16))
 PHASE_VARIANTS = ("full", "noshift", "one_tap", "dot", "shift", "copy", "select")
 PHASE_EXACT = ("shift", "copy", "select")  # no sums: the kernel must equal the plain version
-PHASE_SM90 = (("dot", 128), ("dot", 256), ("noshift", 128), ("full", 128), ("full", 256))  # TMA + wgmma kernels
+# the kernels of csrc/phase_conv_sm90.cu (bf16 TMA + wgmma; copy, any dtype, by bulk copies)
+PHASE_SM90 = (("dot", 128), ("dot", 256), ("noshift", 128), ("full", 128), ("full", 256), ("one_tap", 128),
+              ("one_tap", 256), ("copy", 128))
 DESIGNS = {  # each kernel's design, for the kernels line
     "fwd": "TMA ring + wgmma (sm_90a): two warpgroups on even and odd key tiles, exp2, merged in shared memory",
     "dq": "TMA ring + wgmma (sm_90a): two warpgroups on even and odd key tiles, exp2, dS as register A, K read "
@@ -113,8 +119,10 @@ DESIGNS = {  # each kernel's design, for the kernels line
             "persistent, TMA-store epilogue",
     "noshift": "TMA halo boxes + wgmma, shifts as descriptor offsets; persistent, TMA-store epilogue",
     "dot": "TMA stream + wgmma on the summed weights (one GEMM); persistent, TMA-store epilogue",
-    "one_tap": "mma.sync implicit GEMM, zero-filling cp.async at shifted addresses",
-    "shift": "gather, 16 bytes a thread", "copy": "copy, 16 bytes a thread", "select": "elementwise, 16 bytes a thread",
+    "one_tap": "a TMA halo box per phase group at its x shift + wgmma on a resident Wp[0,0,0] slab, y/z shifts "
+               "as descriptor offsets; persistent, TMA-store epilogue",
+    "shift": "gather, 16 bytes a thread", "select": "elementwise, 16 bytes a thread",
+    "copy": "1-D bulk copies (cp.async.bulk) through a ring of shared-memory stages; persistent, one thread a CTA",
 }
 PHASE_ROWS = (  # TPU kernel, its line, the probe entry's subcommand that runs it, the variants that port it
     ("phase_conv", "cips_tpu/ops/pallas/phase_conv.py:50", "phase", ("full",)),
@@ -194,15 +202,18 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
 
 
 def device_ms(fn, iters: int, traces: int = 3) -> float:
-    """Device time of one call of ``fn``: every kernel and copy it launches, summed
-    from a torch.profiler trace of ``iters`` calls after 5 warm-up calls. The
-    host's own work per call (argument checks, tensor maps, ctypes, autograd)
-    is not in it, so a kernel of tens of microseconds is not timed by its host.
+    """Device time of one call of ``fn``: every kernel and copy it launches, from a
+    torch.profiler trace of ``iters`` calls after 5 warm-up calls, each kernel's
+    mean duration times its launches a call. The host's own work per call
+    (argument checks, tensor maps, ctypes, autograd) is not in it, so a kernel of
+    tens of microseconds is not timed by its host.
 
-    Now and then a trace comes back without its device records (CUPTI drops
-    them), although ``fn`` launched work: such a trace is taken again, up to
-    ``traces`` times, and if every one is empty the call is timed by CUDA events
-    instead, printed as such and counted in EVENT_TIMED."""
+    CUPTI drops device records now and then. Some of them (on an H100, 10-14 of
+    200 in every phase 9 trace): each kernel's mean over the records kept still
+    times it, where their sum over ``iters`` would read low; this is printed.
+    All of them: the trace is taken again, up to ``traces`` times, and if every
+    one is empty the call is timed by CUDA events instead, printed as such and
+    counted in EVENT_TIMED."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
@@ -213,9 +224,9 @@ def device_ms(fn, iters: int, traces: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-        if total > 0:
-            return total / 1e3 / iters
+        records = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        if records:
+            return kernel_ms_per_call(records, iters, fn)
         print(f"device_ms: trace {trace} of {traces} of {fn!r} holds no device time")
     EVENT_TIMED.append(repr(fn))
     ms = cuda_ms(fn, iters)
@@ -223,21 +234,48 @@ def device_ms(fn, iters: int, traces: int = 3) -> float:
     return ms
 
 
+def kernel_ms_per_call(records, iters: int, label) -> float:
+    """Device ms a call from a trace's device records (key_averages) over ``iters``
+    calls: a kernel recorded about n x iters times runs n times a call at its mean
+    duration; one recorded fewer than iters / 2 times is spread over the calls."""
+    total, lost = 0.0, 0
+    for e in records:
+        n = round(e.count / iters)
+        total += e.self_device_time_total * (n / e.count if n else 1 / iters)
+        lost += max(n * iters - e.count, 0)
+    if lost:
+        print(f"device_ms: the trace of {label!r} lost {lost} device records of {iters} calls; timed by the "
+              f"mean of those kept")
+    return total / 1e3
+
+
 @functools.cache
-def ex2_per_s() -> float:
-    """The card's exponential rate: EX2_PER_CLOCK_PER_SM x SMs x max SM clock."""
+def sm_clocks_per_s() -> float:
+    """SMs x the card's maximum SM clock (nvidia-smi), in SM clocks a second."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True, timeout=60)
     mhz = float(out.stdout.strip().splitlines()[0])
-    return EX2_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-def bound_ms(flops: float, nbytes: float, exps: float = 0.0) -> tuple:
+def ex2_per_s() -> float:
+    """The card's exponential rate: EX2_PER_CLOCK_PER_SM x SMs x max SM clock."""
+    return EX2_PER_CLOCK_PER_SM * sm_clocks_per_s()
+
+
+def fp32_flops_per_s() -> float:
+    """The card's fp32 rate outside the tensor cores: FP32_LANES_PER_SM x 2 x SMs x max SM clock."""
+    return FP32_LANES_PER_SM * 2 * sm_clocks_per_s()
+
+
+def bound_ms(flops: float, nbytes: float, exps: float = 0.0, dtype=torch.bfloat16) -> tuple:
     """Least time of a function on the card: its operations at the bf16
-    tensor-core peak, its bytes (each input read once, each output written
-    once) at the memory rate, or its exponentials on the special-function
-    units, whichever is longest; (ms, what bounds it)."""
-    terms = {"operations": flops / H100_BF16_FLOPS * 1e3, "bytes": nbytes / H100_BYTES_PER_S * 1e3}
+    tensor-core peak (fp32: the FMA rate, as the fp32 kernels run), its bytes
+    (each input read once, each output written once) at the memory rate, or
+    its exponentials on the special-function units, whichever is longest;
+    (ms, what bounds it)."""
+    rate = fp32_flops_per_s() if dtype == torch.float32 else H100_BF16_FLOPS
+    terms = {"operations": flops / rate * 1e3, "bytes": nbytes / H100_BYTES_PER_S * 1e3}
     if exps:
         terms["exponentials"] = exps / ex2_per_s() * 1e3
     by = max(terms, key=terms.get)
@@ -283,66 +321,87 @@ def kernel_checks(fa) -> float:
     return worst
 
 
-def sdpa_yardstick(q, k, v, dout, scale: float, iters: int) -> tuple:
+def sdpa_yardstick(q, k, v, dout, scale: float, iters: int, want=None) -> tuple:
     """SDPA's forward and backward (dq, dk and dv in one call) under each of the
     flash, efficient and cuDNN backends, pinned, by device time; a backend that
-    refuses the shape is skipped and printed, and none accepting it raises.
-    Returns ((fwd ms, backend), (bwd ms, backend)) of the fastest."""
+    refuses the shape or dtype is skipped and printed, and none accepting it raises.
+    ``want`` (out, dq, dk, dv) of the plain versions in fp32, if given: each
+    backend's results must agree with it within the kernels' own limits before
+    it is timed. Returns ((fwd ms, backend), (bwd ms, backend)) of the fastest."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    f32 = q.dtype == torch.float32
     fwd, bwd = {}, {}
     for name in SDPA_BACKENDS:
         try:
             with sdpa_kernel(getattr(SDPBackend, name)):
                 qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
                 out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+                if want is not None:
+                    got = (out, *torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True))
+                    errs = [((a.float() - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+                    tols = [TOL_F32_OUT_REL if f32 else TOL_BF16_OUT_REL] + 3 * [TOL_F32_GRAD_REL if f32 else
+                                                                                  TOL_BF16_GRAD_REL]
+                    print(f"SDPA {name} {tuple(q.shape)} {str(q.dtype)[6:]} against the plain versions in fp32, "
+                          f"of max|out| and max|grad|: out {errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, "
+                          f"dv {errs[3]:.3e} (tol {tols[0]:g}, {tols[1]:g})")
+                    check(all(e <= t for e, t in zip(errs, tols)),
+                          f"SDPA {name} computes another function at {tuple(q.shape)} {q.dtype}")
                 fwd[name] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
                 bwd[name] = device_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True),
                                       iters)
         except RuntimeError as err:
             print(f"SDPA {name} refuses {tuple(q.shape)}: {str(err).splitlines()[0][:200]}")
-    check(bool(fwd), f"no SDPA backend accepts {tuple(q.shape)}")
-    print(f"SDPA {tuple(q.shape)} bf16 (pinned backends): " + "; ".join(
+    check(bool(fwd), f"no SDPA backend accepts {tuple(q.shape)} {q.dtype}")
+    print(f"SDPA {tuple(q.shape)} {str(q.dtype)[6:]} (pinned backends): " + "; ".join(
         f"{name} fwd {fwd[name]:.4f} ms, bwd {bwd[name]:.4f} ms" for name in fwd))
     best_f, best_b = min(fwd, key=fwd.get), min(bwd, key=bwd.get)
     return (fwd[best_f], best_f), (bwd[best_b], best_b)
 
 
-def flash_timing(fa, shape, plain: bool) -> dict:
+def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16) -> dict:
     """Each flash kernel's device time (``ms``) and its time launched eagerly
     from Python (``eager_ms``, CUDA events over the calls after 20 warm-up, the
     host's work per call included) beside its three-term bound, its plain
-    version's time (when ``plain``) and the fastest pinned SDPA call's device
-    time; {"fwd" | "dq" | "dkv": row}."""
+    version's time and the fastest pinned SDPA call's device time, SDPA first
+    held to the plain versions (both when ``plain``); {"fwd" | "dq" | "dkv": row}.
+    fp32 runs the fp32 kernels, which ``--dtype f32`` sends every attention to."""
     b, h, l, d = shape
     iters = 200 if l <= 4096 else 50
-    q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, torch.bfloat16, seed=1)
-    (sdpa_f, name_f), (sdpa_b, name_b) = sdpa_yardstick(q, k, v, dout, scale, iters)
+    q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, seed=1)
+    want = None
+    if plain:
+        f32 = [t.float() for t in (q, k, v, dout)]
+        want = (fa.flash_attention_reference(*f32[:3], scale)[0], fa.flash_attention_bwd_dq_reference(
+            *f32, lse, delta, scale), *fa.flash_attention_bwd_dkv_reference(*f32, lse, delta, scale))
+    (sdpa_f, name_f), (sdpa_b, name_b) = sdpa_yardstick(q, k, v, dout, scale, iters, want)
+    del want
     pairs = b * h * l * l
+    size = q.element_size()
     kernels = {
-        # 4 B H L^2 Dh operations; q, k, v, out (bf16) and lse; one exponential per score
+        # 4 B H L^2 Dh operations; q, k, v, out and lse; one exponential per score
         "fwd": (lambda: fa.flash_attention_forward(q, k, v, scale),
                 lambda: fa.flash_attention_reference(q, k, v, scale),
-                4.0 * pairs * d, 4 * b * h * l * d * 2 + b * h * l * 4, sdpa_f, name_f),
-        # dQ 6 B H L^2 Dh operations, dK/dV 8; each reads q, k, v, dO (bf16) and lse, delta
-        # (fp32) and writes its grads (bf16); each recomputes one exponential per score
+                4.0 * pairs * d, 4 * b * h * l * d * size + b * h * l * 4, sdpa_f, name_f),
+        # dQ 6 B H L^2 Dh operations, dK/dV 8; each reads q, k, v, dO and lse, delta (fp32)
+        # and writes its grads; each recomputes one exponential per score
         "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
                lambda: fa.flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta, scale),
-               6.0 * pairs * d, 5 * b * h * l * d * 2 + 2 * b * h * l * 4, sdpa_b, name_b),
+               6.0 * pairs * d, 5 * b * h * l * d * size + 2 * b * h * l * 4, sdpa_b, name_b),
         "dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale),
                 lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale),
-                8.0 * pairs * d, 6 * b * h * l * d * 2 + 2 * b * h * l * 4, sdpa_b, name_b),
+                8.0 * pairs * d, 6 * b * h * l * d * size + 2 * b * h * l * 4, sdpa_b, name_b),
     }
     rows = {}
     for kind, (kernel, reference, flops, nbytes, library_ms, library) in kernels.items():
         ms = device_ms(kernel, iters)
         eager_ms = cuda_ms(kernel, iters, warmup=20)
         plain_ms = cuda_ms(reference, 20) if plain else None
-        bound, bound_by = bound_ms(flops, nbytes, float(pairs))
+        bound, bound_by = bound_ms(flops, nbytes, float(pairs), dtype)
         yardstick = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
-        print(f"flash {kind} {shape} bf16: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call eagerly), "
-              f"plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, {yardstick} {library.lower()} "
+        print(f"flash {kind} {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call "
+              f"eagerly), plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, {yardstick} {library.lower()} "
               f"{library_ms:.4f} ms on the device ({ms / library_ms:.2f}x), bound {bound:.5f} ms ({bound_by}); "
               f"{bound / ms:.1%} of bound")
         rows[kind] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -459,21 +518,21 @@ def bwd_kernel_checks(fa) -> dict:
 
 
 def sm90_kernel_report(report: str, fa, pc) -> None:
-    """One line for each TMA + wgmma kernel that has no other report here (the bf16 dQ
+    """One line for each Hopper kernel that has no other report here (the bf16 dQ
     kernel at each Dh, every kernel of csrc/phase_conv_sm90.cu) from nvcc's -Xptxas -v
     report (registers, spills, static shared memory), then the dynamic shared memory
     that its launcher asks for."""
     found = 0
     for name, body in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)(?=Compiling entry|\Z)",
                                  report, flags=re.S):
-        kernel = re.search(r"(flash_bwd_dq_bf16_kernel|phase_conv_sm90_cu\w*?(?:dot_kernel|noshift_kernel|full_kernel))"
-                           r"(?:ILi(\d+))?", name)
+        kernel = re.search(r"(flash_bwd_dq_bf16_kernel|phase_conv_sm90_cu\w*?"
+                           r"(?:dot_kernel|noshift_kernel|full_kernel|one_tap_kernel|copy_kernel))(?:ILi(\d+))?", name)
         if kernel is None:
             continue
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         static = re.search(r"(\d+) bytes smem", body)
-        label = re.sub(r"^phase_conv_sm90_cu\w*?(?=dot|noshift|full)", "", kernel.group(1)) + (
+        label = re.sub(r"^phase_conv_sm90_cu\w*?(?=dot|noshift|full|one_tap|copy)", "", kernel.group(1)) + (
             f"<{kernel.group(2)}>" if kernel.group(2) else "")
         print(f"ptxas {label}: {regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{' / '.join(spills.groups()) if spills else '?'} bytes, static shared memory "
@@ -481,17 +540,17 @@ def sm90_kernel_report(report: str, fa, pc) -> None:
         check(spills is None or spills.groups() == ("0", "0"), f"ptxas reports spills in {label}")
         found += 1
     if "nvcc done" in report:  # else the library was up to date and nothing was compiled
-        check(found == 7, f"the build report names {found} of the 7 kernels above (dQ at 3 Dh, dot at 2 pc, "
-                          f"noshift, full)")
+        check(found == 10, f"the build report names {found} of the 10 kernels above (dQ at 3 Dh, dot at 2 pc, "
+                           f"noshift, full, one_tap at 2 pc, copy)")
     for dh in fa.HEAD_DIMS:
         print(f"dynamic shared memory: bf16 dQ at Dh {dh}: {fa.dq_kernel_smem(dh)} bytes (a block may have 232,448)")
     for variant, width in PHASE_SM90:
-        print(f"dynamic shared memory: bf16 {variant} at pc {width}: {pc.kernel_smem(variant, width)} bytes "
-              f"(a block may have 232,448)")
+        label = "copy (any dtype, any pc)" if variant == "copy" else f"bf16 {variant} at pc {width}"
+        print(f"dynamic shared memory: {label}: {pc.kernel_smem(variant, width)} bytes (a block may have 232,448)")
 
 
 def phase_source(variant: str) -> str:
-    """The CUDA source of a phase conv variant's bf16 kernel."""
+    """The CUDA source of a phase conv variant's bf16 kernel (copy: of both dtypes)."""
     sm90 = {v for v, _ in PHASE_SM90}
     return "cips_tpu_torch/csrc/" + ("phase_conv_sm90.cu" if variant in sm90 else "phase_conv.cu")
 
@@ -902,8 +961,11 @@ def main() -> int:
     with uncounted(fa):
         fwd_err = kernel_checks(fa)
         bwd_err = bwd_kernel_checks(fa)
-        flash_at = {TRAIN_ATTN: flash_timing(fa, TRAIN_ATTN, plain=True),
-                    CAUSAL_ATTN: flash_timing(fa, CAUSAL_ATTN, plain=False)}
+        flash_at = {"x".join(map(str, TRAIN_ATTN)): flash_timing(fa, TRAIN_ATTN, plain=True),
+                    "x".join(map(str, CAUSAL_ATTN)): flash_timing(fa, CAUSAL_ATTN, plain=False),
+                    # the fp32 kernels, on the train and serving paths under --dtype f32
+                    "x".join(map(str, TRAIN_ATTN)) + " f32": flash_timing(fa, TRAIN_ATTN, plain=True,
+                                                                          dtype=torch.float32)}
 
     cfg = load_config(None, "training.json")
     train_cfg = cfg["training"]
@@ -1149,10 +1211,10 @@ def main() -> int:
     ):
         source = "cips_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if kind == "fwd" else "flash_attention_bwd.cu")
         kernels.append({"name": name, "route": "cuda", "source": source, "design": DESIGNS[kind],
-                        "replaces": replaces, "launches": launches, "max_abs_err": err, **flash_at[TRAIN_ATTN][kind],
-                        "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
-                                                           for k, t in rows[kind].items()}
-                               for shape, rows in flash_at.items()}})
+                        "replaces": replaces, "launches": launches, "max_abs_err": err,
+                        **flash_at["x".join(map(str, TRAIN_ATTN))][kind],
+                        "at": {label: {k: round(t, 6) if isinstance(t, float) else t for k, t in rows[kind].items()}
+                               for label, rows in flash_at.items()}})
     probe = PHASE_SHAPES[0]
     for name, replaces, _, variants in PHASE_ROWS:
         head = phase_timing[probe][variants[0]]  # the row's first variant at the probe shape

@@ -1,13 +1,13 @@
 // Hopper (sm_90a) building blocks of the flash-attention forward, dQ and dK/dV kernels and of
-// the phase conv's dot, noshift and full kernels: TMA tile loads that complete on mbarriers and TMA tile
-// stores, warpgroup matrix products (wgmma) on swizzled shared-memory tiles, and the host-side
-// tensor maps that describe those tiles. Inline PTX only (no CuTe), so a file that includes
-// this header builds in seconds.
+// the phase conv's dot, noshift, full, one_tap and copy kernels: TMA tile loads that complete on
+// mbarriers and TMA tile stores, 1-D bulk copies, warpgroup matrix products (wgmma) on swizzled
+// shared-memory tiles, and the host-side tensor maps that describe those tiles. Inline PTX only
+// (no CuTe), so a file that includes this header builds in seconds.
 //
 // Tiles. A (ROWS, DH) bf16 tile lies in shared memory as TMA writes it with the swizzle of
-// its row width: rows of S = min(2 DH, 128) bytes (SWIZZLE_64B at DH 32, SWIZZLE_128B at
-// DH 64 and 128); at DH 128 as two column blocks of (ROWS, 64), one after the other. Every
-// tile starts on a 1024-byte boundary. One tile serves both ways a product reads it:
+// its row width: rows of S = min(2 DH, 128) bytes (SWIZZLE_32B at DH 16, SWIZZLE_64B at DH
+// 32, SWIZZLE_128B at DH 64 and 128); at DH 128 as two column blocks of (ROWS, 64), one after
+// the other. Every tile starts on a 1024-byte boundary. One tile serves both ways a product reads it:
 //   K-major (the product sums over DH, e.g. the B operand of Q K^T): k-step c of 16 columns
 //     is column block c / (S / 32), plus (c % (S / 32)) * 32 bytes inside the swizzled row;
 //     8-row groups lie 8 S bytes apart (the descriptor's stride offset, SBO);
@@ -32,7 +32,7 @@ using bf16 = __nv_bfloat16;
 
 // Row width in bytes of a swizzled (ROWS, DH) tile, and the swizzle of that width.
 template <int DH>
-constexpr int kRowBytes = DH >= 64 ? 128 : 64;
+constexpr int kRowBytes = DH >= 64 ? 128 : 2 * DH;
 
 template <int ROWS, int DH>
 constexpr int kTileBytes = ROWS * DH * 2;
@@ -141,6 +141,22 @@ __device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, const void*
   asm volatile("cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)),
                "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global `src` into shared
+// `dst`, completing on `bar` as that many transaction bytes: a 1-D bulk copy, no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared `src` to global `dst`, in the issuing thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
+               "r"(bytes)
                : "memory");
 }
 
@@ -393,25 +409,29 @@ inline bool tile_map(CUtensorMap* map, const void* base, int bh, int len, int dh
 }
 
 // Map of a contiguous channels-last bf16 volume (b, z, y, x, c), c a multiple of 64, whose
-// boxes are (64 channels, box_x, box_y, box_z, 1): one 128-byte row a cell, x fastest, then y,
-// then z, swizzled as the tiles above. So a box of R cells is the K-major (R, 64) tile of those
-// cells, and with box_x a multiple of 8 a shift of whole y or z rows inside it is a multiple of
-// 8 rows, a valid descriptor start. Cells outside the volume, at negative coordinates too, read
-// as zeros. False on failure.
+// boxes are (box_c channels, box_x, box_y, box_z, 1): one row of 2 box_c bytes a cell, x
+// fastest, then y, then z, swizzled as the tiles above (box_c 64, 32 or 16: rows of 128, 64
+// or 32 bytes). So a box of R cells is the K-major (R, box_c) tile of those cells, and with
+// box_x a multiple of 8 a shift of whole y or z rows inside it is a multiple of 8 rows, a valid
+// descriptor start. Cells outside the volume, at negative coordinates too, read as zeros.
+// False on failure.
 inline bool tile_map_5d(CUtensorMap* map, const void* base, int b, int z, int y, int x, int c, int box_x,
-                        int box_y, int box_z) {
+                        int box_y, int box_z, int box_c = 64) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(x), static_cast<cuuint64_t>(y),
                               static_cast<cuuint64_t>(z), static_cast<cuuint64_t>(b)};
   const cuuint64_t row = static_cast<cuuint64_t>(c) * 2;
   const cuuint64_t strides[4] = {row, row * x, row * x * y, row * x * y * z};
-  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(box_x), static_cast<cuuint32_t>(box_y),
-                             static_cast<cuuint32_t>(box_z), 1};
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(box_c), static_cast<cuuint32_t>(box_x),
+                             static_cast<cuuint32_t>(box_y), static_cast<cuuint32_t>(box_z), 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_c == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : box_c == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Map of n contiguous floats read in boxes of `box` elements; elements past n read as zeros.

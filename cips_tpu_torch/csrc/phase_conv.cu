@@ -1,14 +1,17 @@
 // Phase-structured packed 3-D k3 convolution for Hopper (sm_90a), and its probe variants,
-// bound to PyTorch through ctypes.
+// bound to PyTorch through ctypes: the C entry point cips_phase_conv and the kernels of every
+// variant that has no Hopper design of its own.
 //
 // Replaces the Pallas TPU kernels
 //   cips_tpu/ops/pallas/phase_conv.py:_kernel (launched by phase_conv_apply),
 //   scripts/probe_pallas_dot.py:k_dot4d, k_dot2d, k_sel,
 //   scripts/probe_pallas_bisect.py:_kernel (MODE nosel, sel, full),
-//   scripts/debug_pallas_stages.py:_kernel (STAGE 1, 2, 3, >= 4),
-// as one kernel whose variants are template parameters, plus two elementwise kernels. The
-// bf16 full, noshift and dot variants are TMA + wgmma kernels of their own
-// (phase_conv_sm90.cu), launched from cips_phase_conv below.
+//   scripts/debug_pallas_stages.py:_kernel (STAGE 1, 2, 3, >= 4).
+// Which file holds each variant's kernel:
+//   phase_conv.cu (here)  fp32 full, noshift, one_tap and dot (one FMA kernel, the variant a
+//                         template parameter); shift and select, both dtypes;
+//   phase_conv_sm90.cu    bf16 full, noshift, one_tap and dot (TMA + wgmma); copy, both
+//                         dtypes (1-D bulk copies through shared memory).
 //
 // The function. x is a space-to-depth packed volume (B, Z, Y, X, pc), channels last,
 // pc = 8C, phase-major: channel q*C + c holds input phase q = (qz*2 + qy)*2 + qx. With
@@ -19,7 +22,7 @@
 // and a lane select per axis. Here it is only an address: for output cell (z, y, x), tap
 // (kz, ky, kx) and input channel q*C + c the A operand reads
 //   x[b, z + kz - qz, y + ky - qy, x + kx - qx, q*C + c],
-// and a read that falls outside the volume is a zero-filled copy. Variants:
+// and a read that falls outside the volume is zero. Variants:
 //   kFull     the function above (phase_conv_apply; bisect full; stages >= 4);
 //   kNoShift  every group reads x[cell + k - 1] (bisect nosel);
 //   kOneTap   tap (0, 0, 0) only: x'[cell] . Wp[0, 0, 0] (stages 3);
@@ -34,32 +37,22 @@
 // operations: 0.1319 ms at 989 TFLOP/s. Reading x and writing out once is 6.04e8 bytes:
 // 0.1803 ms at 3.35 TB/s. So the function is bound by memory, at 0.1803 ms. At pc = 256
 // (C = 32) it is bound by operations: 5.22e11, 0.5277 ms. Run densely over all 8 taps and
-// all pc x pc weights, as the TPU kernel and this one do, the work is 2*8*cells*pc^2 =
-// 3.09e11 operations at pc = 128 (0.3127 ms): 2.37x the function's.
+// all pc x pc weights, as the kernels do, the work is 2*8*cells*pc^2 = 3.09e11 operations at
+// pc = 128 (0.3127 ms): 2.37x the function's.
 //
-// What the design of the bf16 one_tap kernel (and of fp32 for every variant with products)
-// does about that. An implicit GEMM:
-// M = output cells (the flattened b, z, y, x index, any Z, Y, X; the ragged last tile is
-// masked), N = 128 output channels a block (pc = 256 takes two N blocks), K = the variant's
-// taps x pc input channels in chunks of 32. A block of 8 warps computes 128 cells x 128 channels; its A
-// rows come straight from x by cp.async (16 bytes each, zero-filled where the shifted cell
-// leaves the volume), so x' is never materialised and the phase shift costs one address
-// computation per 16 bytes. Wp streams through shared memory one (tap, K chunk) at a time (Wp
-// is 32 KB a tap at pc 128 and 128 KB at pc 256, too large to keep whole), double-buffered
-// against the products. bf16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulators,
-// operands by ldmatrix); fp32 runs on plain FMAs (no TF32), as the flash fp32 kernels do,
-// for every variant with products. The epilogue rounds to x's dtype and stores channels
-// last. All offsets are 64-bit. The N blocks of one cell tile are neighbours in launch
-// order, so the second can find its A rows in L2.
-// The bf16 full variant runs on noshift's TMA + wgmma mainloop (phase_conv_sm90.cu), with a
-// shift per phase group. Not tried: skipping the 37 of 64 (q, p) weight blocks that are zero
+// The fp32 kernel, for every variant with products: an implicit GEMM over M = output cells
+// (the flattened b, z, y, x index, any Z, Y, X; the ragged last tile is masked), N = 128
+// output channels a block (pc = 256 takes two N blocks, neighbours in launch order), K = the
+// variant's taps x pc input channels in chunks of 16, on plain FMAs (no TF32), as the flash
+// fp32 kernels do. Each thread loads one float4 of A a chunk straight from x at the shifted
+// address (zero where the shifted cell leaves the volume), so x' is never materialised; Wp
+// streams through shared memory a (tap, chunk) at a time. All offsets are 64-bit.
+// Not tried in the bf16 full kernel: skipping the 37 of 64 (q, p) weight blocks that are zero
 // in Wp (the 2.37x above), which needs N split by output phase group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -76,7 +69,7 @@ __device__ __forceinline__ int axis_shift(int k, int q) {
   if (V == kFull) return k - q;
   if (V == kNoShift) return k - 1;
   if (V == kOneTap || V == kShift) return -q;
-  return 0;  // kDot, kCopy
+  return 0;  // kDot
 }
 
 struct Geometry {
@@ -113,149 +106,6 @@ __device__ __forceinline__ bool source(const Cell& cell, int kz, int ky, int kx,
                       static_cast<unsigned>(cell.x + dx) < static_cast<unsigned>(g.x);
   *delta = ((static_cast<long long>(dz) * g.y + dy) * g.x + dx) * g.pc;
   return inside;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fill) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = fill ? 16 : 0;  // 0: the 16 bytes are zero-filled, nothing is read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// ---- bf16: tensor cores --------------------------------------------------------------------
-
-constexpr int kBM = 128;             // cells a block
-constexpr int kBN = 128;             // output channels a block
-constexpr int kBK = 32;              // input channels a K chunk
-constexpr int kThreads = 256;        // 8 warps: 2 along M (64 cells) x 4 along N (32 channels)
-constexpr int kAStride = kBK + 8;    // padded A row (bf16): 80 bytes, conflict-free ldmatrix
-constexpr int kBStride = kBN + 8;    // padded B row (bf16): 272 bytes
-constexpr int kARows = kThreads / 4; // A rows one pass of the block loads (4 16-byte chunks a row)
-constexpr int kBRows = kThreads / 16;
-
-template <int V>
-__global__ void __launch_bounds__(kThreads) phase_conv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                                                   const __nv_bfloat16* __restrict__ w,
-                                                                   __nv_bfloat16* __restrict__ out, Geometry g) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][kBM * kAStride];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][kBK * kBStride];
-
-  const int n_tiles = g.pc / kBN;
-  const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * kBM;
-  const int n0 = (blockIdx.x % n_tiles) * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-
-  // This thread's A rows (kBM / kARows of them) and its 16-byte chunk within a row.
-  constexpr int kRowsPerThread = kBM / kARows;
-  const int a_col = (tid % 4) * 8;
-  Cell cells[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) cells[i] = decode(m0 + tid / 4 + i * kARows, g);
-
-  const int chunks = g.pc / kBK;
-  const int steps = taps_of(V) * chunks;
-
-  auto load = [&](int buf, int step) {
-    const int tap = step / chunks;
-    const int c0 = (step % chunks) * kBK;
-    const int kz = tap >> 2, ky = (tap >> 1) & 1, kx = tap & 1;
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int row = tid / 4 + i * kARows;
-      const int ci = c0 + a_col;
-      long long delta;
-      const bool inside = source<V>(cells[i], kz, ky, kx, ci, g, &delta);
-      const __nv_bfloat16* src = inside ? x + (m0 + row) * g.pc + delta + ci : x;
-      cp_async16(&as[buf][row * kAStride + a_col], src, inside);
-    }
-#pragma unroll
-    for (int i = 0; i < kBK / kBRows; ++i) {
-      const int kr = tid / 16 + i * kBRows;
-      const int nc = (tid % 16) * 8;
-      cp_async16(&bs[buf][kr * kBStride + nc], w + (static_cast<long long>(tap) * g.pc + c0 + kr) * g.pc + n0 + nc,
-                 true);
-    }
-    cp_async_commit();
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  load(0, 0);
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < steps) {
-      load(buf ^ 1, step + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(a[mi], &as[buf][(wm + mi * 16 + (lane & 15)) * kAStride + kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &bs[buf][(kk + (lane & 15)) * kBStride + wn + nj * 16 + (lane >> 4) * 8]);
-        b[nj * 2][0] = r[0];
-        b[nj * 2][1] = r[1];
-        b[nj * 2 + 1][0] = r[2];
-        b[nj * 2 + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();  // the next iteration's load overwrites this buffer
-  }
-
-  const int gr = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm + mi * 16 + gr + half * 8;
-      if (m >= g.cells) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn + ni * 8 + t * 2;
-        *reinterpret_cast<uint32_t*>(out + m * g.pc + n) =
-            pack_bf16x2(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
-      }
-    }
-  }
 }
 
 // ---- fp32: plain FMAs ----------------------------------------------------------------------
@@ -334,7 +184,7 @@ __global__ void __launch_bounds__(256) phase_conv_f32_kernel(const float* __rest
   }
 }
 
-// ---- shift, copy and select: one 16-byte vector a thread -----------------------------------
+// ---- shift and select: one 16-byte vector a thread ------------------------------------------
 
 template <int V, typename T>
 __global__ void __launch_bounds__(256) phase_gather_kernel(const T* __restrict__ x, T* __restrict__ out, Geometry g) {
@@ -343,15 +193,11 @@ __global__ void __launch_bounds__(256) phase_gather_kernel(const T* __restrict__
   for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; v < vectors;
        v += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long e = v * kVec;
+    const long long m = e / g.pc;
+    const int ci = static_cast<int>(e % g.pc);
     uint4 value = make_uint4(0u, 0u, 0u, 0u);
-    if (V == kCopy) {
-      value = *reinterpret_cast<const uint4*>(x + e);
-    } else {
-      const long long m = e / g.pc;
-      const int ci = static_cast<int>(e % g.pc);
-      long long delta;
-      if (source<V>(decode(m, g), 0, 0, 0, ci, g, &delta)) value = *reinterpret_cast<const uint4*>(x + e + delta);
-    }
+    long long delta;
+    if (source<V>(decode(m, g), 0, 0, 0, ci, g, &delta)) value = *reinterpret_cast<const uint4*>(x + e + delta);
     *reinterpret_cast<uint4*>(out + e) = value;
   }
 }
@@ -384,16 +230,6 @@ int elementwise_blocks(long long vectors) {
   return static_cast<int>(blocks < 132 * 32 ? blocks : 132 * 32);
 }
 
-// bf16 on the mma.sync kernel: one_tap only.
-template <int V>
-void launch_bf16(const void* x, const void* w, void* out, const Geometry& g, cudaStream_t s) {
-  static_assert(V == kOneTap, "bf16 full, noshift and dot run on phase_conv_sm90.cu");
-  const long long blocks = (g.cells + kBM - 1) / kBM * (g.pc / kBN);
-  phase_conv_bf16_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      g);
-}
-
 template <int V>
 void launch_f32(const void* x, const void* w, void* out, const Geometry& g, cudaStream_t s) {
   const long long blocks = (g.cells + kFM - 1) / kFM * (g.pc / kFN);
@@ -413,15 +249,20 @@ void launch_gather(bool bf16, const void* x, void* out, const Geometry& g, cudaS
 
 }  // namespace
 
-// The bf16 dot, noshift and full kernels (phase_conv_sm90.cu); each returns a CUDA error code.
+// The bf16 dot, noshift, full and one_tap kernels and the copy kernel (phase_conv_sm90.cu); each
+// returns a CUDA error code.
 int phase_conv_dot_sm90(const void* x, const void* w, void* out, long long cells, int pc, cudaStream_t stream);
 int phase_conv_full_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
                          cudaStream_t stream);
 int phase_conv_noshift_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
                             cudaStream_t stream);
+int phase_conv_one_tap_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
+                            cudaStream_t stream);
+int phase_conv_copy_sm90(const void* x, void* out, long long bytes, cudaStream_t stream);
 
 // x, out (b, z, y, xdim, pc) contiguous, 16-byte aligned; w (8, pc, pc) for the variants
-// with products, unused otherwise. pc a multiple of 128; the bf16 dot takes pc 128 or 256.
+// with products, unused otherwise. pc a multiple of 128; the bf16 dot and one_tap take pc 128
+// or 256.
 // Returns a CUDA error code.
 extern "C" int cips_phase_conv(const void* x, const void* w, void* out, int variant, int is_bf16, int b, int z,
                                int y, int xdim, int pc, void* stream) {
@@ -441,7 +282,8 @@ extern "C" int cips_phase_conv(const void* x, const void* w, void* out, int vari
       launch_f32<kNoShift>(x, w, out, g, s);
       break;
     case kOneTap:
-      bf16 ? launch_bf16<kOneTap>(x, w, out, g, s) : launch_f32<kOneTap>(x, w, out, g, s);
+      if (bf16) return phase_conv_one_tap_sm90(x, w, out, b, z, y, xdim, pc, s);
+      launch_f32<kOneTap>(x, w, out, g, s);
       break;
     case kDot:
       if (bf16) return phase_conv_dot_sm90(x, w, out, g.cells, pc, s);
@@ -451,8 +293,7 @@ extern "C" int cips_phase_conv(const void* x, const void* w, void* out, int vari
       launch_gather<kShift>(bf16, x, out, g, s);
       break;
     case kCopy:
-      launch_gather<kCopy>(bf16, x, out, g, s);
-      break;
+      return phase_conv_copy_sm90(x, out, g.cells * pc * (bf16 ? 2 : 4), s);
     case kSelect: {
       const long long vectors = g.cells * pc / (bf16 ? 8 : 4);
       if (bf16)

@@ -1,14 +1,16 @@
-// The bf16 `dot`, `noshift` and `full` variants of the phase conv for Hopper (sm_90a): TMA tile
-// loads that complete on mbarriers, wgmma on 128-byte-swizzled shared-memory tiles, persistent
-// CTAs (one an SM) of one producer warp and two consumer warpgroups. Launched by
-// cips_phase_conv (phase_conv.cu, variant codes kDot, kNoShift and kFull) for bf16; fp32 and
-// the other variants stay in phase_conv.cu.
+// The bf16 `dot`, `noshift`, `full` and `one_tap` variants of the phase conv for Hopper (sm_90a):
+// TMA tile loads that complete on mbarriers, wgmma on swizzled shared-memory tiles,
+// persistent CTAs (one an SM) of one producer warp and two consumer warpgroups; and `copy`, in
+// any dtype, as 1-D bulk copies through shared memory. Launched by cips_phase_conv
+// (phase_conv.cu, variant codes kDot, kNoShift, kFull, kOneTap and kCopy); fp32 products,
+// shift and select stay in phase_conv.cu.
 //
 // Replaces the Pallas TPU kernels
 //   scripts/probe_pallas_dot.py:k_dot4d, k_dot2d       (dot)
 //   scripts/probe_pallas_bisect.py:_kernel, MODE nosel (noshift)
 //   cips_tpu/ops/pallas/phase_conv.py:_kernel          (full; also bisect MODE full and
 //                                                       scripts/debug_pallas_stages.py stage >= 4)
+//   scripts/debug_pallas_stages.py:_kernel, STAGE 3    (one_tap), STAGE 1 (copy)
 //
 // dot: out = sum_{k<8} x . W[k]; x (cells, pc) channels last, W (8, pc, pc), out bf16.
 //   What bounds it on an H100 SXM. The function is x . S with S = sum_k W[k]: 2 cells pc^2
@@ -103,6 +105,48 @@
 //   barriers only) takes 0.64-0.80x noshift's whole time, so the load side (6 halo boxes
 //   and 64 Wp copies a tile) is what keeps full above noshift. A second producer warp, one
 //   for the boxes and one for Wp, did not help (scratch copy, one call).
+//
+// one_tap: out[c] = x'[c] . Wp[0, 0, 0], the channels of phase group q reading x[c - q]: full
+//   restricted to tap (0, 0, 0).
+//   What bounds it. 2 cells pc^2 operations (3.87e10 at (8, 48, 64, 48, 128), 0.039 ms) against
+//   x read and out written once, 6.04e8 bytes (0.180 ms): bound by memory, at pc 256 too.
+//   The design: noshift's tile and epilogue, halo boxes at (y0 - 1, z0 - 1), the weights
+//   resident. The shift is -q, in {-1, 0} on each axis, so a box of (8, 9, 5) cells serves the
+//   y and z shifts as row offsets 8 (1 - qy) + 72 (p + 1 - qz), multiples of 8 rows, and the x
+//   shift takes a box at x0 - qx. A box is one phase group's pc / 8 channels: (16, 8, 9, 5) in
+//   32-byte swizzled rows at pc 128, (32, 8, 9, 5) in 64-byte rows at pc 256, 8 a tile, each
+//   serving its group's pc / 128 k-steps, so no box byte goes unread; one commit group of 2
+//   or 4 wgmma a warpgroup a box, the same for every box, no branch. Wp[0, 0, 0]'s (pc, 128)
+//   column slab, 32 KB at pc 128 and 64 KB at pc 256, is loaded once and stays in shared
+//   memory for the CTA's life; the rest holds the staging tiles and a halo ring of 13 boxes
+//   (5 at pc 256). At pc 256 each tile is one of the two 128-channel output blocks, adjacent
+//   in tile order so that the second finds the boxes in L2; the grid is even, so a CTA meets
+//   one block only and keeps its slab. L2 reads per tile (256 cells): 360 cells x pc x 2
+//   bytes of boxes, 1.41x the tile's own input: 424 MB a call at (8, 48, 64, 48, 128), 1.70 GB
+//   at pc 256 (both output blocks). pc 128 or 256.
+//   Tried in bring-up (time_stage_kernels and phase 9 of chip_smoke.py, PERF.md): noshift's
+//   (64, 8, 9, 5) box, two a 64-channel block at x0 and x0 - 1, each serving the block's two
+//   k-steps with that qx and leaving half of its bytes unread (2.8x the input read from L2, a
+//   ring of 3): 0.252-0.261 ms at (8, 48, 64, 48, 128) against 0.228-0.231 for this design,
+//   0.062-0.063 against 0.059-0.060 at batch 2, and at pc 256 (8 boxes a tile, 3.39 GB a
+//   call) 0.634 against 0.445-0.451, where a copy of it without products still took 0.59.
+//   Replaces an mma.sync kernel (a 2-stage cp.async ring of 32-channel chunks, CTAs of 128
+//   cells, 4-byte stores).
+//
+// copy: out = x, bytes in any dtype.
+//   What bounds it: x read and out written once, 2 n bytes at 3.35 TB/s.
+//   The design: persistent CTAs, kCopyCtasPerSm an SM, of one thread. Chunk i of CTA b is
+//   chunk b + i grid of the buffer; the thread keeps kCopyStages chunks of kCopyStage bytes
+//   loading through a ring of shared-memory stages by 1-D cp.async.bulk, each on an mbarrier
+//   with its byte count, stores each stage back by cp.async.bulk as soon as it lands, and
+//   reloads a stage once cp.async.bulk.wait_group.read says its store has read it. The data
+//   never passes through registers; the last chunk takes the remainder (bytes are a multiple
+//   of 256: cells x pc x the element size, pc a multiple of 128).
+//   Tuned on an H100 (time_stage_kernels): 2 CTAs an SM of 2 stages of 16 KB beat stages of 8
+//   or 32 KB, rings of 3 or 4, 1, 3 or 4 CTAs an SM, L2 evict-first hints, one contiguous
+//   range a CTA, and register copies with 4 or 8 16-byte loads in flight a thread; all of them
+//   stayed 1-6 % above x.clone(), which the profiler records as a copy-engine memcpy (Memcpy
+//   DtoD), not a kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -629,6 +673,182 @@ __global__ void __launch_bounds__(kThreads, 1) full_kernel(const __grid_constant
   }
 }
 
+// ---- one_tap --------------------------------------------------------------------------------
+
+// A box is one phase group's pc / 8 channels at x0 - qx: (16, 8, 9, 5) in 32-byte swizzled rows
+// at pc 128, (32, 8, 9, 5) in 64-byte rows at pc 256. It serves the group's pc / 128 k-steps,
+// so no box byte goes unread.
+template <int PC>
+struct OneTapLayout {
+  static constexpr int kBoxC = PC / 8;                    // channels a box
+  static constexpr int kSteps = kBoxC / 16;               // k-steps a box
+  static constexpr int kBox = (kHaloRows * kBoxC * 2 + 1023) / 1024 * 1024;  // 12,288 / 23,552 bytes
+  static constexpr int kSlab = PC * 128 * 2;              // Wp[0, 0, 0][:, n0 .. n0 + 127], resident
+  static constexpr int kStages = (232448 - 1024 - 64 - kSlab - kConsumers * kOutBlock) / kBox;  // 13 / 5
+  static constexpr int kOut = kSlab + kStages * kBox;     // each warpgroup's output staging tile
+  static constexpr int kBars = kOut + kConsumers * kOutBlock;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+};
+
+template <int PC>
+__global__ void __launch_bounds__(kThreads, 1) one_tap_kernel(const __grid_constant__ CUtensorMap x_map,
+                                                              const __grid_constant__ CUtensorMap w_map,
+                                                              const __grid_constant__ CUtensorMap out_map, Volume v,
+                                                              int n_tiles) {
+  using L = OneTapLayout<PC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* ring = smem + L::kSlab;
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty_a = full_a + L::kStages;
+  uint64_t* slab_bar = empty_a + L::kStages;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int block = static_cast<int>(blockIdx.x), grid = static_cast<int>(gridDim.x);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::kStages; ++i) {
+      mbar_init(&full_a[i], 1);
+      mbar_init(&empty_a[i], kReleases);
+    }
+    mbar_init(slab_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    if (tid == 0) {  // the producer: the slab once, then every halo box in consumption order
+      // grid is a multiple of n_blocks, so every tile of this CTA has output block block % n_blocks
+      const int n0 = (block % v.n_blocks) * 128;
+      mbar_expect_tx(slab_bar, L::kSlab);
+      for (int cb = 0; cb < PC / 64; ++cb) {
+        bf16* dst = reinterpret_cast<bf16*>(smem) + cb * 64 * 128;
+        tma_load_3d(dst, &w_map, slab_bar, n0, cb * 64, 0);
+        tma_load_3d(dst + 64 * 64, &w_map, slab_bar, n0 + 64, cb * 64, 0);
+      }
+      int ja = 0;  // halo boxes issued so far
+      for (int t = block; t < n_tiles; t += grid) {
+        const Tile tile = tile_of(t, v);
+        for (int q = 0; q < 8; ++q, ++ja) {  // phase group q's box
+          const int sa = ja % L::kStages;
+          if (ja >= L::kStages) mbar_wait(&empty_a[sa], (ja / L::kStages - 1) & 1);
+          mbar_expect_tx(&full_a[sa], kHaloRows * L::kBoxC * 2);
+          tma_load_5d(ring + sa * L::kBox, &x_map, &full_a[sa], q * L::kBoxC, tile.x0 - (q & 1), tile.y0 - 1,
+                      tile.z0 - 1, tile.b);
+        }
+      }
+    }
+  } else {
+    const int lane = tid % 32;
+    uint8_t* staging = smem + L::kOut + wg * kOutBlock;
+    float acc[2][16][4];  // the two z planes 2 wg and 2 wg + 1 of the tile, 64 cells each
+    int ja = 0;           // halo boxes consumed so far
+    mbar_wait(slab_bar, 0);
+    for (int t = block; t < n_tiles; t += grid) {
+      const Tile tile = tile_of(t, v);
+#pragma unroll 1
+      for (int q = 0; q < 8; ++q, ++ja) {  // phase group q's box
+        const int sa = ja % L::kStages;
+        mbar_wait(&full_a[sa], (ja / L::kStages) & 1);
+        // the group reads y - qy and z - qz: whole rows of 8 and planes of 72 cells into the
+        // box, which starts at (y0 - 1, z0 - 1)
+        const int qy = (q >> 1) & 1, qz = q >> 2;
+        const bf16* rows0 = reinterpret_cast<const bf16*>(ring + sa * L::kBox);
+        const bf16* slab = reinterpret_cast<const bf16*>(smem);
+        fence_operand(acc[0]);
+        fence_operand(acc[1]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < L::kSteps; ++j) {
+          const int bs = q * L::kSteps + j;  // the k-step in the slab, 16 rows each
+          const uint64_t db = desc_mn_major<64, 128>(slab + (bs >> 2) * 64 * 128, bs & 3);
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const bf16* rows = rows0 + (kTX * (1 - qy) + kPlaneRows * (2 * wg + p + 1 - qz)) * L::kBoxC;
+            wgmma_ss<128, 1>(acc[p], desc_k_major<kHaloRows, L::kBoxC>(rows, j), db, q == 0 && j == 0 ? 0 : 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the box before this one has been read
+        if (q > 0 && lane == 0) mbar_arrive(&empty_a[(ja - 1) % L::kStages]);
+      }
+      wgmma_wait_all();
+      fence_operand(acc[0]);
+      fence_operand(acc[1]);
+      if (lane == 0) mbar_arrive(&empty_a[(ja - 1) % L::kStages]);
+
+      store_planes(acc, staging, &out_map, tile, wg, tid);
+    }
+    if (tid == 0) bulk_wait_all();
+  }
+}
+
+template <int PC>
+int launch_one_tap(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, cudaStream_t stream) {
+  using L = OneTapLayout<PC>;
+  const Volume v{PC, (xdim + kTX - 1) / kTX, (y + kTY - 1) / kTY, (z + kTZ - 1) / kTZ, PC / 128};
+  const long long n_tiles = static_cast<long long>(b) * v.tiles_z * v.tiles_y * v.tiles_x * v.n_blocks;
+  if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map, w_map, out_map;
+  if (!tile_map_5d(&x_map, x, b, z, y, xdim, PC, kTX, kTY + 1, kTZ + 1, L::kBoxC) ||
+      !tile_map(&w_map, wp, 8, PC, PC, 64) || !tile_map_5d(&out_map, out, b, z, y, xdim, PC, kTX, kTY, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = L::kBytes + 1024;  // + the slack align_1024 takes
+  const cudaError_t err =
+      cudaFuncSetAttribute(one_tap_kernel<PC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a multiple of n_blocks, so that each CTA keeps one output block's slab (n_tiles is one)
+  const int grid = n_tiles < sm_count() ? static_cast<int>(n_tiles) : sm_count() / v.n_blocks * v.n_blocks;
+  one_tap_kernel<PC><<<grid, kThreads, kSmem, stream>>>(x_map, w_map, out_map, v, static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- copy -----------------------------------------------------------------------------------
+
+constexpr int kCopyStage = 16384;     // bytes a chunk
+constexpr int kCopyStages = 2;        // chunks a CTA keeps in flight
+constexpr int kCopyCtasPerSm = 2;
+constexpr int kCopyBytes = kCopyStages * kCopyStage + kCopyStages * 8;
+
+// One elected thread a CTA; chunk i of this CTA is chunk block + i grid of the buffer.
+__global__ void __launch_bounds__(32) copy_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
+                                                  long long bytes) {
+  extern __shared__ __align__(128) uint8_t copy_smem[];
+  if (threadIdx.x != 0) return;
+  uint64_t* landed = reinterpret_cast<uint64_t*>(copy_smem + kCopyStages * kCopyStage);
+  const long long block = blockIdx.x, grid = gridDim.x;
+  const long long chunks = (bytes + kCopyStage - 1) / kCopyStage;
+  const long long mine = block < chunks ? (chunks - 1 - block) / grid + 1 : 0;
+  for (int i = 0; i < kCopyStages; ++i) mbar_init(&landed[i], 1);
+  fence_barrier_init();
+  auto offset = [&](long long i) { return (block + i * grid) * kCopyStage; };  // of this CTA's chunk i
+  auto chunk_bytes = [&](long long off) {  // the last chunk takes the remainder, a multiple of 256
+    return static_cast<uint32_t>(bytes - off < kCopyStage ? bytes - off : kCopyStage);
+  };
+  auto load = [&](long long i) {  // this CTA's chunk i into stage i % kCopyStages
+    const int st = static_cast<int>(i % kCopyStages);
+    const long long off = offset(i);
+    const uint32_t n = chunk_bytes(off);
+    mbar_expect_tx(&landed[st], n);
+    bulk_load(copy_smem + st * kCopyStage, x + off, n, &landed[st]);
+  };
+  for (long long i = 0; i < kCopyStages && i < mine; ++i) load(i);
+  for (long long i = 0; i < mine; ++i) {
+    const int st = static_cast<int>(i % kCopyStages);
+    const long long off = offset(i);
+    mbar_wait(&landed[st], static_cast<uint32_t>(i / kCopyStages) & 1);
+    bulk_store(out + off, copy_smem + st * kCopyStage, chunk_bytes(off));
+    bulk_commit();
+    // The stage of chunk i - 1 takes chunk i - 1 + kCopyStages once its store has read it: the
+    // store of chunk i stays in flight meanwhile, and kCopyStages - 1 loads.
+    if (i >= 1 && i - 1 + kCopyStages < mine) {
+      bulk_wait_read<1>();
+      load(i - 1 + kCopyStages);
+    }
+  }
+  bulk_wait_all();
+}
+
 // Map of Wp (8 taps, pc input, pc output channels) whose box is one wgmma k-step of B: 16 input
 // channels by 128 output channels, as two 64-column blocks one after the other (the column
 // block is a dimension of its own, between the input channel and the tap), 128-byte swizzled.
@@ -695,15 +915,40 @@ int phase_conv_full_sm90(const void* x, const void* wp, void* out, int b, int z,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Writes to *bytes the dynamic shared memory that the bf16 kernel of `variant` (cips_phase_conv's
-// code: 3 dot, 1 noshift, 0 full) launches with at `pc` (ptxas reports only static shared
-// memory). Returns a CUDA error code.
+// The bf16 one_tap variant (see the header): x, out (b, z, y, xdim, pc), wp (2, 2, 2, pc, pc), of
+// which only Wp[0, 0, 0] is read; pc 128 or 256.
+int phase_conv_one_tap_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
+                            cudaStream_t stream) {
+  if (pc == 128) return launch_one_tap<128>(x, wp, out, b, z, y, xdim, stream);
+  if (pc == 256) return launch_one_tap<256>(x, wp, out, b, z, y, xdim, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The copy variant (see the header), any dtype: `bytes` of x to out, a multiple of 16, both
+// 16-byte aligned.
+int phase_conv_copy_sm90(const void* x, void* out, long long bytes, cudaStream_t stream) {
+  if (bytes <= 0 || bytes % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kCopyBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long chunks = (bytes + kCopyStage - 1) / kCopyStage;
+  const int ctas = sm_count() * kCopyCtasPerSm;
+  copy_kernel<<<chunks < ctas ? static_cast<int>(chunks) : ctas, 32, kCopyBytes, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out), bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Writes to *bytes the dynamic shared memory that the kernel of `variant` (cips_phase_conv's
+// code: 3 dot, 1 noshift, 0 full, 2 one_tap, bf16; 5 copy) launches with at `pc` (ptxas reports
+// only static shared memory). Returns a CUDA error code.
 extern "C" int cips_phase_conv_smem(int variant, int pc, void* bytes) {
   int* out = static_cast<int*>(bytes);
   if (variant == 3 && pc == 128) *out = DotLayout<128>::kBytes + 1024;
   else if (variant == 3 && pc == 256) *out = DotLayout<256>::kBytes + 1024;
   else if (variant == 1 && pc % 128 == 0 && pc > 0) *out = kNsBytes + 1024;
   else if (variant == 0 && pc % 128 == 0 && pc > 0) *out = kFullBytes + 1024;
+  else if (variant == 2 && pc == 128) *out = OneTapLayout<128>::kBytes + 1024;
+  else if (variant == 2 && pc == 256) *out = OneTapLayout<256>::kBytes + 1024;
+  else if (variant == 5 && pc % 128 == 0 && pc > 0) *out = kCopyBytes;
   else return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }

@@ -1,10 +1,12 @@
 """Phase-structured packed 3-D k3 convolution: hand-written CUDA kernels, their
 variants, and their plain versions.
 
-The kernels (`csrc/phase_conv.cu`; the bf16 `full`, `noshift` and `dot` in
-`csrc/phase_conv_sm90.cu`, TMA + wgmma) replace the Pallas TPU kernel
-`cips_tpu/ops/pallas/phase_conv.py:_kernel` (launched by `phase_conv_apply`) and
-the three TPU probes of it, as variants of one C entry point:
+The kernels replace the Pallas TPU kernel `cips_tpu/ops/pallas/phase_conv.py:_kernel`
+(launched by `phase_conv_apply`) and the three TPU probes of it, as variants of one
+C entry point (`cips_phase_conv`, `csrc/phase_conv.cu`). The bf16 `full`,
+`noshift`, `one_tap` and `dot` kernels (TMA + wgmma) and the `copy` kernel of both
+dtypes (1-D bulk copies) are in `csrc/phase_conv_sm90.cu`; the fp32 product
+variants (one FMA kernel), `shift` and `select` in `csrc/phase_conv.cu`.
 
   full      `phase_conv_apply`; `scripts/probe_pallas_bisect.py` full;
             `scripts/debug_pallas_stages.py` stage >= 4
@@ -23,7 +25,8 @@ multiple of 128; bf16 or fp32; any Z, Y, X. The function:
 zero outside the volume, fp32 accumulation, out in x's dtype, with
 Wp = `s2d.pack_conv_kernel_phase(w)` (2, 2, 2, 8C, 8C). It equals the packed conv
 `s2d.packed_conv`. The bf16 `dot` kernel computes x . (sum_k W[k]) with the sum
-rounded once to bf16 (`dot_rounded_reference`), for 8C = 128 or 256.
+rounded once to bf16 (`dot_rounded_reference`). The bf16 `dot` and `one_tap`
+kernels keep their weights in shared memory and take 8C = 128 or 256.
 
 Each wrapper takes the plain version only for tensors on the CPU. For CUDA tensors
 it launches the kernel or raises; there is no fallback. The JAX function has no
@@ -49,7 +52,9 @@ VARIANTS = {"full": 0, "noshift": 1, "one_tap": 2, "dot": 3, "shift": 4, "copy":
 _SELECT = 6
 WITH_WEIGHTS = ("full", "noshift", "one_tap", "dot")  # the variants with products
 LANES = 128
-DOT_BF16_CHANNELS = (128, 256)  # the bf16 dot kernel keeps sum_k W[k] in shared memory
+# the bf16 dot and one_tap kernels keep sum_k W[k] and Wp[0, 0, 0]'s columns in shared memory
+RESIDENT_BF16 = ("dot", "one_tap")
+RESIDENT_BF16_CHANNELS = (128, 256)
 
 
 def _check_x(x: torch.Tensor) -> None:
@@ -158,8 +163,9 @@ def _launch(x: torch.Tensor, wp: Optional[torch.Tensor], code: int) -> torch.Ten
 
 
 def kernel_smem(variant: str, pc: int) -> int:
-    """Dynamic shared memory, in bytes, that the bf16 `full`, `noshift` or `dot`
-    kernel launches with at ``pc`` packed channels (ptxas reports only static shared memory)."""
+    """Dynamic shared memory, in bytes, that the bf16 `full`, `noshift`, `one_tap` or
+    `dot` kernel, or the `copy` kernel, launches with at ``pc`` packed channels (ptxas
+    reports only static shared memory)."""
     value = ctypes.c_int(0)
     cuda_library.check(_library().cips_phase_conv_smem(VARIANTS[variant], pc, ctypes.addressof(value)),
                        "cips_phase_conv_smem")
@@ -180,8 +186,9 @@ def phase_conv_stage(x: torch.Tensor, wp: Optional[torch.Tensor], variant: str) 
     _check_contract(x, wp, variant)
     if _on_cpu(x, wp):
         return phase_conv_stage_reference(x, wp, variant)
-    if variant == "dot" and x.dtype == torch.bfloat16 and x.shape[-1] not in DOT_BF16_CHANNELS:
-        raise ValueError(f"the bf16 dot kernel takes {DOT_BF16_CHANNELS} packed channels, got {x.shape[-1]}")
+    if variant in RESIDENT_BF16 and x.dtype == torch.bfloat16 and x.shape[-1] not in RESIDENT_BF16_CHANNELS:
+        raise ValueError(f"the bf16 {variant} kernel takes {RESIDENT_BF16_CHANNELS} packed channels, "
+                         f"got {x.shape[-1]}")
     out = _launch(x, wp, VARIANTS[variant])
     phase_conv_stage.launches[variant] += 1
     return out

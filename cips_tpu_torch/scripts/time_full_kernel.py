@@ -61,9 +61,9 @@ def edited(source: str, edits: List[Tuple[str, str]]) -> str:
     return source
 
 
-def build() -> Dict[str, ctypes.CDLL]:
-    """One library per copy (nvcc jobs in parallel), each with `cips_phase_conv` declared."""
-    out = os.path.join(cuda_library.BUILD_DIR, "full_copies")
+def build(copies: Dict[str, List[Tuple[str, str]]] = COPIES, subdir: str = "full_copies") -> Dict[str, ctypes.CDLL]:
+    """One library per entry of ``copies`` (nvcc jobs in parallel), each with `cips_phase_conv` declared."""
+    out = os.path.join(cuda_library.BUILD_DIR, subdir)
     os.makedirs(out, exist_ok=True)
     nvcc = "/usr/local/cuda/bin/nvcc"
     flags = [f for f in cuda_library.NVCC_FLAGS if f not in ("-Xptxas", "-v")] + ["-I", cuda_library.CSRC]
@@ -71,7 +71,7 @@ def build() -> Dict[str, ctypes.CDLL]:
         source = f.read()
     jobs = [subprocess.Popen([nvcc, *flags, "-c", "-o", os.path.join(out, "phase_conv.o"),
                               os.path.join(cuda_library.CSRC, "phase_conv.cu")])]
-    for i, edits in enumerate(COPIES.values()):
+    for i, edits in enumerate(copies.values()):
         path = os.path.join(out, f"copy{i}.cu")
         with open(path, "w", encoding="utf-8") as f:
             f.write(edited(source, edits))
@@ -79,7 +79,7 @@ def build() -> Dict[str, ctypes.CDLL]:
     if any(job.wait() != 0 for job in jobs):
         raise RuntimeError("nvcc failed on a copy of phase_conv_sm90.cu")
     libs = {}
-    for i, name in enumerate(COPIES):
+    for i, name in enumerate(copies):
         lib_path = os.path.join(out, f"libcopy{i}.so")
         subprocess.run([nvcc, "-shared", "-o", lib_path, os.path.join(out, "phase_conv.o"),
                         os.path.join(out, f"copy{i}.o")], check=True)
@@ -96,8 +96,9 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, wp: torch.Tensor, out: torch.Tenso
 
 
 def device_ms(fn, iters: int = ITERS) -> float:
-    """Device time of one call: every kernel in a torch.profiler trace of ``iters``
-    calls after 5 warm-up calls, summed; CUDA events if the trace holds none."""
+    """Device time of one call: each kernel in a torch.profiler trace of ``iters``
+    calls after 5 warm-up calls, at its mean duration times its launches a call
+    (CUPTI drops a few records now and then); CUDA events if the trace holds none."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
@@ -107,9 +108,10 @@ def device_ms(fn, iters: int = ITERS) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    if total > 0:
-        return total / 1e3 / iters
+    records = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    if records:
+        return sum(e.self_device_time_total * (round(e.count / iters) / e.count if round(e.count / iters) else 1 / iters)
+                   for e in records) / 1e3
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):

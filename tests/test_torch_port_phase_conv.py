@@ -2,13 +2,15 @@
 
 The port's s2d helpers and kernel packers are held bit-exact to the JAX ones; the
 plain `phase_conv` to the Pallas kernel itself, run in TPU interpret mode, and to
-the JAX packed convs; the plain `dot` and `noshift` to the TPU probes' own Pallas
-kernels (`scripts/probe_pallas_dot.py`, `scripts/probe_pallas_bisect.py`) in TPU
+the JAX packed convs; the plain `dot`, `noshift`, `copy`, `shift` and `one_tap` to
+the TPU probes' own Pallas kernels (`scripts/probe_pallas_dot.py`,
+`scripts/probe_pallas_bisect.py`, `scripts/debug_pallas_stages.py`) in TPU
 interpret mode; each probe variant's plain version to the identity that defines
 it; the bf16 `dot` kernel's rounding model to the plain version. The CUDA kernels
 run only on a card; their test skips elsewhere.
 """
 
+import collections
 import importlib.util
 import pathlib
 import sys
@@ -27,7 +29,7 @@ from cips_tpu.ops.pallas.phase_conv import phase_conv as jax_phase_conv
 from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.ops import phase_conv as pc
 from cips_tpu_torch.ops import s2d
-from cips_tpu_torch.scripts import probe_phase_conv, time_full_kernel
+from cips_tpu_torch.scripts import probe_phase_conv, time_full_kernel, time_stage_kernels
 
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 
@@ -180,6 +182,27 @@ def test_plain_noshift_matches_the_tpu_probe(monkeypatch):
     assert _rel(got.numpy(), want) <= 1e-5
 
 
+@pytest.mark.parametrize("stage,variant", [(1, "copy"), (2, "shift"), (3, "one_tap")])
+def test_plain_stages_match_the_tpu_probe(stage, variant, monkeypatch):
+    # scripts/debug_pallas_stages.py:run (its padding, grid, specs, DMA and scratch) with the
+    # script's own _kernel at stage 1 (DMA and copy), 2 (the phase shifts) and 3 (tap (0, 0, 0)
+    # only), fp32, in TPU interpret mode. The script reads its stage from sys.argv at import.
+    monkeypatch.setattr(sys, "argv", ["debug_pallas_stages.py"])
+    probe = _probe_module("debug_pallas_stages", monkeypatch)
+    monkeypatch.setattr(probe, "STAGE", stage)
+    shape = (1, 4, 8, 8, 128)
+    x = _normal(shape, 18)
+    wp = _normal((2, 2, 2, 128, 128), 19, 0.1)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(probe.run(jnp.asarray(x), jnp.asarray(wp), tz=2, ty=4))
+    got = pc.phase_conv_stage(torch.from_numpy(x), torch.from_numpy(wp) if variant == "one_tap" else None, variant)
+    assert got.dtype == torch.float32 and got.shape == shape
+    if variant == "one_tap":  # the sums differ in order only
+        assert _rel(got.numpy(), want) <= 1e-5
+    else:  # no arithmetic: exact
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("p", [128, 256])
 def test_dot_rounding_model(p):
     # the bf16 dot kernel computes x . bf16(sum_k W[k]) (fp32 sums, out in bf16); it stays
@@ -266,6 +289,18 @@ def test_wrapper_errors():
     assert (dict(pc.phase_conv_stage.launches), pc.lane_select.launches) == before  # the CPU launches nothing
 
 
+def test_bf16_one_tap_width_raises_off_the_cpu():
+    # the bf16 one_tap kernel keeps Wp[0, 0, 0]'s (8C, 128) column slab in shared memory: 8C of
+    # 128 or 256 only; fp32 and the CPU's plain version take any width
+    x = torch.zeros((1, 1, 1, 2, 384), dtype=torch.bfloat16)
+    wp = torch.zeros((2, 2, 2, 384, 384), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 one_tap kernel"):
+        pc.phase_conv_stage(x.to("meta"), wp.to("meta"), "one_tap")
+    with pytest.raises(ValueError, match="CUDA"):  # fp32 passes the width check, then finds no card
+        pc.phase_conv_stage(x.float().to("meta"), wp.float().to("meta"), "one_tap")
+    assert pc.phase_conv_stage(x, wp, "one_tap").shape == x.shape
+
+
 def test_bf16_dot_width_raises_off_the_cpu():
     # the bf16 dot kernel keeps sum_k W[k] in shared memory: 8C of 128 or 256 only; the
     # wrapper says so before any launch, while the CPU's plain version takes any width
@@ -302,6 +337,28 @@ def test_full_timing_copies_edit_the_source():
         time_full_kernel.edited(source, [("no such text", "")])
 
 
+@pytest.mark.parametrize("kernel", sorted(time_stage_kernels.KERNELS))
+def test_stage_timing_copies_edit_the_source(kernel):
+    # The tuning and timing-only copies of the copy and one_tap kernels are text edits of
+    # their source; each must find its target exactly once.
+    with open(pathlib.Path(pc.cuda_library.CSRC) / "phase_conv_sm90.cu", encoding="utf-8") as f:
+        source = f.read()
+    for name, edits in time_stage_kernels.KERNELS[kernel].items():
+        assert (time_full_kernel.edited(source, edits) == source) == (name == "kernel"), name
+
+
+def test_device_time_from_a_trace_that_lost_records(capsys):
+    # chip_smoke.device_ms's arithmetic on a torch.profiler trace's device records over
+    # 200 calls: a kernel recorded 190 times (CUPTI dropped 10) still counts once a call at
+    # its mean, one recorded about twice a call twice, one recorded once is spread over the calls
+    record = collections.namedtuple("record", "count self_device_time_total")
+    records = [record(190, 190 * 100.0), record(400, 400 * 10.0), record(1, 50.0)]
+    assert chip_smoke.kernel_ms_per_call(records, 200, "fn") == pytest.approx((100.0 + 2 * 10.0 + 50.0 / 200) / 1e3)
+    assert "lost 10 device records" in capsys.readouterr().out
+    assert chip_smoke.kernel_ms_per_call(records[1:], 200, "fn") == pytest.approx((2 * 10.0 + 50.0 / 200) / 1e3)
+    assert capsys.readouterr().out == ""
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -310,13 +367,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 5, 7, 9, 128), (1, 5, 7, 9, 256), (2, 3, 9, 17, 128), (1, 1, 2, 3, 128)],
-                         ids=["ragged", "pc256", "b2-ragged", "under-one-tile"])
+@pytest.mark.parametrize("shape", [(1, 5, 7, 9, 128), (1, 5, 7, 9, 256), (2, 3, 9, 17, 128), (1, 1, 2, 3, 128),
+                                   (1, 1, 1, 1, 128)],
+                         ids=["ragged", "pc256", "b2-ragged", "under-one-tile", "one-cell"])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)], ids=["bf16", "f32"])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol, shape):
-    # ragged shapes (no axis a multiple of any tile), pc 256, batch 2 and a volume of fewer
-    # cells than one tile; each variant against its plain version computed in fp32 from
-    # the same inputs, relative to max|out|
+    # ragged shapes (no axis a multiple of any tile), pc 256, batch 2, a volume of fewer
+    # cells than one tile and one cell (256 or 512 bytes: copy's one chunk is its remainder,
+    # as the last chunk of (1, 5, 7, 9, 128) is); each variant against its plain version
+    # computed in fp32 from the same inputs, relative to max|out|
     g = torch.Generator(device=cuda_device).manual_seed(0)
     p = shape[-1]
     x = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
