@@ -7,14 +7,17 @@ Phases (any failure raises and the script exits non-zero):
   2. build    — nvcc builds the kernel library from cips_tpu_torch/csrc/ (one
                 nvcc per source, all at once) and reports each kernel's
                 registers, spills (none allowed) and static shared memory
-                (-Xptxas -v) of the bf16 dQ and the Hopper phase conv
-                kernels (csrc/phase_conv_sm90.cu), with the dynamic shared
-                memory of each;
+                (-Xptxas -v) of the bf16 dQ, the fp32 (3xTF32) dQ and dK/dV
+                and the Hopper phase conv kernels (csrc/phase_conv_sm90.cu),
+                with the dynamic shared memory of the bf16 dQ and phase conv
+                kernels;
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
                 128, the causal generator's long attention (1, 1, 18432, 32)
-                and scale -0.3 and 0; then each kernel's device time (torch.profiler; its
+                and scale -0.3 and 0, the backward at each in bf16 and fp32
+                (fp32 also against its 3xTF32 rounding model); then each
+                kernel's device time (torch.profiler; its
                 eager time beside it) at the flagship's (2, 4, 2304, 32)
                 and the causal encoder's level-2 (2, 4, 18432, 32) shape in
                 bf16, and the fp32 kernels (--dtype f32) at the flagship's,
@@ -124,6 +127,15 @@ DESIGNS = {  # each kernel's design, for the kernels line
     "shift": "gather, 16 bytes a thread", "select": "elementwise, 16 bytes a thread",
     "copy": "1-D bulk copies (cp.async.bulk) through a ring of shared-memory stages; persistent, one thread a CTA",
 }
+DESIGNS_F32 = {  # the fp32 flash kernels' designs, beside the bf16 ones in the kernels line
+    "fwd": "one q row a thread on FMAs, K and V tiles in shared memory",
+    "dq": "TMA ring + 3xTF32 on mma.sync m16n8k8 (sm_90a): two groups of 4 warps on even and odd key tiles, "
+          "exp2, dS as register A straight from the accumulators, sums over keys added a tile at a time by "
+          "fp32 adds, merged in shared memory",
+    "dkv": "TMA ring + 3xTF32 on mma.sync m16n8k8 (sm_90a): two groups of 4 warps on even and odd q tiles, "
+           "S^T and dP^T so that P^T and dS^T are register A operands, exp2, sums over q rows added a tile at "
+           "a time by fp32 adds, merged in shared memory; at Dh 128 two CTAs a key block, one a column half",
+}
 PHASE_ROWS = (  # TPU kernel, its line, the probe entry's subcommand that runs it, the variants that port it
     ("phase_conv", "cips_tpu/ops/pallas/phase_conv.py:50", "phase", ("full",)),
     ("probe_pallas_dot", "scripts/probe_pallas_dot.py:34", "dot", ("dot", "select")),
@@ -147,7 +159,12 @@ CAUSAL_CHECK = (1, 1, 18432, 32)
 # backward computed in fp32 from the same (rounded) inputs. bf16 rounds dS and P
 # before their products and the grads at the end (2^-9 relative each), and each
 # grad sums L such terms; the worst measured is 5.5e-3 (dQ), so 2e-2 leaves
-# about 3.6x. fp32 differs in summation order only.
+# about 3.6x. fp32 takes every product of both kernels as 3xTF32 (split into tf32
+# parts, three tensor-core passes): its rounding model,
+# flash_attention_bwd_tf32x3_reference, stays within 2.2e-6 of the plain backward
+# on the CPU (tests/test_torch_port_flash_bwd.py), the kernels within 5.8e-6 at
+# every case below (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); their distance to
+# the model is printed beside.
 TOL_BF16_GRAD_REL = 2e-2
 TOL_F32_GRAD_REL = 1e-5
 # Card vs CPU, full model in fp32: different conv/matmul algorithms and
@@ -224,7 +241,7 @@ def device_ms(fn, iters: int, traces: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        records = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        records = device_records(prof, f"device_ms of {fn!r}")
         if records:
             return kernel_ms_per_call(records, iters, fn)
         print(f"device_ms: trace {trace} of {traces} of {fn!r} holds no device time")
@@ -232,6 +249,19 @@ def device_ms(fn, iters: int, traces: int = 3) -> float:
     ms = cuda_ms(fn, iters)
     print(f"device_ms: {fn!r} timed by CUDA events instead: {ms:.4f} ms")
     return ms
+
+
+def device_records(prof, label) -> list:
+    """A trace's device records (key_averages) without user annotations: a
+    record_function range (Adam's Optimizer.step) can come back as a device
+    record that spans the kernels it holds, which would count them twice. Prints
+    each annotation it drops, with its device time."""
+    records = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    for e in records:
+        if e.is_user_annotation:
+            print(f"{label}: dropped a user annotation from the device records: {e.key} x{e.count}, "
+                  f"{e.self_device_time_total / 1e3:.3f} ms")
+    return [e for e in records if not e.is_user_annotation]
 
 
 def kernel_ms_per_call(records, iters: int, label) -> float:
@@ -268,14 +298,21 @@ def fp32_flops_per_s() -> float:
     return FP32_LANES_PER_SM * 2 * sm_clocks_per_s()
 
 
+def fma_ms(flops: float) -> float:
+    """``flops`` at the FMA rate (fp32_flops_per_s): the fp32 operations term of
+    the bound before the fp32 kernels took 3xTF32, printed beside it."""
+    return flops / fp32_flops_per_s() * 1e3
+
+
 def bound_ms(flops: float, nbytes: float, exps: float = 0.0, dtype=torch.bfloat16) -> tuple:
     """Least time of a function on the card: its operations at the bf16
-    tensor-core peak (fp32: the FMA rate, as the fp32 kernels run), its bytes
-    (each input read once, each output written once) at the memory rate, or
-    its exponentials on the special-function units, whichever is longest;
-    (ms, what bounds it)."""
-    rate = fp32_flops_per_s() if dtype == torch.float32 else H100_BF16_FLOPS
-    terms = {"operations": flops / rate * 1e3, "bytes": nbytes / H100_BYTES_PER_S * 1e3}
+    tensor-core peak (fp32: three passes at the TF32 peak, H100_BF16_FLOPS / 2,
+    the least time for products of fp32 grade: 3xTF32, as the fp32 flash
+    backward and SDPA's fp32 backend compute them), its bytes (each input read
+    once, each output written once) at the memory rate, or its exponentials on
+    the special-function units, whichever is longest; (ms, what bounds it)."""
+    ops = 3 * flops / (H100_BF16_FLOPS / 2) if dtype == torch.float32 else flops / H100_BF16_FLOPS
+    terms = {"operations": ops * 1e3, "bytes": nbytes / H100_BYTES_PER_S * 1e3}
     if exps:
         terms["exponentials"] = exps / ex2_per_s() * 1e3
     by = max(terms, key=terms.get)
@@ -400,10 +437,12 @@ def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16) -> dict:
         plain_ms = cuda_ms(reference, 20) if plain else None
         bound, bound_by = bound_ms(flops, nbytes, float(pairs), dtype)
         yardstick = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
+        # fp32: the operations at the FMA rate, the fp32 bound before 3xTF32, printed only
+        fma = f", at the FMA rate {fma_ms(flops):.5f} ms ({fma_ms(flops) / ms:.1%})" if dtype == torch.float32 else ""
         print(f"flash {kind} {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call "
               f"eagerly), plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, {yardstick} {library.lower()} "
               f"{library_ms:.4f} ms on the device ({ms / library_ms:.2f}x), bound {bound:.5f} ms ({bound_by}); "
-              f"{bound / ms:.1%} of bound")
+              f"{bound / ms:.1%} of bound{fma}")
         rows[kind] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       "library": f"SDPA {library.lower()}", "bound_ms": bound, "bound_by": bound_by}
     return rows
@@ -475,18 +514,21 @@ def bwd_kernel_checks(fa) -> dict:
     inputs; errors relative to each output's max|grad|. Returns the worst absolute
     errors {"dq": x, "dkv": y} at the training shape in bf16."""
     worst = {}
+    edges = [
+        ((1, 1, 1, 32),), ((1, 2, 17, 32),), ((1, 2, 129, 128),), ((1, 1, 2305, 32),), (CAUSAL_CHECK,),
+        # the kernels' key-side edges (fewer keys than a tile, Lq != Lk both ways, ragged, at
+        # Dh 128 too, one q row), then a negative and a zero scale, mapped by the wrapper
+        ((1, 2, 100, 32), 40), ((1, 2, 130, 64), 77), ((1, 2, 77, 64), 130), ((1, 1, 129, 128), 191),
+        ((1, 2, 1, 128), 130), ((1, 2, 200, 32), 300, -0.3), ((1, 2, 200, 64), 150, 0.0),
+    ]
     cases = [
         (TRAIN_ATTN, torch.bfloat16), (TRAIN_ATTN, torch.float32), ((4, 4, 2304, 32), torch.bfloat16),
         ((1, 2, 1000, 32), torch.bfloat16), ((1, 2, 1000, 32), torch.float32),
         ((1, 2, 4608, 64), torch.bfloat16), ((1, 2, 4608, 64), torch.float32),
-        ((1, 1, 1, 32), torch.bfloat16), ((1, 2, 17, 32), torch.bfloat16), ((1, 2, 129, 128), torch.bfloat16),
-        ((1, 1, 2305, 32), torch.bfloat16), (CAUSAL_CHECK, torch.bfloat16),
-        # the dQ kernel's key-side edges (fewer keys than a tile, Lq != Lk both ways, ragged, at
-        # Dh 128 too, one q row), then a negative and a zero scale, mapped by the wrapper
-        ((1, 2, 100, 32), torch.bfloat16, 40), ((1, 2, 130, 64), torch.bfloat16, 77),
-        ((1, 2, 77, 64), torch.bfloat16, 130), ((1, 1, 129, 128), torch.bfloat16, 191),
-        ((1, 2, 1, 128), torch.bfloat16, 130), ((1, 2, 200, 32), torch.bfloat16, 300, -0.3),
-        ((1, 2, 200, 64), torch.bfloat16, 150, 0.0), ((1, 2, 200, 64), torch.float32, 150, -0.3),
+        *((shape, torch.bfloat16, *extra) for shape, *extra in edges),
+        ((1, 2, 200, 64), torch.float32, 150, -0.3),
+        # every edge in fp32 too: the fp32 kernels are tiled as the bf16 ones are
+        *((shape, torch.float32, *extra) for shape, *extra in edges),
     ]
     for i, (shape, dtype, *extra) in enumerate(cases):
         q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, 10 + i, *extra)
@@ -512,6 +554,12 @@ def bwd_kernel_checks(fa) -> dict:
             if shape == TRAIN_ATTN and dtype == torch.bfloat16:
                 key = "dq" if name == "dq" else "dkv"
                 worst[key] = max(worst.get(key, 0.0), err)
+        if dtype == torch.float32:  # the 3xTF32 kernels against their rounding model too
+            model = fa.flash_attention_bwd_tf32x3_reference(q, k, v, dout, lse, delta, scale)
+            errs.append("to the 3xTF32 model " + ", ".join(
+                f"{name} {(a - m).abs().max().item():.3e} (the model {((m - b).abs().max() / b.abs().max()).item():.3e}"
+                f" of max|grad|)" for name, a, m, b in zip(("dq", "dk", "dv"), got, model, want)))
+            del model
         print(f"bwd kernels {shape} Lk {k.shape[2]} scale {scale:.4g} {str(dtype)[6:]} (tol {tol:g} of max|grad|): "
               + "; ".join(errs))
     return worst
@@ -519,13 +567,15 @@ def bwd_kernel_checks(fa) -> dict:
 
 def sm90_kernel_report(report: str, fa, pc) -> None:
     """One line for each Hopper kernel that has no other report here (the bf16 dQ
-    kernel at each Dh, every kernel of csrc/phase_conv_sm90.cu) from nvcc's -Xptxas -v
-    report (registers, spills, static shared memory), then the dynamic shared memory
-    that its launcher asks for."""
+    and the fp32 (3xTF32) dQ and dK/dV kernels at each Dh, every kernel of
+    csrc/phase_conv_sm90.cu) from nvcc's -Xptxas -v report (registers, spills,
+    static shared memory), then the dynamic shared memory that the bf16 dQ's and
+    the phase conv kernels' launchers ask for."""
     found = 0
     for name, body in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)(?=Compiling entry|\Z)",
                                  report, flags=re.S):
-        kernel = re.search(r"(flash_bwd_dq_bf16_kernel|phase_conv_sm90_cu\w*?"
+        kernel = re.search(r"(flash_bwd_dq_bf16_kernel|flash_bwd_dq_tf32x3_kernel|flash_bwd_dkv_tf32x3_kernel|"
+                           r"phase_conv_sm90_cu\w*?"
                            r"(?:dot_kernel|noshift_kernel|full_kernel|one_tap_kernel|copy_kernel))(?:ILi(\d+))?", name)
         if kernel is None:
             continue
@@ -540,8 +590,8 @@ def sm90_kernel_report(report: str, fa, pc) -> None:
         check(spills is None or spills.groups() == ("0", "0"), f"ptxas reports spills in {label}")
         found += 1
     if "nvcc done" in report:  # else the library was up to date and nothing was compiled
-        check(found == 10, f"the build report names {found} of the 10 kernels above (dQ at 3 Dh, dot at 2 pc, "
-                           f"noshift, full, one_tap at 2 pc, copy)")
+        check(found == 16, f"the build report names {found} of the 16 kernels above (bf16 dQ, fp32 dQ and dK/dV "
+                           f"at 3 Dh each, dot at 2 pc, noshift, full, one_tap at 2 pc, copy)")
     for dh in fa.HEAD_DIMS:
         print(f"dynamic shared memory: bf16 dQ at Dh {dh}: {fa.dq_kernel_smem(dh)} bytes (a block may have 232,448)")
     for variant, width in PHASE_SM90:
@@ -822,11 +872,8 @@ def profile_window(fn, label: str) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [
-        (e.self_device_time_total / 1e3, e.count, e.key)
-        for e in prof.key_averages()
-        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-    ]
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in device_records(prof, f"profile {label}")
+            if e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     check(busy > 0, f"profile {label}: the profiler saw no device time")
@@ -1211,6 +1258,7 @@ def main() -> int:
     ):
         source = "cips_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if kind == "fwd" else "flash_attention_bwd.cu")
         kernels.append({"name": name, "route": "cuda", "source": source, "design": DESIGNS[kind],
+                        "design_f32": DESIGNS_F32[kind],
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
                         **flash_at["x".join(map(str, TRAIN_ATTN))][kind],
                         "at": {label: {k: round(t, 6) if isinstance(t, float) else t for k, t in rows[kind].items()}

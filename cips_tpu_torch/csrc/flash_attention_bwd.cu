@@ -17,7 +17,8 @@
 // 8*B*H*L^2*Dh = 10.9 GFLOP (11.0 us); each moves about 3 MB (under 1 us at 3.35 TB/s). Each
 // recomputes the B*H*L^2 = 42.5 M exponentials, 10 us on the special-function units (16 a
 // clock per SM, 132 SMs, 1.98 GHz). So both are bound by their products and their
-// exponentials about equally at Dh 32, and by the products at larger Dh.
+// exponentials about equally at Dh 32, and by the products at larger Dh. In fp32 every product
+// is taken three times at the TF32 rate (494.5 TFLOP/s): dQ 49.5 us, dK/dV 66.0 us there.
 //
 // What the designs do about that. Blocks run in no order on a GPU, so the TPU's sequential
 // grid axis becomes a loop inside the block, and each output tile has one owner. S, P, dP
@@ -52,8 +53,18 @@
 // Any L: rows past L read as zeros, and P is set to 0 explicitly for keys past lk (dQ) and
 // q rows past lq (dK/dV), so neither padded lse/delta values nor padded rows add anything.
 // The bf16 kernels take scale > 0 (the wrapper maps a negative scale to a negated K and
-// scale 0 to a zero K). fp32 inputs take plain-FMA kernels of the same structure (one row
-// per thread), so the fp32 path is not rounded through TF32.
+// scale 0 to a zero K).
+// fp32 inputs take kernels of the same structure (a CTA of two groups of 4 warps per 64 output
+// rows, a TMA ring, merged partials) whose five products are 3xTF32 on mma.sync m16n8k8
+// (mma_tf32.cuh): each fp32 operand split into two tf32 parts, three tensor-core passes, fp32
+// accumulation, and the long sums (over keys or q rows) added up by fp32 adds a tile at a
+// time, since the tensor cores truncate inside their sums. Its rounding model is
+// flash_attention_bwd_tf32x3_reference (ops/flash_attention.py); the kernels stay within
+// 5.8e-6 of each max|grad| of the plain fp32 backward at every case of chip_smoke.py, 18,432
+// tokens included (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), where the limit is 1e-5. Plain
+// TF32 (one pass) would round every operand to 11 significant bits (2^-11 relative). S, P,
+// dP and dS never leave registers: an accumulator is the A fragment of the next product as
+// it stands (mma_tf32.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +74,7 @@
 
 #include "hopper_sm90.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -444,127 +456,459 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads) flash_bwd_dkv_bf16_ke
   store_rows<DH>(dv + koff, dv_acc, 1.f, c0, lk, t);
 }
 
-// fp32: one row per thread (a q row for dQ, a key for dK/dV), plain FMAs, the other side in
-// shared-memory tiles of 32 rows (every thread reads the same row, so the reads broadcast).
-constexpr int kF32Rows = 64;
-constexpr int kF32Tile = 32;
+// ---- fp32: 3xTF32 on mma.sync (see the note at the top and mma_tf32.cuh) ---------------------
 
+// The long sums (dQ over keys, dK and dV over q rows) are summed in the tensor cores a ring
+// tile at a time (part, dv_part, dk_part) and added to the running sums by fp32 adds. The
+// tensor cores truncate inside a sum instead of rounding to nearest: held in their
+// accumulators over all keys (or q rows), the error grows with the number of steps and
+// misses the fp32 limit (1.7e-5 of max|grad| at 2,304 keys, 9.1e-5 at 18,432, against 1e-5;
+// scripts/time_flash_f32.py on an NVIDIA H100 80GB HBM3, 700.00 W), where fp32 adds of a
+// tile's sums do not.
+// The sums over Dh (S and dP) are summed in the tensor cores kScoreChunk k-steps (8 columns
+// each) at a time and added by fp32 adds: at Dh 32 all 4 at once. At Dh 128 all 16 at once
+// err 2.5x more (5.5e-6 of max|grad| against 2.2e-6), and one k-step at a time takes 1.3x as
+// long at every Dh (scripts/time_flash_f32.py on an NVIDIA H100 80GB HBM3, 700.00 W).
+constexpr int kScoreChunk = 4;
+// At Dh 32 the split A fragments of the pair that arrives once (Q and dO for dQ, K and V for
+// dK/dV) stay in registers through the loop; at larger Dh they are loaded and split each tile.
 template <int DH>
-__global__ void __launch_bounds__(kF32Rows) flash_bwd_dq_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int lq, int lk, float scale) {
-  __shared__ float ks[kF32Tile][DH];
-  __shared__ float vs[kF32Tile][DH];
-  const int bh = blockIdx.y;
-  const int row = blockIdx.x * kF32Rows + threadIdx.x;
-  const bool valid = row < lq;
-  const float* kb = k + (size_t)bh * lk * DH;
-  const float* vb = v + (size_t)bh * lk * DH;
-  const size_t roff = ((size_t)bh * lq + row) * DH;
+constexpr bool kHoldA = DH == 32;
 
-  float qr[DH], dr[DH], acc[DH];
+// s = X Y^T and dp = W Z^T for a warp's 16 rows (X and W: a_frag(0, c) and a_frag(1, c), the
+// A fragments of k-step c) and the NT rows of the tiles y and z (NT rows, DH columns), summed
+// over Dh in chunks of kScoreChunk k-steps: S and dP of dQ, S^T and dP^T of dK/dV.
+template <int DH, int NT, class AFrag>
+__device__ __forceinline__ void scores(float (&s)[NT / 8][4], float (&dp)[NT / 8][4], const AFrag& a_frag,
+                                       const float* y, const float* z, int g, int t) {
+  static_assert(DH / 8 % kScoreChunk == 0, "Dh is whole chunks");
+  constexpr bool kWhole = kScoreChunk == DH / 8;  // one chunk: summed in s and dp themselves
 #pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qr[d] = valid ? q[roff + d] : 0.f;
-    dr[d] = valid ? dout[roff + d] : 0.f;
-    acc[d] = 0.f;
+  for (int n = 0; n < NT / 8; ++n) {
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
   }
-  const float lse_r = valid ? lse[(size_t)bh * lq + row] : 0.f;
-  const float delta_r = valid ? delta[(size_t)bh * lq + row] : 0.f;
-
-  for (int k0 = 0; k0 < lk; k0 += kF32Tile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * DH; i += kF32Rows) {
-      const int r = i / DH;
-      const int c = i % DH;
-      const bool ok = k0 + r < lk;
-      ks[r][c] = ok ? kb[(size_t)(k0 + r) * DH + c] : 0.f;
-      vs[r][c] = ok ? vb[(size_t)(k0 + r) * DH + c] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(kF32Tile, lk - k0);  // keys past lk are skipped: P = 0
-    for (int j = 0; j < n; ++j) {
-      float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(qr[d], ks[j][d], s);
-        dp = fmaf(dr[d], vs[j][d], dp);
+  for (int c0 = 0; c0 < DH / 8; c0 += kScoreChunk) {
+    float sc[kWhole ? 1 : NT / 8][4], dc[kWhole ? 1 : NT / 8][4];  // this chunk's, unless kWhole
+    if constexpr (!kWhole) {
+#pragma unroll
+      for (int n = 0; n < NT / 8; ++n) {
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+        dc[n][0] = dc[n][1] = dc[n][2] = dc[n][3] = 0.f;
       }
-      const float ds = expf(s * scale - lse_r) * (dp - delta_r);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(ds, ks[j][d], acc[d]);
     }
-  }
-  if (valid) {
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dq[roff + d] = acc[d] * scale;
+    for (int c = c0; c < c0 + kScoreChunk; ++c) {
+      const tf32x3::A xa = a_frag(0, c);
+      const tf32x3::A wa = a_frag(1, c);
+#pragma unroll
+      for (int n = 0; n < NT / 8; ++n) {
+        const tf32x3::B yb = tf32x3::load_b_rows_n<NT>(y, n * 8, c * 8, g, t);
+        const tf32x3::B zb = tf32x3::load_b_rows_n<NT>(z, n * 8, c * 8, g, t);
+        if constexpr (kWhole) {
+          tf32x3::mma3(s[n], xa, yb);
+          tf32x3::mma3(dp[n], wa, zb);
+        } else {
+          tf32x3::mma3(sc[n], xa, yb);
+          tf32x3::mma3(dc[n], wa, zb);
+          if (c == c0 + kScoreChunk - 1) {  // the chunk's last k-step (known when unrolled)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[n][e] += sc[n][e];
+              dp[n][e] += dc[n][e];
+            }
+          }
+        }
+      }
+    }
   }
 }
 
+// dQ, fp32: one CTA of two groups per (64 q rows, batch*head). Q and dO arrive once; K and V
+// tiles of BK keys stream through each group's ring.
 template <int DH>
-__global__ void __launch_bounds__(kF32Rows) flash_bwd_dkv_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int lq,
-    int lk, float scale) {
-  __shared__ float qs[kF32Tile][DH];
-  __shared__ float dos[kF32Tile][DH];
-  __shared__ float lse_s[kF32Tile];
-  __shared__ float delta_s[kF32Tile];
+struct DqF32Layout {
+  static constexpr int BK = DH >= 128 ? 32 : 64;  // keys a ring tile
+  static constexpr int kStages = DH >= 64 ? 2 : 3;
+  static constexpr int kTile = kRows * DH * 4;  // Q or dO
+  static constexpr int kKTile = BK * DH * 4;    // K or V
+  static constexpr int kStage = 2 * kKTile;
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kBars = kRing + kGroups * kStages * kStage;
+  static constexpr int kBytes = kBars + (1 + kGroups * kStages) * 8;
+  static constexpr int kMerge = DH / 2;  // floats a thread of group 1 hands to group 0
+  static_assert(kMerge * kGroupThreads * 4 <= kGroups * kStages * kStage,
+                "merge buffer fits in the ring");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kGroups * kGroupThreads) flash_bwd_dq_tf32x3_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int lq, int lk,
+    float scale) {
+  using L = DqF32Layout<DH>;
+  constexpr int BK = L::BK;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const float* qs = reinterpret_cast<const float*>(smem);
+  const float* dos = reinterpret_cast<const float*>(smem + L::kTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);  // Q/dO, then [group][stage]
+
   const int bh = blockIdx.y;
-  const int key = blockIdx.x * kF32Rows + threadIdx.x;
-  const bool valid = key < lk;
-  const float* qb = q + (size_t)bh * lq * DH;
-  const float* db = dout + (size_t)bh * lq * DH;
-  const size_t koff = ((size_t)bh * lk + key) * DH;
+  const int q0 = blockIdx.x * kRows;
+  const int group = threadIdx.x / kGroupThreads;
+  const int tid = threadIdx.x % kGroupThreads;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int m0 = (tid / 32) * 16;  // the warp's 16 rows of the CTA's 64
+  const int r0 = q0 + m0 + g;      // this thread's rows: r0, r0 + 8
+  const int n_tiles = (lk + BK - 1) / BK;
+  const int mine = (n_tiles - group + kGroups - 1) / kGroups;  // this group's key tiles
+  const float scale_log2 = scale * kLog2e;
+  uint64_t* full = bars + 1 + group * kStages;
+  uint8_t* ring = smem + L::kRing + group * kStages * L::kStage;
 
-  float kr[DH], vr[DH], dk_acc[DH], dv_acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    kr[d] = valid ? k[koff + d] : 0.f;
-    vr[d] = valid ? v[koff + d] : 0.f;
-    dk_acc[d] = 0.f;
-    dv_acc[d] = 0.f;
+  auto issue = [&](int i) {  // this group's key tile i into stage i % kStages
+    uint8_t* stage = ring + (i % kStages) * L::kStage;
+    uint64_t* bar = &full[i % kStages];
+    const int k0 = (group + kGroups * i) * BK;
+    mbar_expect_tx(bar, L::kStage);
+    tma_load_tile_f32<BK, DH>(reinterpret_cast<float*>(stage), &k_map, bar, k0, bh);
+    tma_load_tile_f32<BK, DH>(reinterpret_cast<float*>(stage + L::kKTile), &v_map, bar, k0, bh);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kGroups * kStages; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (group == 0) {
+      mbar_expect_tx(&bars[0], 2 * L::kTile);
+      tma_load_tile_f32<kRows, DH>(reinterpret_cast<float*>(smem), &q_map, &bars[0], q0, bh);
+      tma_load_tile_f32<kRows, DH>(reinterpret_cast<float*>(smem + L::kTile), &do_map, &bars[0], q0, bh);
+    }
+    for (int i = 0; i < kStages && i < mine; ++i) issue(i);
   }
 
-  for (int q0 = 0; q0 < lq; q0 += kF32Tile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * DH; i += kF32Rows) {
-      const int r = i / DH;
-      const int c = i % DH;
-      const bool ok = q0 + r < lq;
-      qs[r][c] = ok ? qb[(size_t)(q0 + r) * DH + c] : 0.f;
-      dos[r][c] = ok ? db[(size_t)(q0 + r) * DH + c] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kF32Tile; i += kF32Rows) {
-      const bool ok = q0 + i < lq;
-      lse_s[i] = ok ? lse[(size_t)bh * lq + q0 + i] : 0.f;
-      delta_s[i] = ok ? delta[(size_t)bh * lq + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(kF32Tile, lq - q0);  // q rows past lq are skipped: P = 0
-    for (int j = 0; j < n; ++j) {
-      float s = 0.f, dp = 0.f;
+  // -lse log2(e) and delta of this thread's two rows (0 past lq, where Q and dO are zero).
+  float nl[2], dl[2];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(kr[d], qs[j][d], s);
-        dp = fmaf(vr[d], dos[j][d], dp);
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    nl[r] = row < lq ? -lse[(size_t)bh * lq + row] * kLog2e : 0.f;
+    dl[r] = row < lq ? delta[(size_t)bh * lq + row] : 0.f;
+  }
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  mbar_wait(&bars[0], 0);
+  tf32x3::A held[kHoldA<DH> ? 2 * DH / 8 : 1];  // Q's, then dO's, with kHoldA
+  if constexpr (kHoldA<DH>) {
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      held[c] = tf32x3::load_a<kRows>(qs, m0, c * 8, g, t);
+      held[DH / 8 + c] = tf32x3::load_a<kRows>(dos, m0, c * 8, g, t);
+    }
+  }
+  auto a_frag = [&](int j, int c) {  // k-step c of Q (j 0) or dO (j 1)
+    if constexpr (kHoldA<DH>) {
+      return held[j * DH / 8 + c];
+    } else {
+      return tf32x3::load_a<kRows>(j ? dos : qs, m0, c * 8, g, t);
+    }
+  };
+
+  for (int i = 0; i < mine; ++i) {
+    const int k0 = (group + kGroups * i) * BK;
+    const float* ks = reinterpret_cast<const float*>(ring + (i % kStages) * L::kStage);
+    const float* vs = reinterpret_cast<const float*>(ring + (i % kStages) * L::kStage + L::kKTile);
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 q rows and the tile's BK keys.
+    float s[BK / 8][4], dp[BK / 8][4];
+    scores<DH, BK>(s, dp, a_frag, ks, vs, g, t);
+
+    // P = 2^(s c - lse log2 e), 0 for keys past lk (TMA fills them with zeros, and a zero
+    // score is not P = 0); dS = P (dP - delta), the A operand of dQ += dS K, 8 keys a k-step.
+    const bool ragged = k0 + BK > lk;
+    float part[DH / 8][4];  // this tile's dS K
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) part[d][0] = part[d][1] = part[d][2] = part[d][3] = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool live = !ragged || k0 + n * 8 + t * 2 + (e & 1) < lk;
+        const float p = live ? ex2(fmaf(s[n][e], scale_log2, nl[r])) : 0.f;
+        ds[e] = p * (dp[n][e] - dl[r]);
       }
-      const float p = expf(s * scale - lse_s[j]);
-      const float ds = p * (dp - delta_s[j]);
+      const tf32x3::A dsa = tf32x3::acc_to_a(ds);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dv_acc[d] = fmaf(p, dos[j][d], dv_acc[d]);
-        dk_acc[d] = fmaf(ds, qs[j][d], dk_acc[d]);
+      for (int d = 0; d < DH / 8; ++d) {
+        const tf32x3::B kb = tf32x3::load_b_rows_k<BK>(ks, n * 8, d * 8, g, t);
+        tf32x3::mma3(part[d], dsa, kb);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] += part[d][e];
+    }
+
+    named_barrier_sync(1 + group, kGroupThreads);  // the group is done with this stage
+    if (tid == 0 && i + kStages < mine) issue(i + kStages);
+  }
+
+  // Group 1 hands its partial dQ to the thread of group 0 that holds the same rows and
+  // columns; group 0 adds it and stores.
+  __syncthreads();  // both groups are done with the ring, which now holds the hand-over
+  float* merge = reinterpret_cast<float*>(smem + L::kRing) + tid;
+  if (group == 1) {
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) merge[(d * 4 + e) * kGroupThreads] = acc[d][e];
+    }
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] += merge[(d * 4 + e) * kGroupThreads];
+  }
+  float* out = dq + (size_t)bh * lq * DH;
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) {
+    const int col = d * 8 + t * 2;
+    if (r0 < lq) {
+      *reinterpret_cast<float2*>(out + (size_t)r0 * DH + col) = make_float2(acc[d][0] * scale, acc[d][1] * scale);
+    }
+    if (r0 + 8 < lq) {
+      *reinterpret_cast<float2*>(out + (size_t)(r0 + 8) * DH + col) =
+          make_float2(acc[d][2] * scale, acc[d][3] * scale);
+    }
+  }
+}
+
+// dK/dV, fp32: one CTA of two groups per (64 keys, batch*head, column slice). K and V arrive
+// once; Q, dO, lse and delta tiles of BQ q rows stream through each group's ring.
+template <int DH>
+struct DkvF32Layout {
+  // Column slices of dK and dV, one CTA each (grid z): every slice computes S^T and dP^T over
+  // all of Dh again, but a thread holds DC / 2 floats each of dK and dV (64 at Dh 128, with
+  // one slice, and ptxas spills).
+  static constexpr int kSlices = DH >= 128 ? 2 : 1;
+  static constexpr int DC = DH / kSlices;  // dK and dV columns a CTA owns
+  static constexpr int BQ = DH >= 64 ? 32 : 64;  // q rows a ring tile
+  static constexpr int kStages = DH >= 64 ? 2 : 3;
+  static constexpr int kKTile = kRows * DH * 4;  // K or V, loaded once
+  static constexpr int kQTile = BQ * DH * 4;     // Q or dO
+  // lse or delta of a tile, as a box of BQ + 4 floats from a 16-byte aligned start, as the
+  // bf16 kernel reads them
+  static constexpr int kRowBox = BQ + 4;
+  static constexpr int kRows4 = (kRowBox * 4 + 127) / 128 * 128;
+  static constexpr int kStage = (2 * kQTile + 2 * kRows4 + 1023) / 1024 * 1024;
+  static constexpr int kRing = 2 * kKTile;
+  static constexpr int kBars = kRing + kGroups * kStages * kStage;
+  static constexpr int kBytes = kBars + (1 + kGroups * kStages) * 8;
+  static constexpr int kMerge = DC;  // floats a thread of group 1 hands to group 0 (dK, dV)
+  static_assert(DC % 32 == 0, "a slice is whole column blocks of the tiles");
+  static_assert(kMerge * kGroupThreads * 4 <= kGroups * kStages * kStage,
+                "merge buffer fits in the ring");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kGroups * kGroupThreads) flash_bwd_dkv_tf32x3_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const __grid_constant__ CUtensorMap lse_map, const __grid_constant__ CUtensorMap delta_map,
+    float* __restrict__ dk, float* __restrict__ dv, int lq, int lk, float scale) {
+  using L = DkvF32Layout<DH>;
+  constexpr int BQ = L::BQ;
+  constexpr int DC = L::DC;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const float* ks = reinterpret_cast<const float*>(smem);
+  const float* vs = reinterpret_cast<const float*>(smem + L::kKTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);  // K/V, then [group][stage]
+
+  const int bh = blockIdx.y;
+  const int key0 = blockIdx.x * kRows;
+  const int col0 = blockIdx.z * DC;  // the slice's first column
+  const int group = threadIdx.x / kGroupThreads;
+  const int tid = threadIdx.x % kGroupThreads;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int m0 = (tid / 32) * 16;  // the warp's 16 keys of the CTA's 64
+  const int c0 = key0 + m0 + g;    // this thread's keys: c0, c0 + 8
+  const int n_tiles = (lq + BQ - 1) / BQ;
+  const int mine = (n_tiles - group + kGroups - 1) / kGroups;  // this group's q tiles
+  const float scale_log2 = scale * kLog2e;
+  uint64_t* full = bars + 1 + group * kStages;
+  uint8_t* ring = smem + L::kRing + group * kStages * L::kStage;
+
+  auto issue = [&](int i) {  // this group's q tile i into stage i % kStages
+    uint8_t* stage = ring + (i % kStages) * L::kStage;
+    uint64_t* bar = &full[i % kStages];
+    const int q0 = (group + kGroups * i) * BQ;
+    mbar_expect_tx(bar, 2 * L::kQTile + 2 * L::kRowBox * 4);
+    tma_load_tile_f32<BQ, DH>(reinterpret_cast<float*>(stage), &q_map, bar, q0, bh);
+    tma_load_tile_f32<BQ, DH>(reinterpret_cast<float*>(stage + L::kQTile), &do_map, bar, q0, bh);
+    // lse and delta as flat (bh * lq) rows from the 4-float boundary at or below the tile's
+    // first row; values of the next head (or zeros) past lq are kept out by P = 0 below.
+    const int row0 = (bh * lq + q0) & ~3;
+    tma_load_1d(stage + 2 * L::kQTile, &lse_map, bar, row0);
+    tma_load_1d(stage + 2 * L::kQTile + L::kRows4, &delta_map, bar, row0);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kGroups * kStages; ++i) mbar_init(&bars[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (group == 0) {
+      mbar_expect_tx(&bars[0], 2 * L::kKTile);
+      tma_load_tile_f32<kRows, DH>(reinterpret_cast<float*>(smem), &k_map, &bars[0], key0, bh);
+      tma_load_tile_f32<kRows, DH>(reinterpret_cast<float*>(smem + L::kKTile), &v_map, &bars[0], key0, bh);
+    }
+    for (int i = 0; i < kStages && i < mine; ++i) issue(i);
+  }
+
+  float dk_acc[DC / 8][4];
+  float dv_acc[DC / 8][4];
+#pragma unroll
+  for (int d = 0; d < DC / 8; ++d) {
+    dk_acc[d][0] = dk_acc[d][1] = dk_acc[d][2] = dk_acc[d][3] = 0.f;
+    dv_acc[d][0] = dv_acc[d][1] = dv_acc[d][2] = dv_acc[d][3] = 0.f;
+  }
+  mbar_wait(&bars[0], 0);
+  tf32x3::A held[kHoldA<DH> ? 2 * DH / 8 : 1];  // K's, then V's, with kHoldA
+  if constexpr (kHoldA<DH>) {
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      held[c] = tf32x3::load_a<kRows>(ks, m0, c * 8, g, t);
+      held[DH / 8 + c] = tf32x3::load_a<kRows>(vs, m0, c * 8, g, t);
+    }
+  }
+  auto a_frag = [&](int j, int c) {  // k-step c of K (j 0) or V (j 1)
+    if constexpr (kHoldA<DH>) {
+      return held[j * DH / 8 + c];
+    } else {
+      return tf32x3::load_a<kRows>(j ? vs : ks, m0, c * 8, g, t);
+    }
+  };
+
+  for (int i = 0; i < mine; ++i) {
+    const int q0 = (group + kGroups * i) * BQ;
+    const uint8_t* stage = ring + (i % kStages) * L::kStage;
+    const float* qs = reinterpret_cast<const float*>(stage);
+    const float* dos = reinterpret_cast<const float*>(stage + L::kQTile);
+    const int skip = (bh * lq + q0) & 3;  // rows of the box before the tile's first
+    const float* lse_s = reinterpret_cast<const float*>(stage + 2 * L::kQTile) + skip;
+    const float* delta_s = reinterpret_cast<const float*>(stage + 2 * L::kQTile + L::kRows4) + skip;
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys and the tile's BQ q rows.
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    scores<DH, BQ>(st, dpt, a_frag, qs, dos, g, t);
+
+    // P^T = 2^(s c - lse log2 e), 0 for q rows past lq; dS^T = P^T (dP^T - delta). Each is the
+    // A operand of its product, 8 q rows a k-step: dV += P^T dO, dK += dS^T Q, over the
+    // slice's columns (its column blocks of the Q and dO tiles).
+    const float* qs_c = qs + (col0 / 32) * BQ * 32;
+    const float* dos_c = dos + (col0 / 32) * BQ * 32;
+    const bool ragged = q0 + BQ > lq;
+    float dv_part[DC / 8][4], dk_part[DC / 8][4];  // this tile's P^T dO and dS^T Q
+#pragma unroll
+    for (int d = 0; d < DC / 8; ++d) {
+      dv_part[d][0] = dv_part[d][1] = dv_part[d][2] = dv_part[d][3] = 0.f;
+      dk_part[d][0] = dk_part[d][1] = dk_part[d][2] = dk_part[d][3] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n * 8 + t * 2 + j;
+        const float nl = -lse_s[col] * kLog2e;
+        const float dl = delta_s[col];
+        const bool live = !ragged || q0 + col < lq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + j;
+          p[e] = live ? ex2(fmaf(st[n][e], scale_log2, nl)) : 0.f;
+          ds[e] = p[e] * (dpt[n][e] - dl);
+        }
+      }
+      const tf32x3::A pa = tf32x3::acc_to_a(p);
+      const tf32x3::A dsa = tf32x3::acc_to_a(ds);
+#pragma unroll
+      for (int d = 0; d < DC / 8; ++d) {
+        const tf32x3::B ob = tf32x3::load_b_rows_k<BQ>(dos_c, n * 8, d * 8, g, t);
+        const tf32x3::B qb = tf32x3::load_b_rows_k<BQ>(qs_c, n * 8, d * 8, g, t);
+        tf32x3::mma3(dv_part[d], pa, ob);
+        tf32x3::mma3(dk_part[d], dsa, qb);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DC / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dv_acc[d][e] += dv_part[d][e];
+        dk_acc[d][e] += dk_part[d][e];
+      }
+    }
+
+    named_barrier_sync(1 + group, kGroupThreads);  // the group is done with this stage
+    if (tid == 0 && i + kStages < mine) issue(i + kStages);
+  }
+
+  // Group 1 hands its partial dK and dV to the thread of group 0 that holds the same keys
+  // and columns; group 0 adds them and stores.
+  __syncthreads();
+  float* merge = reinterpret_cast<float*>(smem + L::kRing) + tid;
+  if (group == 1) {
+#pragma unroll
+    for (int d = 0; d < DC / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        merge[(d * 4 + e) * kGroupThreads] = dk_acc[d][e];
+        merge[(DC / 2 + d * 4 + e) * kGroupThreads] = dv_acc[d][e];
       }
     }
   }
-  if (valid) {
+  __syncthreads();
+  if (group == 1) return;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      dk[koff + d] = dk_acc[d] * scale;
-      dv[koff + d] = dv_acc[d];
+  for (int d = 0; d < DC / 8; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[d][e] += merge[(d * 4 + e) * kGroupThreads];
+      dv_acc[d][e] += merge[(DC / 2 + d * 4 + e) * kGroupThreads];
+    }
+  }
+  const size_t koff = (size_t)bh * lk * DH + col0;
+#pragma unroll
+  for (int d = 0; d < DC / 8; ++d) {
+    const int col = d * 8 + t * 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = c0 + 8 * r;
+      if (key < lk) {
+        *reinterpret_cast<float2*>(dk + koff + (size_t)key * DH + col) =
+            make_float2(dk_acc[d][2 * r] * scale, dk_acc[d][2 * r + 1] * scale);
+        *reinterpret_cast<float2*>(dv + koff + (size_t)key * DH + col) =
+            make_float2(dv_acc[d][2 * r], dv_acc[d][2 * r + 1]);
+      }
     }
   }
 }
@@ -595,11 +939,19 @@ int launch_dq(int is_bf16, const Args& a) {
     flash_bwd_dq_bf16_kernel<DH><<<grid, kGroups * kGroupThreads, kSmem, a.stream>>>(
         q_map, k_map, v_map, do_map, a.lse, a.delta, static_cast<bf16*>(a.out0), a.lq, a.lk, a.scale);
   } else {
-    const dim3 grid((a.lq + kF32Rows - 1) / kF32Rows, a.bh);
-    flash_bwd_dq_f32_kernel<DH><<<grid, kF32Rows, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-        static_cast<float*>(a.out0), a.lq, a.lk, a.scale);
+    using L = DqF32Layout<DH>;
+    CUtensorMap q_map, k_map, v_map, do_map;
+    if (!tile_map_f32(&q_map, a.q, a.bh, a.lq, DH, kRows) || !tile_map_f32(&do_map, a.dout, a.bh, a.lq, DH, kRows) ||
+        !tile_map_f32(&k_map, a.k, a.bh, a.lk, DH, L::BK) || !tile_map_f32(&v_map, a.v, a.bh, a.lk, DH, L::BK)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    constexpr int kSmem = L::kBytes + 1024;  // + the slack align_1024 takes
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_bwd_dq_tf32x3_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((a.lq + kRows - 1) / kRows, a.bh);
+    flash_bwd_dq_tf32x3_kernel<DH><<<grid, kGroups * kGroupThreads, kSmem, a.stream>>>(
+        q_map, k_map, v_map, do_map, a.lse, a.delta, static_cast<float*>(a.out0), a.lq, a.lk, a.scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -625,11 +977,22 @@ int launch_dkv(int is_bf16, const Args& a) {
         q_map, k_map, v_map, do_map, lse_map, delta_map, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1),
         a.lq, a.lk, a.scale);
   } else {
-    const dim3 grid((a.lk + kF32Rows - 1) / kF32Rows, a.bh);
-    flash_bwd_dkv_f32_kernel<DH><<<grid, kF32Rows, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.lq, a.lk, a.scale);
+    using L = DkvF32Layout<DH>;
+    CUtensorMap q_map, k_map, v_map, do_map, lse_map, delta_map;
+    const size_t rows = (size_t)a.bh * a.lq;
+    if (!tile_map_f32(&q_map, a.q, a.bh, a.lq, DH, L::BQ) || !tile_map_f32(&do_map, a.dout, a.bh, a.lq, DH, L::BQ) ||
+        !tile_map_f32(&k_map, a.k, a.bh, a.lk, DH, kRows) || !tile_map_f32(&v_map, a.v, a.bh, a.lk, DH, kRows) ||
+        !row_map(&lse_map, a.lse, rows, L::kRowBox) || !row_map(&delta_map, a.delta, rows, L::kRowBox)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    constexpr int kSmem = L::kBytes + 1024;  // + the slack align_1024 takes
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_bwd_dkv_tf32x3_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((a.lk + kRows - 1) / kRows, a.bh, L::kSlices);
+    flash_bwd_dkv_tf32x3_kernel<DH><<<grid, kGroups * kGroupThreads, kSmem, a.stream>>>(
+        q_map, k_map, v_map, do_map, lse_map, delta_map, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
+        a.lq, a.lk, a.scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -186,6 +186,16 @@ __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap* map,
   for (int b = 0; b < DH / kCols; ++b) tma_load_3d(dst + b * ROWS * kCols, map, bar, b * kCols, row0, bh);
 }
 
+// Rows [row0, row0 + ROWS) of head `bh` of a (bh, len, DH) fp32 tensor described by `map`
+// (tile_map_f32 below) into `dst`: one box of 32 columns (128-byte rows, 128-byte swizzle) per
+// column block, the layout of mma_tf32.cuh's tiles.
+template <int ROWS, int DH>
+__device__ __forceinline__ void tma_load_tile_f32(float* dst, const CUtensorMap* map, uint64_t* bar, int row0,
+                                                  int bh) {
+#pragma unroll
+  for (int b = 0; b < DH / 32; ++b) tma_load_3d(dst + b * ROWS * 32, map, bar, b * 32, row0, bh);
+}
+
 // Synchronises the `count` threads that use named barrier `id` (1-15; 0 is __syncthreads).
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -406,6 +416,22 @@ inline bool tile_map(CUtensorMap* map, const void* base, int bh, int len, int dh
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Map of a contiguous (bh, len, dh) fp32 tensor whose boxes are (box_rows, 32 columns) of one
+// head: rows of 128 bytes with SWIZZLE_128B (tma_load_tile_f32). Rows past len read as zeros.
+// False on failure.
+inline bool tile_map_f32(CUtensorMap* map, const void* base, int bh, int len, int dh, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 4, static_cast<cuuint64_t>(len) * dh * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Map of a contiguous channels-last bf16 volume (b, z, y, x, c), c a multiple of 64, whose

@@ -79,6 +79,41 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale) -> Tuple
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of fp32 ``x`` as the fp32 backward kernels split every operand:
+    big = rna(x), small = rna(x - big), rna rounding the 13 low mantissa bits to
+    nearest, ties away from zero (cvt.rna.tf32.f32), in integer arithmetic on the
+    fp32 bits. x - big is exact; big + small is x to within about 2^-22 relative."""
+
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    big = rna(x.float())
+    return big, rna(x.float() - big)
+
+
+def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as 3xTF32: a_b b_s + a_s b_b + a_b b_b, each product of tf32 parts
+    exact in fp32 and summed in fp32 (a_s b_s, under 2^-22 relative, dropped)."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    return torch.matmul(a_big, b_small) + torch.matmul(a_small, b_big) + torch.matmul(a_big, b_big)
+
+
+def flash_attention_bwd_tf32x3_reference(q, k, v, dout, lse, delta, scale) -> Tensors3:
+    """Rounding model of the fp32 dQ and dK/dV kernels, (dq, dk, dv): the plain
+    versions' math with each of the five products (S = Q K^T, dP = dO V^T,
+    dQ = dS K, dV = P^T dO, dK = dS^T Q) taken as 3xTF32 (`tf32_split`). fp32
+    inputs; the sums run in another order than the kernels', so it models their
+    rounding and is not bit-equal to them. Matmuls in full fp32 (TF32 off)."""
+    q, k, v, dout = (t.float() for t in (q, k, v, dout))
+    p = torch.exp(_tf32x3_matmul(q, k.transpose(-1, -2)) * scale - lse[..., None])
+    ds = p * (_tf32x3_matmul(dout, v.transpose(-1, -2)) - delta[..., None])
+    dq = _tf32x3_matmul(ds, k) * scale
+    dk = _tf32x3_matmul(ds.transpose(-1, -2), q) * scale
+    return dq, dk, _tf32x3_matmul(p.transpose(-1, -2), dout)
+
+
 def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """rowsum(dO * O) in fp32, (B, H, Lq), from dO before its cast to q's dtype."""
     return (dout.float() * out.float()).sum(dim=-1)

@@ -18,7 +18,7 @@ import ctypes
 import os
 import subprocess
 import sys
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,31 +61,58 @@ def edited(source: str, edits: List[Tuple[str, str]]) -> str:
     return source
 
 
-def build(copies: Dict[str, List[Tuple[str, str]]] = COPIES, subdir: str = "full_copies") -> Dict[str, ctypes.CDLL]:
-    """One library per entry of ``copies`` (nvcc jobs in parallel), each with `cips_phase_conv` declared."""
-    out = os.path.join(cuda_library.BUILD_DIR, subdir)
-    os.makedirs(out, exist_ok=True)
+def build_copies(copies: Dict[str, Dict[str, List[Tuple[str, str]]]], sources: Sequence[str], subdir: str,
+                 companions: Sequence[str] = ()) -> Tuple[Dict[str, ctypes.CDLL], Dict[str, str]]:
+    """One library per entry of ``copies`` under ``build/cips_tpu_torch/{subdir}/``: the files
+    ``sources`` of csrc/ (the first a .cu, the others headers that it includes) with the
+    entry's text edits ({file: [(old, new), ...]}), written to a directory of their own, so
+    that an edited header is found before csrc/'s, and linked with the ``companions`` of
+    csrc/ (.cu files, unedited). The nvcc jobs run in parallel; (libraries, each copy's
+    nvcc output with ptxas' report)."""
+    root = os.path.join(cuda_library.BUILD_DIR, subdir)
+    os.makedirs(root, exist_ok=True)
     nvcc = "/usr/local/cuda/bin/nvcc"
-    flags = [f for f in cuda_library.NVCC_FLAGS if f not in ("-Xptxas", "-v")] + ["-I", cuda_library.CSRC]
-    with open(os.path.join(cuda_library.CSRC, "phase_conv_sm90.cu"), encoding="utf-8") as f:
-        source = f.read()
-    jobs = [subprocess.Popen([nvcc, *flags, "-c", "-o", os.path.join(out, "phase_conv.o"),
-                              os.path.join(cuda_library.CSRC, "phase_conv.cu")])]
+    flags = [*cuda_library.NVCC_FLAGS, "-I", cuda_library.CSRC]
+    text = {}
+    for name in sources:
+        with open(os.path.join(cuda_library.CSRC, name), encoding="utf-8") as f:
+            text[name] = f.read()
+
+    def compile_job(src: str, obj: str) -> subprocess.Popen:
+        return subprocess.Popen([nvcc, *flags, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    objects = [os.path.join(root, name[:-3] + ".o") for name in companions]
+    jobs = {obj: compile_job(os.path.join(cuda_library.CSRC, name), obj) for name, obj in zip(companions, objects)}
     for i, edits in enumerate(copies.values()):
-        path = os.path.join(out, f"copy{i}.cu")
-        with open(path, "w", encoding="utf-8") as f:
-            f.write(edited(source, edits))
-        jobs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", path[:-3] + ".o", path]))
-    if any(job.wait() != 0 for job in jobs):
-        raise RuntimeError("nvcc failed on a copy of phase_conv_sm90.cu")
-    libs = {}
+        out = os.path.join(root, f"copy{i}")
+        os.makedirs(out, exist_ok=True)
+        for name in sources:
+            with open(os.path.join(out, name), "w", encoding="utf-8") as f:
+                f.write(edited(text[name], edits.get(name, [])))
+        jobs[os.path.join(out, "copy.o")] = compile_job(os.path.join(out, sources[0]), os.path.join(out, "copy.o"))
+    reports = {}
+    for obj, job in jobs.items():
+        reports[obj], _ = job.communicate()
+        if job.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {obj}:\n{reports[obj]}")
+    libs, copy_reports = {}, {}
     for i, name in enumerate(copies):
-        lib_path = os.path.join(out, f"libcopy{i}.so")
-        subprocess.run([nvcc, "-shared", "-o", lib_path, os.path.join(out, "phase_conv.o"),
-                        os.path.join(out, f"copy{i}.o")], check=True)
-        lib = ctypes.CDLL(lib_path)
+        out = os.path.join(root, f"copy{i}")
+        subprocess.run([nvcc, "-shared", "-o", os.path.join(out, "lib.so"), os.path.join(out, "copy.o"), *objects],
+                       check=True)
+        libs[name] = ctypes.CDLL(os.path.join(out, "lib.so"))
+        copy_reports[name] = reports[os.path.join(out, "copy.o")]
+    return libs, copy_reports
+
+
+def build(copies: Dict[str, List[Tuple[str, str]]] = COPIES, subdir: str = "full_copies") -> Dict[str, ctypes.CDLL]:
+    """One library per entry of ``copies`` (edits of phase_conv_sm90.cu, linked with
+    phase_conv.cu), each with `cips_phase_conv` declared."""
+    libs, _ = build_copies({name: {"phase_conv_sm90.cu": edits} for name, edits in copies.items()},
+                           ("phase_conv_sm90.cu",), subdir, companions=("phase_conv.cu",))
+    for lib in libs.values():
         lib.cips_phase_conv.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        libs[name] = lib
     return libs
 
 

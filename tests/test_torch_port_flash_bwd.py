@@ -3,7 +3,9 @@
 The plain backward (`flash_attention_backward_reference`) is held to the
 Pallas dQ and dK/dV kernels run in interpret mode on the same residuals, and
 `FlashAttention` under autograd to ``jax.grad`` of the Pallas
-`flash_attention`. The CUDA kernels themselves run only on a card; their
+`flash_attention`. The fp32 kernels' rounding model (3xTF32,
+`flash_attention_bwd_tf32x3_reference`) is held to the plain backward and to
+the Pallas kernels. The CUDA kernels themselves run only on a card; their
 tests skip elsewhere.
 """
 
@@ -16,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cips_tpu.ops.pallas.flash_attention import _flash_backward_pallas, _flash_forward, flash_attention
 from cips_tpu_torch.ops import cuda_library as cl
 from cips_tpu_torch.ops import flash_attention as fa
+from cips_tpu_torch.scripts import time_flash_f32
 
 CASES = [((1, 2, 512, 32), 128, 256), ((2, 1, 256, 64), 64, 128)]
 
@@ -121,6 +125,98 @@ def test_autograd_function_matches_jax_grad(shape):
         np.testing.assert_allclose(t.numpy(), w, atol=1e-5 * np.abs(w).max(), rtol=0, err_msg=name)
 
 
+def test_tf32_split_parts():
+    # big + small is x to within 2^-21 relative (x normal), and each part is a tf32 value: its
+    # 13 low mantissa bits are 0. Rounding is to nearest with ties away from zero (cvt.rna):
+    # 1 + 2^-11 lies halfway between the tf32 values 1 and 1 + 2^-10.
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(np.concatenate([rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096),
+                                         [1.0 + 2.0**-12, 1.0 + 2.0**-11, -1.0 - 2.0**-11]]).astype(np.float32))
+    big, small = fa.tf32_split(x)
+    for part in (big, small):
+        assert part.dtype == torch.float32 and not (part.view(torch.int32) & 0x1FFF).any()
+    rebuilt = big.double() + small.double()
+    assert ((rebuilt - x.double()).abs() <= 2.0**-21 * x.double().abs()).all()
+    assert big[-3:].tolist() == [1.0, 1.0 + 2.0**-10, -1.0 - 2.0**-10]
+
+
+def _model_and_plain(shape, seed):
+    """(3xTF32 model, plain fp32 backward) of one set of fp32 residuals (the plain
+    forward's out and lse), computed head by head; each is (dq, dk, dv) of all heads."""
+    q, k, v, g = (torch.from_numpy(a) for a in _arrays(shape, 4, seed))
+    scale = shape[-1] ** -0.5
+    model, plain = [], []
+    for h in range(shape[1]):
+        qh, kh, vh, gh = (t[:, h:h + 1] for t in (q, k, v, g))
+        out, lse = fa.flash_attention_reference(qh, kh, vh, scale)
+        delta = fa._delta(gh, out)
+        model.append(fa.flash_attention_bwd_tf32x3_reference(qh, kh, vh, gh, lse, delta, scale))
+        plain.append((fa.flash_attention_bwd_dq_reference(qh, kh, vh, gh, lse, delta, scale),
+                      *fa.flash_attention_bwd_dkv_reference(qh, kh, vh, gh, lse, delta, scale)))
+    return [torch.cat(ts, dim=1) for ts in zip(*model)], [torch.cat(ts, dim=1) for ts in zip(*plain)]
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 2304, 32), (1, 2, 4608, 64), (1, 1, 1000, 128)])
+def test_tf32x3_model_within_half_the_fp32_limit(shape):
+    # The fp32 kernels take every product as 3xTF32; their rounding model stays within half of
+    # the limit that holds them to the plain backward (chip_smoke.TOL_F32_GRAD_REL of each
+    # max|grad|), at the flagship's attention, a longer one at Dh 64 and one at Dh 128.
+    # Measured: at most 2.2e-6.
+    model, plain = _model_and_plain(shape, seed=6)
+    for name, m, p in zip(("dq", "dk", "dv"), model, plain):
+        assert m.dtype == torch.float32 and m.shape == shape
+        rel = ((m - p).abs().max() / p.abs().max()).item()
+        assert rel <= 0.5 * chip_smoke.TOL_F32_GRAD_REL, (shape, name, rel)
+
+
+def test_tf32x3_model_is_not_the_plain_version():
+    model, plain = _model_and_plain((1, 2, 256, 32), seed=7)
+    assert not any(torch.equal(m, p) for m, p in zip(model, plain))
+
+
+@pytest.mark.parametrize("shape,block_q,block_k", CASES)
+def test_tf32x3_model_matches_pallas_interpret(shape, block_q, block_k):
+    # The model against the Pallas kernels in fp32 on the same residuals, within the fp32
+    # kernels' limit of each max|grad|.
+    q, k, v, g = _arrays(shape, 4, seed=8)
+    scale = 1.0 / shape[-1] ** 0.5
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    out, lse = _flash_forward(jq, jk, jv, scale, block_q, block_k, True)
+    want = _flash_backward_pallas(scale, block_q, block_k, True, (jq, jk, jv, out, lse), jnp.asarray(g))
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    delta = fa._delta(tg, torch.from_numpy(np.array(out)))
+    got = fa.flash_attention_bwd_tf32x3_reference(tq, tk, tv, tg, torch.from_numpy(np.array(lse)), delta, scale)
+    for name, w, t in zip(("dq", "dk", "dv"), want, got):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.numpy(), w, atol=chip_smoke.TOL_F32_GRAD_REL * np.abs(w).max(), rtol=0,
+                                   err_msg=name)
+
+
+def test_fp32_flash_bound_is_3xtf32_at_the_tf32_peak(monkeypatch):
+    # chip_smoke.bound_ms at the flagship's attention, (2, 4, 2304, 32) fp32, on an H100 SXM (132
+    # SMs at 1,980 MHz): dQ does 6 B H L^2 Dh operations and dK/dV 8, each taken three times at
+    # the TF32 peak (989 / 2 TFLOP/s); beside it the FMA figure (128 lanes x 2 x SMs x clock).
+    monkeypatch.setattr(chip_smoke, "sm_clocks_per_s", lambda: 132 * 1980e6)
+    b, h, l, d = chip_smoke.TRAIN_ATTN
+    pairs = b * h * l * l
+    nbytes = 6 * b * h * l * d * 4 + 2 * b * h * l * 4
+    for flops, want, fma in ((6.0 * pairs * d, 0.0495, 0.1219), (8.0 * pairs * d, 0.0660, 0.1625)):
+        ms, by = chip_smoke.bound_ms(flops, nbytes, float(pairs), torch.float32)
+        assert by == "operations" and ms == pytest.approx(want, abs=5e-5)
+        assert ms == pytest.approx(3 * flops / (chip_smoke.H100_BF16_FLOPS / 2) * 1e3)
+        assert chip_smoke.fma_ms(flops) == pytest.approx(fma, abs=5e-5)
+    assert chip_smoke.bound_ms(6.0 * pairs * d, 0.0)[0] == pytest.approx(6.0 * pairs * d / 989e12 * 1e3)  # bf16
+
+
+def test_fp32_timing_copies_edit_the_sources():
+    # The copies that time_flash_f32 builds are text edits of the kernels' sources; each edit
+    # must find its target exactly once, so that they follow the kernels as they change.
+    text = time_flash_f32.sources()
+    for name, edits in time_flash_f32.COPIES.items():
+        changed = [time_flash_f32.edited(text[f], edits.get(f, [])) != text[f] for f in time_flash_f32.SOURCES]
+        assert any(changed) == (name != "kernel"), name
+
+
 def test_function_backward_is_the_plain_backward_on_cpu():
     q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in _arrays((1, 2, 100, 32), 4, seed=3))
     scale = 0.2
@@ -174,7 +270,8 @@ def cuda_device():
 def test_bwd_kernels_match_plain_version_on_card(cuda_device, dtype, tol):
     # Limits as in chip_smoke.py, relative to each grad's max|grad|, against the
     # plain backward in fp32 on the same inputs: bf16 rounds dS, P and the grads
-    # (measured worst about 0.55 %); fp32 differs in summation order only.
+    # (measured worst about 0.55 %); fp32 takes every product as 3xTF32 (its rounding
+    # model, flash_attention_bwd_tf32x3_reference, stays within 2.2e-6 on the CPU).
     # Every tile edge (L 1, 17, 127, 129 and the flagship's 2,304 plus one, at Dh 32, 64
     # and 128), the causal generator's 18,432 tokens, and the dQ kernel's key-side edges:
     # fewer keys than one tile, Lq != Lk both ways and ragged, at Dh 128 too; then a

@@ -14,6 +14,7 @@ import collections
 import importlib.util
 import pathlib
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -357,6 +358,25 @@ def test_device_time_from_a_trace_that_lost_records(capsys):
     assert "lost 10 device records" in capsys.readouterr().out
     assert chip_smoke.kernel_ms_per_call(records[1:], 200, "fn") == pytest.approx((2 * 10.0 + 50.0 / 200) / 1e3)
     assert capsys.readouterr().out == ""
+
+
+def test_device_records_drop_user_annotations(capsys):
+    # chip_smoke.device_records on a trace's key_averages: host records and a record_function
+    # range that came back as a device record (Adam's Optimizer.step) are dropped, the second
+    # with a line that says so; kernels and copies stay. A torch whose records do not say
+    # whether they are annotations fails instead of keeping them.
+    record = collections.namedtuple("record", "key device_type is_user_annotation count self_device_time_total")
+    kernel = record("multi_tensor_apply_kernel", "DeviceType.CUDA", False, 2, 1200.0)
+    copy = record("Memcpy DtoD (Device -> Device)", "DeviceType.CUDA", False, 4, 30.0)
+    host = record("aten::add_", "DeviceType.CPU", False, 400, 0.0)
+    step = record("Optimizer.step#Adam.step", "DeviceType.CUDA", True, 2, 38727.0)
+    trace = types.SimpleNamespace(key_averages=lambda: [kernel, host, step, copy])
+    assert chip_smoke.device_records(trace, "profile train step") == [kernel, copy]
+    assert capsys.readouterr().out == ("profile train step: dropped a user annotation from the device records: "
+                                       "Optimizer.step#Adam.step x2, 38.727 ms\n")
+    old = collections.namedtuple("old", "key device_type count self_device_time_total")("k", "DeviceType.CUDA", 1, 1.0)
+    with pytest.raises(AttributeError):
+        chip_smoke.device_records(types.SimpleNamespace(key_averages=lambda: [old]), "trace")
 
 
 @pytest.fixture
