@@ -7,16 +7,17 @@ Phases (any failure raises and the script exits non-zero):
   2. build    — nvcc builds the kernel library from cips_tpu_torch/csrc/ (one
                 nvcc per source, all at once) and reports each kernel's
                 registers, spills (none allowed) and static shared memory
-                (-Xptxas -v) of the bf16 dQ, the fp32 (3xTF32) dQ and dK/dV
-                and the Hopper phase conv kernels (csrc/phase_conv_sm90.cu),
+                (-Xptxas -v) of the bf16 dQ, the fp32 (3xTF32) forward, dQ and
+                dK/dV and the Hopper phase conv kernels (csrc/phase_conv_sm90.cu),
                 with the dynamic shared memory of the bf16 dQ and phase conv
                 kernels;
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
                 128, the causal generator's long attention (1, 1, 18432, 32)
-                and scale -0.3 and 0, the backward at each in bf16 and fp32
-                (fp32 also against its 3xTF32 rounding model); then each
+                and scale -0.3 and 0, the forward and the backward at each in
+                bf16 and fp32 (fp32 also against their 3xTF32 rounding models,
+                the forward's distance printed); then each
                 kernel's device time (torch.profiler; its
                 eager time beside it) at the flagship's (2, 4, 2304, 32)
                 and the causal encoder's level-2 (2, 4, 18432, 32) shape in
@@ -34,7 +35,10 @@ Phases (any failure raises and the script exits non-zero):
                 clocked, set-up apart; the forward's time and its device time
                 by kernel kind (torch.profiler);
   5. parity   — the same fp32 weights on the card (kernels) and on the CPU
-                (plain versions) at a reduced crop, forward only;
+                (plain versions) at a reduced crop, forward only; then the fp32
+                generator forward (--dtype f32 serving) at the full volume and
+                batch 2 (CUDA events) and its device time by kernel kind, the
+                fp32 flash forward's share among them;
   6. training — cips_tpu_torch.cli.train_unet at full width and volume in
                 bf16, batch 2, for a few epochs with eval and a checkpoint per
                 epoch; checks losses, checkpoints and that every train step
@@ -55,7 +59,11 @@ Phases (any failure raises and the script exits non-zero):
                 time (torch.profiler; its eager time beside it) beside its
                 bound, its plain version's time and its one-call library
                 counterpart's device time, with the cuDNN yardsticks, at three
-                shapes; then the slice's main paths: each subcommand of
+                shapes; the fp32 kernels that the `stages` probe runs (full,
+                one_tap, shift, copy) the same way at the probe shape and the TPU
+                probe's own (1, 8, 16, 8, 128), TF32 off, their bound at the
+                3xTF32 rate with the FMA figure beside it; then the slice's main
+                paths: each subcommand of
                 `cips_tpu_torch.scripts.probe_phase_conv`, its launches counted;
  10. summary  — a JSON line of kernels, the card line, and the result line.
 
@@ -109,6 +117,10 @@ PHASE_CHECKS = ((PHASE_SHAPES[0], torch.bfloat16), (PHASE_SHAPES[1], torch.bfloa
                 ((1, 5, 7, 9, 256), torch.bfloat16), ((2, 3, 9, 17, 128), torch.bfloat16),
                 ((1, 1, 2, 3, 128), torch.bfloat16))
 PHASE_VARIANTS = ("full", "noshift", "one_tap", "dot", "shift", "copy", "select")
+# The fp32 kernels that the `stages` probe (scripts/debug_pallas_stages.py, fp32) runs, timed at
+# the probe shape and at the TPU probe's own (1, 8, 16, 8, 128).
+PHASE_F32_VARIANTS = ("full", "one_tap", "shift", "copy")
+PHASE_F32_SHAPES = ((8, 48, 64, 48, 128), (1, 8, 16, 8, 128))
 PHASE_EXACT = ("shift", "copy", "select")  # no sums: the kernel must equal the plain version
 # the kernels of csrc/phase_conv_sm90.cu (bf16 TMA + wgmma; copy, any dtype, by bulk copies)
 PHASE_SM90 = (("dot", 128), ("dot", 256), ("noshift", 128), ("full", 128), ("full", 256), ("one_tap", 128),
@@ -128,7 +140,10 @@ DESIGNS = {  # each kernel's design, for the kernels line
     "copy": "1-D bulk copies (cp.async.bulk) through a ring of shared-memory stages; persistent, one thread a CTA",
 }
 DESIGNS_F32 = {  # the fp32 flash kernels' designs, beside the bf16 ones in the kernels line
-    "fwd": "one q row a thread on FMAs, K and V tiles in shared memory",
+    "fwd": "TMA ring + 3xTF32 on mma.sync m16n8k8 (sm_90a): 32 q rows a CTA, two groups of 2 warps on even "
+           "and odd key tiles, exp2, P as register A straight from the score accumulators, S summed over 4 "
+           "k-steps at most and P V over one key tile in the tensor cores, then added by fp32 adds, merged in "
+           "shared memory; three CTAs an SM at Dh 32",
     "dq": "TMA ring + 3xTF32 on mma.sync m16n8k8 (sm_90a): two groups of 4 warps on even and odd key tiles, "
           "exp2, dS as register A straight from the accumulators, sums over keys added a tile at a time by "
           "fp32 adds, merged in shared memory",
@@ -146,7 +161,10 @@ PHASE_ROWS = (  # TPU kernel, its line, the probe entry's subcommand that runs i
 # Kernel output limits, relative to max|out| of the plain version (about 0.16
 # at L 4608, larger at shorter L, for unit-normal inputs). bf16 rounds P before
 # P.V and the output, 2^-9 relative each; the worst measured is about 0.4 %.
-# fp32 differs in summation order only.
+# fp32 takes both products as 3xTF32 (split into tf32 parts, three tensor-core
+# passes): its rounding model, flash_attention_tf32x3_reference, stays within
+# 2.0e-6 of max|out| and 9.6e-7 in lse of the plain version on the CPU
+# (tests/test_torch_port_flash.py); the kernel's distance to the model is printed.
 TOL_BF16_OUT_REL = 1e-2
 TOL_F32_OUT_REL = 1e-5
 TOL_LSE = 1e-4  # fp32 scores and sums in both dtypes, absolute
@@ -187,6 +205,10 @@ EVENT_TIMED: list = []  # calls that device_ms timed by CUDA events, the profile
 # kernel to the flagship's cuDNN conv, which also rounds an fp32 sum to bf16.
 TOL_PHASE_BF16_REL = 1e-2
 TOL_PHASE_F32_REL = 1e-5
+# The fp32 library yardsticks against the fp32 kernel before they are timed: cuDNN may take
+# a Winograd or FFT algorithm in fp32, whose rounding differs by more than summation order;
+# the check only ties each yardstick to the function.
+TOL_PHASE_LIBRARY_F32_REL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -320,22 +342,27 @@ def bound_ms(flops: float, nbytes: float, exps: float = 0.0, dtype=torch.bfloat1
 
 
 def kernel_checks(fa) -> float:
-    """Kernel vs the plain version in fp32 on the same inputs; returns the worst
-    bf16 error at the serving shape."""
+    """Kernel vs the plain version in fp32 on the same inputs (the fp32 kernel's
+    distance to its 3xTF32 rounding model printed beside); returns the worst bf16
+    error at the serving shape."""
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # (q shape, Lk or None for Lk = Lq, dtype)
+    edges = [  # (q shape, Lk or None for Lk = Lq[, scale]): every tile edge, at each Dh
+        ((1, 1, 1, 32), None), ((1, 2, 17, 32), None), ((1, 2, 127, 64), None), ((1, 2, 129, 128), None),
+        ((1, 1, 2305, 32), None), ((1, 2, 100, 32), 300), ((1, 2, 300, 128), 77), (CAUSAL_CHECK, None),
+        # any scale, as JAX's kernel takes: the wrapper maps these onto a positive one
+        ((1, 2, 200, 32), 300, -0.3), ((1, 2, 200, 64), 150, 0.0),
+    ]
+    cases = [  # (q shape, Lk or None for Lk = Lq, dtype[, scale])
         ((1, 4, 2304, 32), None, bf16), ((1, 4, 2304, 32), None, f32),
         ((4, 4, 2304, 32), None, bf16), ((4, 4, 2304, 32), None, f32),
         ((SERVING_BATCH, 4, 2304, 32), None, bf16),
         ((1, 2, 1000, 32), None, bf16), ((1, 2, 1000, 32), None, f32),
         ((1, 2, 4608, 64), None, bf16), ((1, 2, 4608, 64), None, f32),
-        ((1, 1, 1, 32), None, bf16), ((1, 2, 17, 32), None, bf16), ((1, 2, 127, 64), None, bf16),
-        ((1, 2, 129, 128), None, bf16), ((1, 1, 2305, 32), None, bf16), ((1, 2, 100, 32), 300, bf16),
-        ((1, 2, 300, 128), 77, bf16), (CAUSAL_CHECK, None, bf16),
-        # any scale, as JAX's kernel takes: the wrapper maps these onto a positive one
-        ((1, 2, 200, 32), 300, bf16, -0.3), ((1, 2, 200, 64), 150, bf16, 0.0),
+        *((shape, lk, bf16, *scale) for shape, lk, *scale in edges),
+        # every edge in fp32 too: the fp32 kernel is tiled as the bf16 one is
+        *((shape, lk, f32, *scale) for shape, lk, *scale in edges),
     ]
     for shape, lk, dtype, *scales in cases:
         kshape = shape if lk is None else (*shape[:2], lk, shape[3])
@@ -349,8 +376,16 @@ def kernel_checks(fa) -> float:
         rel = err / ref_out.abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tol = TOL_BF16_OUT_REL if dtype == torch.bfloat16 else TOL_F32_OUT_REL
+        model = ""
+        if dtype == torch.float32:  # the 3xTF32 kernel against its rounding model too
+            m_out, m_lse = fa.flash_attention_tf32x3_reference(q, k, v, scale)
+            model = (f"; to the 3xTF32 model: out {((out - m_out).abs().max() / ref_out.abs().max()).item():.3e} of "
+                     f"max|out|, lse {(lse - m_lse).abs().max().item():.3e} (the model "
+                     f"{((m_out - ref_out).abs().max() / ref_out.abs().max()).item():.3e}, lse "
+                     f"{(m_lse - ref_lse).abs().max().item():.3e})")
+            del m_out, m_lse
         print(f"kernel {shape} Lk {kshape[2]} {str(dtype)[6:]} scale {scale:.4g}: out max abs err {err:.3e}, / max|out| = "
-              f"{rel:.3e} (tol {tol:g}), lse max abs err {lse_err:.3e} (tol {TOL_LSE:g})")
+              f"{rel:.3e} (tol {tol:g}), lse max abs err {lse_err:.3e} (tol {TOL_LSE:g}){model}")
         check(torch.isfinite(out).all().item() and rel <= tol and lse_err <= TOL_LSE,
               f"flash kernel disagrees with its plain version at {shape} {dtype}")
         if shape == (SERVING_BATCH, 4, 2304, 32):
@@ -432,8 +467,8 @@ def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16) -> dict:
     }
     rows = {}
     for kind, (kernel, reference, flops, nbytes, library_ms, library) in kernels.items():
-        ms = device_ms(kernel, iters)
-        eager_ms = cuda_ms(kernel, iters, warmup=20)
+        ms = device_ms(kernel, 200)
+        eager_ms = cuda_ms(kernel, 200, warmup=20)
         plain_ms = cuda_ms(reference, 20) if plain else None
         bound, bound_by = bound_ms(flops, nbytes, float(pairs), dtype)
         yardstick = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
@@ -567,14 +602,15 @@ def bwd_kernel_checks(fa) -> dict:
 
 def sm90_kernel_report(report: str, fa, pc) -> None:
     """One line for each Hopper kernel that has no other report here (the bf16 dQ
-    and the fp32 (3xTF32) dQ and dK/dV kernels at each Dh, every kernel of
+    and the fp32 (3xTF32) forward, dQ and dK/dV kernels at each Dh, every kernel of
     csrc/phase_conv_sm90.cu) from nvcc's -Xptxas -v report (registers, spills,
     static shared memory), then the dynamic shared memory that the bf16 dQ's and
     the phase conv kernels' launchers ask for."""
     found = 0
     for name, body in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)(?=Compiling entry|\Z)",
                                  report, flags=re.S):
-        kernel = re.search(r"(flash_bwd_dq_bf16_kernel|flash_bwd_dq_tf32x3_kernel|flash_bwd_dkv_tf32x3_kernel|"
+        kernel = re.search(r"(flash_bwd_dq_bf16_kernel|flash_fwd_tf32x3_kernel|flash_bwd_dq_tf32x3_kernel|"
+                           r"flash_bwd_dkv_tf32x3_kernel|"
                            r"phase_conv_sm90_cu\w*?"
                            r"(?:dot_kernel|noshift_kernel|full_kernel|one_tap_kernel|copy_kernel))(?:ILi(\d+))?", name)
         if kernel is None:
@@ -590,8 +626,8 @@ def sm90_kernel_report(report: str, fa, pc) -> None:
         check(spills is None or spills.groups() == ("0", "0"), f"ptxas reports spills in {label}")
         found += 1
     if "nvcc done" in report:  # else the library was up to date and nothing was compiled
-        check(found == 16, f"the build report names {found} of the 16 kernels above (bf16 dQ, fp32 dQ and dK/dV "
-                           f"at 3 Dh each, dot at 2 pc, noshift, full, one_tap at 2 pc, copy)")
+        check(found == 19, f"the build report names {found} of the 19 kernels above (bf16 dQ, fp32 forward, dQ "
+                           f"and dK/dV at 3 Dh each, dot at 2 pc, noshift, full, one_tap at 2 pc, copy)")
     for dh in fa.HEAD_DIMS:
         print(f"dynamic shared memory: bf16 dQ at Dh {dh}: {fa.dq_kernel_smem(dh)} bytes (a block may have 232,448)")
     for variant, width in PHASE_SM90:
@@ -684,23 +720,25 @@ def phase_conv_flagship(cfg: dict, state: dict) -> float:
     return err
 
 
-def phase_conv_timing(pc, shape) -> dict:
-    """Each variant's device time (``ms``, torch.profiler over 200 calls) and eager
-    time (``eager_ms``, CUDA events over 200 launches after 20 warm-up) beside its
-    bound, its plain version's time and, where one PyTorch call computes the same
-    function, that call's device and eager times; the two cuDNN yardsticks of the
-    conv at this shape."""
+def phase_conv_timing(pc, shape, dtype=torch.bfloat16, variants=PHASE_VARIANTS) -> dict:
+    """Each variant's device time (``ms``, torch.profiler over 200 calls: CUPTI drops
+    about 10 records a trace, which a shorter trace cannot spare) and eager time
+    (``eager_ms``, CUDA events over 200 launches after 20 warm-up) beside its bound, its plain version's time and, where one PyTorch call computes
+    the same function, that call's device and eager times; the two cuDNN yardsticks
+    of the conv at this shape. In ``dtype`` (fp32: TF32 off, as phase 1 sets it;
+    the bound's operations at the 3xTF32 rate, the FMA figure printed beside)."""
     import torch.nn.functional as F
 
     from cips_tpu_torch.scripts.probe_phase_conv import yardsticks
 
-    x, w, weights = phase_inputs(shape, torch.bfloat16, seed=30)
+    x, w, weights = phase_inputs(shape, dtype, seed=30)
+    name = str(dtype)[6:]
     b, z, y, xd, p = shape
     cells, c = b * z * y * xd, p // 8
     xc = x.permute(0, 4, 1, 2, 3)  # channels-last view for cuDNN
     convs = yardsticks(x, w)
-    sticks = {name: (device_ms(fn, 200), cuda_ms(fn, 200, warmup=20)) for name, fn in convs.items()}
-    print(f"phase conv yardsticks {shape} bf16, device (eager) ms: F.conv3d dense k3 over the packed layout "
+    sticks = {label: (device_ms(fn, 200), cuda_ms(fn, 200, warmup=20)) for label, fn in convs.items()}
+    print(f"phase conv yardsticks {shape} {name}, device (eager) ms: F.conv3d dense k3 over the packed layout "
           f"{sticks['dense k3 packed'][0]:.4f} ({sticks['dense k3 packed'][1]:.4f}); F.conv3d at the unpacked "
           f"{(b, c, 2 * z, 2 * y, 2 * xd)} {sticks['unpacked'][0]:.4f} ({sticks['unpacked'][1]:.4f})")
 
@@ -716,17 +754,19 @@ def phase_conv_timing(pc, shape) -> dict:
                "noshift": k2_conv(weights["noshift"].permute(4, 3, 0, 1, 2)), "one_tap": k2_conv(one_tap),
                "dot": lambda: torch.einsum("bzyxi,kio->bzyxo", x, weights["dot"]), "copy": x.clone}
     channels_first = ("full", "noshift", "one_tap")  # the cuDNN calls return (B, pc, Z, Y, X) views
-    io_bytes = 2.0 * cells * p * 2  # x read once, out written once
+    io_bytes = 2.0 * cells * p * x.element_size()  # x read once, out written once
     # The functions' own operations. dot is sum_k x . W[k] = x . (sum_k W[k]): one
     # product per cell plus the sum of W, which is what the bf16 kernel runs. full
     # also gets the count that its kernel issues (8 dense taps), as dense_bound_ms.
     ops = {"full": 2.0 * 27 * c * c * 8 * cells, "noshift": 2.0 * 8 * cells * p * p,
            "dot": 2.0 * cells * p * p + 8.0 * p * p, "one_tap": 2.0 * cells * p * p}
+    tol = TOL_PHASE_BF16_REL if dtype == torch.bfloat16 else TOL_PHASE_LIBRARY_F32_REL
     rows = {}
-    for variant in PHASE_VARIANTS:
+    for variant in variants:
         kernel, plain = phase_variant(pc, variant, x, weights)
         weight = weights.get(variant)
-        bound, bound_by = bound_ms(ops.get(variant, 0.0), io_bytes + (0 if weight is None else weight.numel() * 2))
+        bound, bound_by = bound_ms(ops.get(variant, 0.0),
+                                   io_bytes + (0 if weight is None else weight.numel() * weight.element_size()), dtype=dtype)
         ms = device_ms(kernel, 200)
         eager_ms = cuda_ms(kernel, 200, warmup=20)
         plain_ms = cuda_ms(lambda: plain(x.dtype), 5, warmup=1)
@@ -736,7 +776,7 @@ def phase_conv_timing(pc, shape) -> dict:
             if variant in channels_first:
                 lib_out = lib_out.permute(0, 2, 3, 4, 1)
             rel = ((lib_out.float() - out.float()).abs().max() / out.float().abs().max()).item()
-            check(lib_out.shape == out.shape and rel <= TOL_PHASE_BF16_REL,
+            check(lib_out.shape == out.shape and rel <= tol,
                   f"the library call of {variant} computes another function: {rel:.3e}")
             library_ms = device_ms(library[variant], 200)
             library_eager_ms = cuda_ms(library[variant], 200, warmup=20)
@@ -745,11 +785,14 @@ def phase_conv_timing(pc, shape) -> dict:
                          "unpacked_conv3d_ms": sticks["unpacked"][0]}
         dense = ""
         if variant == "full":
-            rows[variant]["dense_bound_ms"], _ = bound_ms(2.0 * 8 * cells * p * p, io_bytes + weight.numel() * 2)
+            rows[variant]["dense_bound_ms"], _ = bound_ms(2.0 * 8 * cells * p * p,
+                                                          io_bytes + weight.numel() * weight.element_size(), dtype=dtype)
             dense = f", dense-count bound {rows[variant]['dense_bound_ms']:.5f} ms"
+        if dtype == torch.float32 and variant in ops:  # the products at the FMA rate, printed only
+            dense += f", at the FMA rate {fma_ms(ops[variant]):.5f} ms ({fma_ms(ops[variant]) / ms:.1%})"
         lib = "none" if library_ms is None else \
             f"{library_ms:.4f} ms on the device ({library_eager_ms:.4f} eagerly; kernel {ms / library_ms:.2f}x)"
-        print(f"phase conv {variant} {shape} bf16: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call "
+        print(f"phase conv {variant} {shape} {name}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call "
               f"eagerly), plain {plain_ms:.4f} ms, library {lib}, bound {bound:.5f} ms ({bound_by}{dense}); "
               f"{bound / ms:.1%} of bound")
     return rows
@@ -859,10 +902,10 @@ KERNEL_KINDS = (  # (kind, substrings of the kernel name), first match wins
 )
 
 
-def profile_window(fn, label: str) -> None:
+def profile_window(fn, label: str) -> dict:
     """Device time by kernel over one warm call of ``fn``, grouped by kind, and
     the device's busy share of that call (a second profiled window, so the
-    profiler's start-up is outside it)."""
+    profiler's start-up is outside it); returns {kind: device ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -887,6 +930,44 @@ def profile_window(fn, label: str) -> None:
         print(f"profile {label}: {ms:9.3f} ms {ms / busy:6.1%}  {kind}")
     for ms, count, name in rows[:12]:
         print(f"profile {label}: {ms:9.3f} ms {ms / busy:6.1%} x{count:<4d} {name[:110]}")
+    return kinds
+
+
+def f32_forward(cfg: dict, state: dict, card: str) -> float:
+    """The fp32 generator forward (what `output_predict --dtype f32` runs) at the full
+    volume and batch 2: CUDA events over 3 calls after 1, the 6 fp32 flash forwards it
+    launches checked, and one profiled call by kernel kind with the flash forward's
+    share of the device time. TF32 is off (phase 1). Returns the forward's ms."""
+    from cips_tpu_torch.ops import flash_attention as fa
+    from cips_tpu_torch.training import unet_synthesis
+
+    generator, _, _ = unet_synthesis.build_models(cfg, FLAGSHIP_K, dtype=torch.float32, device="cuda")
+    generator.load_state_dict(state)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand((SERVING_BATCH, *CROP, 1), device="cuda", generator=g)
+    ctx = torch.rand((SERVING_BATCH, 1, FLAGSHIP_K), device="cuda", generator=g)
+
+    def forward():
+        with torch.inference_mode():
+            return generator(x, ctx)
+
+    with uncounted(fa):
+        before = fa.flash_attention_forward.launches
+        out = forward()
+        launched = fa.flash_attention_forward.launches - before
+        check(launched == 6 and out.dtype == torch.float32 and torch.isfinite(out).all().item(),
+              f"the fp32 generator forward launched {launched} flash forwards (6 expected) or gave a bad output")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(forward, 3, warmup=1)
+        print(f"fp32 serving: generator forward {ms:.3f} ms at batch {SERVING_BATCH} fp32, full volume {CROP}, "
+              f"TF32 off = {SERVING_BATCH / ms * 1e3:.3f} vol/s (forward only, CUDA events over 3 after 1), peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; 6 fp32 flash forwards a call; {card}")
+        kinds = profile_window(forward, "fp32 forward")
+    flash = kinds.get(KERNEL_KINDS[0][0], 0.0)
+    print(f"fp32 serving: the fp32 flash forward {flash:.3f} ms of {sum(kinds.values()):.3f} ms of kernels in the "
+          f"profiled call ({flash / sum(kinds.values()):.2%})")
+    del generator, out
+    return ms
 
 
 def subset_manifest(src: str, dst: str, n: int) -> str:
@@ -1128,6 +1209,7 @@ def main() -> int:
         print(f"parity: mask + MAE/MS-SSIM/PSNR card {metrics['cuda']} vs CPU {metrics['cpu']}, "
               f"max diff {diff:.3e} (tol {TOL_METRIC:g})")
         check(diff <= TOL_METRIC, "card and CPU metrics disagree")
+        f32_forward(cfg, state, card)
 
         phase("6 training")
         train_exp = os.path.join(tmp, "train_exp")
@@ -1244,6 +1326,8 @@ def main() -> int:
         phase_err = phase_conv_checks(pc)
         phase_err["full"] = max(phase_err["full"], phase_conv_flagship(cfg, state))
         phase_timing = {shape: phase_conv_timing(pc, shape) for shape in PHASE_SHAPES}
+        phase_timing_f32 = {shape: phase_conv_timing(pc, shape, torch.float32, PHASE_F32_VARIANTS)
+                            for shape in PHASE_F32_SHAPES}
         print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
         entry_launches = phase_conv_entry(pc)
 
@@ -1276,7 +1360,12 @@ def main() -> int:
                              "max_abs_err": phase_err[v],
                              "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
                                                                for k, t in phase_timing[shape][v].items()}
-                                    for shape in PHASE_SHAPES}}
+                                    for shape in PHASE_SHAPES},
+                             # the fp32 kernel (csrc/phase_conv.cu; copy: phase_conv_sm90.cu), TF32 off
+                             **({"at_f32": {"x".join(map(str, shape)): {
+                                 k: round(t, 6) if isinstance(t, float) else t
+                                 for k, t in phase_timing_f32[shape][v].items()} for shape in PHASE_F32_SHAPES}}
+                                if v in PHASE_F32_VARIANTS else {})}
                          for v in variants},
         })
     print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")

@@ -15,7 +15,11 @@ Each kernel wrapper takes the plain version only for tensors on the CPU. For
 CUDA tensors it launches the kernel or raises; there is no fallback. Its
 `launches` attribute counts kernel launches.
 
-Any scale, as in the JAX package: the bf16 kernels take the row max before the
+fp32 inputs take kernels whose products are 3xTF32 on the tensor cores; their
+rounding models are `flash_attention_tf32x3_reference` (forward) and
+`flash_attention_bwd_tf32x3_reference`, which only tests and `chip_smoke.py` call.
+
+Any scale, as in the JAX package: the kernels take the row max before the
 scale, so the wrappers hand every kernel a positive one (`_positive_scale`:
 a negated K for a negative scale, a zero K for scale 0).
 
@@ -80,7 +84,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale) -> Tuple
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small) of fp32 ``x`` as the fp32 backward kernels split every operand:
+    """(big, small) of fp32 ``x`` as the fp32 kernels split every operand:
     big = rna(x), small = rna(x - big), rna rounding the 13 low mantissa bits to
     nearest, ties away from zero (cvt.rna.tf32.f32), in integer arithmetic on the
     fp32 bits. x - big is exact; big + small is x to within about 2^-22 relative."""
@@ -98,6 +102,21 @@ def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_big, a_small = tf32_split(a)
     b_big, b_small = tf32_split(b)
     return torch.matmul(a_big, b_small) + torch.matmul(a_small, b_big) + torch.matmul(a_big, b_big)
+
+
+def flash_attention_tf32x3_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rounding model of the fp32 forward kernel, (out, lse): the plain version's
+    math with S = Q K^T and P V taken as 3xTF32 (`tf32_split`), P kept in fp32.
+    fp32 inputs; the sums run in another order than the kernel's, so it models
+    its rounding and is not bit-equal to it. Matmuls in full fp32 (TF32 off)."""
+    q, k, v = (t.float() for t in (q, k, v))
+    s = _tf32x3_matmul(q, k.transpose(-1, -2)) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return _tf32x3_matmul(p, v) / l, (m + torch.log(l)).squeeze(-1)
 
 
 def flash_attention_bwd_tf32x3_reference(q, k, v, dout, lse, delta, scale) -> Tensors3:
@@ -189,7 +208,7 @@ def _check_cuda_residuals(q: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor
 
 def _positive_scale(k: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float, float]:
     """(k', scale', dk_sign) with scale' > 0 and scale' q k'^T = scale q k^T, for
-    the kernels, whose bf16 versions take the row max before the scale: a negative
+    the kernels, which take the row max before the scale: a negative
     scale negates k (exact in every dtype), and scale 0 zeroes k with scale' 1
     (uniform P, lse = log Lk, dQ = 0). The kernels' dK is the gradient for k', so
     the gradient for k is dk_sign times it (0 at scale 0, where dK is 0)."""

@@ -2,7 +2,9 @@
 
 The plain version (`flash_attention_reference`) is held to the Pallas kernel
 run in interpret mode, the way tests/test_flash_attention.py runs it on the
-CPU. The CUDA kernel itself runs only on a card; its test skips elsewhere.
+CPU, and so is the fp32 kernel's rounding model (3xTF32,
+`flash_attention_tf32x3_reference`), which is also held to the plain version.
+The CUDA kernel itself runs only on a card; its tests skip elsewhere.
 """
 
 import jax.numpy as jnp
@@ -10,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cips_tpu.ops.attention import _reference_attention as jax_reference_attention
 from cips_tpu.ops.pallas.flash_attention import _flash_forward
 from cips_tpu_torch.ops import attention
 from cips_tpu_torch.ops import flash_attention as fa
+from cips_tpu_torch.scripts import time_flash_f32
 
 
 def _qkv(shape, seed=0, lk=None):
@@ -56,6 +60,55 @@ def test_plain_matches_pallas_interpret_bf16(shape, block_q, block_k):
     want_out = np.asarray(want_out, np.float32)
     np.testing.assert_allclose(got_out.float().numpy(), want_out, atol=1e-2 * np.abs(want_out).max(), rtol=0)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-4, rtol=1e-5)
+
+
+# The flagship's attention, Dh 64 and 128, a ragged L (one key and one q row past a tile) and
+# Lq != Lk both ways.
+MODEL_CASES = [((1, 4, 2304, 32), None), ((1, 2, 1000, 64), None), ((1, 1, 1000, 128), None),
+               ((1, 2, 129, 32), None), ((1, 2, 300, 64), 77), ((1, 2, 100, 128), 300)]
+
+
+@pytest.mark.parametrize("shape,lk", MODEL_CASES)
+def test_tf32x3_forward_model_within_half_the_fp32_limits(shape, lk):
+    # The fp32 kernel takes both products as 3xTF32; its rounding model stays within half of the
+    # limits that hold the kernel to the plain version (chip_smoke.TOL_F32_OUT_REL of max|out|,
+    # chip_smoke.TOL_LSE absolute). Measured: at most 2.0e-6 of max|out| and 9.6e-7 in lse.
+    q, k, v = (torch.from_numpy(a) for a in _qkv(shape, seed=5, lk=lk))
+    scale = shape[-1] ** -0.5
+    m_out, m_lse = fa.flash_attention_tf32x3_reference(q, k, v, scale)
+    p_out, p_lse = fa.flash_attention_reference(q, k, v, scale)
+    assert m_out.dtype == torch.float32 and m_out.shape == shape and m_lse.shape == shape[:3]
+    assert ((m_out - p_out).abs().max() / p_out.abs().max()).item() <= 0.5 * chip_smoke.TOL_F32_OUT_REL
+    assert (m_lse - p_lse).abs().max().item() <= 0.5 * chip_smoke.TOL_LSE
+
+
+def test_tf32x3_forward_model_is_not_the_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 2, 256, 32), seed=6))
+    model, plain = fa.flash_attention_tf32x3_reference(q, k, v, 0.2), fa.flash_attention_reference(q, k, v, 0.2)
+    assert not torch.equal(model[0], plain[0]) and not torch.equal(model[1], plain[1])
+
+
+@pytest.mark.parametrize("shape,block_q,block_k", CASES)
+def test_tf32x3_forward_model_matches_pallas_interpret(shape, block_q, block_k):
+    # The model against the Pallas forward in fp32, within the limits that hold the fp32 kernel to
+    # the plain version: chip_smoke.TOL_F32_OUT_REL of max|out| and chip_smoke.TOL_LSE absolute.
+    q, k, v = _qkv(shape, seed=7)
+    scale = 1.0 / shape[-1] ** 0.5
+    want_out, want_lse = _flash_forward(*(jnp.asarray(a) for a in (q, k, v)), scale, block_q, block_k, True)
+    got_out, got_lse = fa.flash_attention_tf32x3_reference(*(torch.from_numpy(a) for a in (q, k, v)), scale)
+    want_out = np.asarray(want_out)
+    np.testing.assert_allclose(got_out.numpy(), want_out, atol=chip_smoke.TOL_F32_OUT_REL * np.abs(want_out).max(),
+                               rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=chip_smoke.TOL_LSE, rtol=0)
+
+
+def test_fp32_forward_timing_copies_edit_the_source():
+    # The forward copies that time_flash_f32 builds are text edits of the kernel's source; each
+    # edit must find its target exactly once, so that they follow the kernel as it changes.
+    text = time_flash_f32.sources(time_flash_f32.FWD_SOURCES)
+    for name, edits in time_flash_f32.FWD_COPIES.items():
+        changed = [time_flash_f32.edited(text[f], edits.get(f, [])) != text[f] for f in time_flash_f32.FWD_SOURCES]
+        assert any(changed) == (name != "kernel"), name
 
 
 def test_wrapper_takes_plain_version_on_cpu():
@@ -101,7 +154,7 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol):
     # Tolerances as in chip_smoke.py, relative to max|out|: bf16 rounds P and
-    # the output (2^-9 relative each); fp32 differs in summation order only.
+    # the output (2^-9 relative each); fp32 takes both products as 3xTF32.
     # Every tile edge: one row, a part of one tile, one tile less or more a row, the
     # flagship's L plus one, Lq != Lk both ways, and the causal generator's 18,432 tokens.
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -147,3 +200,30 @@ def test_kernel_rejects_bad_inputs_on_card(cuda_device):
     out, _ = fa.flash_attention_forward(qg, q, q)
     assert fa.flash_attention_forward.launches == before + 1 and out.shape == q.shape
     assert fa.FlashAttention.apply(qg, q, q, 32**-0.5).requires_grad
+
+
+@pytest.mark.cuda
+def test_fp32_kernel_matches_plain_version_and_model_on_card(cuda_device):
+    # The fp32 (3xTF32) kernel against the plain version and against its rounding model, each
+    # within chip_smoke.py's fp32 limits: TOL_F32_OUT_REL of max|out|, TOL_LSE absolute. Every
+    # tile edge at Dh 32, 64 and 128, Lq != Lk both ways, the causal generator's 18,432 tokens and
+    # a negative and a zero scale, which the wrapper maps onto a positive one.
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    cases = [((1, 4, 2304, 32), None, None), ((1, 2, 1, 32), None, None), ((1, 2, 17, 64), None, None),
+             ((1, 2, 127, 128), None, None), ((1, 2, 129, 32), None, None), ((1, 1, 2305, 32), None, None),
+             ((1, 2, 100, 32), 300, None), ((1, 2, 300, 64), 77, None), ((1, 1, 129, 128), 191, None),
+             ((1, 1, 18432, 32), None, None), ((1, 2, 200, 32), 300, -0.3), ((1, 2, 200, 64), 150, 0.0)]
+    for shape, lk, scale in cases:
+        kshape = shape if lk is None else (*shape[:2], lk, shape[3])
+        q = torch.randn(shape, device=cuda_device, generator=g)
+        k, v = (torch.randn(kshape, device=cuda_device, generator=g) for _ in range(2))
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        before = fa.flash_attention_forward.launches
+        out, lse = fa.flash_attention_forward(q, k, v, scale)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_forward.launches == before + 1
+        for ref_out, ref_lse in (fa.flash_attention_reference(q, k, v, scale),
+                                 fa.flash_attention_tf32x3_reference(q, k, v, scale)):
+            rel = ((out - ref_out).abs().max() / ref_out.abs().max()).item()
+            assert rel <= chip_smoke.TOL_F32_OUT_REL, (shape, rel)
+            assert (lse - ref_lse).abs().max().item() <= chip_smoke.TOL_LSE, shape
