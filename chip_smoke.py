@@ -8,9 +8,9 @@ Phases (any failure raises and the script exits non-zero):
                 nvcc per source, all at once) and reports each kernel's
                 registers, spills (none allowed) and static shared memory
                 (-Xptxas -v) of the bf16 dQ, the fp32 (3xTF32) forward, dQ and
-                dK/dV and the Hopper phase conv kernels (csrc/phase_conv_sm90.cu),
-                with the dynamic shared memory of the bf16 dQ and phase conv
-                kernels;
+                dK/dV and the Hopper phase conv kernels (csrc/phase_conv_sm90.cu,
+                and the fp32 ones, 3xTF32, csrc/phase_conv_tf32.cu), with the
+                dynamic shared memory of the bf16 dQ and phase conv kernels;
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
@@ -50,11 +50,13 @@ Phases (any failure raises and the script exits non-zero):
   8. grads    — one fp32 train step from the same random weights on the card
                 and on the CPU at the reduced crop: G and D gradients compared;
   9. phase conv — every variant of the phase-structured packed conv kernels
-                (csrc/phase_conv.cu, csrc/phase_conv_sm90.cu: the Pallas
-                phase_conv and its three TPU probes) against its plain version
-                at the probes' shapes, in fp32, at ragged shapes, at pc 256,
-                batch 2 and a volume under one tile; bf16 dot also against its
-                rounding model; the kernel against the flagship generator's
+                (csrc/phase_conv.cu, csrc/phase_conv_sm90.cu,
+                csrc/phase_conv_tf32.cu: the Pallas phase_conv and its three TPU
+                probes) against its plain version at the probes' shapes, at
+                ragged shapes, at pc 256, batch 2 and a volume under one tile,
+                in bf16 and fp32; bf16 dot and the fp32 (3xTF32) product
+                variants also against their rounding models (the distance
+                printed); the kernel against the flagship generator's
                 own level-0 conv on that conv's input; each variant's device
                 time (torch.profiler; its eager time beside it) beside its
                 bound, its plain version's time and its one-call library
@@ -115,7 +117,8 @@ PHASE_CHECKS = ((PHASE_SHAPES[0], torch.bfloat16), (PHASE_SHAPES[1], torch.bfloa
                 ((1, 5, 7, 9, 128), torch.float32),  # ragged on every axis
                 # the TMA + wgmma kernels' edges: ragged at pc 256, batch 2 ragged, fewer cells than a tile
                 ((1, 5, 7, 9, 256), torch.bfloat16), ((2, 3, 9, 17, 128), torch.bfloat16),
-                ((1, 1, 2, 3, 128), torch.bfloat16))
+                ((1, 1, 2, 3, 128), torch.bfloat16), ((1, 5, 7, 9, 256), torch.float32),
+                ((2, 3, 9, 17, 128), torch.float32), ((1, 1, 2, 3, 128), torch.float32))
 PHASE_VARIANTS = ("full", "noshift", "one_tap", "dot", "shift", "copy", "select")
 # The fp32 kernels that the `stages` probe (scripts/debug_pallas_stages.py, fp32) runs, timed at
 # the probe shape and at the TPU probe's own (1, 8, 16, 8, 128).
@@ -125,6 +128,9 @@ PHASE_EXACT = ("shift", "copy", "select")  # no sums: the kernel must equal the 
 # the kernels of csrc/phase_conv_sm90.cu (bf16 TMA + wgmma; copy, any dtype, by bulk copies)
 PHASE_SM90 = (("dot", 128), ("dot", 256), ("noshift", 128), ("full", 128), ("full", 256), ("one_tap", 128),
               ("one_tap", 256), ("copy", 128))
+# the fp32 product variants of csrc/phase_conv_tf32.cu, each at N tiles of 128, 64 and 32 channels
+PHASE_TF32 = ("full", "noshift", "one_tap", "dot")
+PHASE_TF32_TILES = (128, 64, 32)
 DESIGNS = {  # each kernel's design, for the kernels line
     "fwd": "TMA ring + wgmma (sm_90a): two warpgroups on even and odd key tiles, exp2, merged in shared memory",
     "dq": "TMA ring + wgmma (sm_90a): two warpgroups on even and odd key tiles, exp2, dS as register A, K read "
@@ -139,7 +145,13 @@ DESIGNS = {  # each kernel's design, for the kernels line
     "shift": "gather, 16 bytes a thread", "select": "elementwise, 16 bytes a thread",
     "copy": "1-D bulk copies (cp.async.bulk) through a ring of shared-memory stages; persistent, one thread a CTA",
 }
-DESIGNS_F32 = {  # the fp32 flash kernels' designs, beside the bf16 ones in the kernels line
+TF32_CONV = ("3xTF32 on wgmma m64nNk8 (sm_90a), A split in registers from a TMA halo box read at each cell's "
+             "shifted row (the next stage's under the products), B from a split K-major copy of W made by a prep "
+             "kernel, through a TMA ring; a 32-channel chunk of one tap summed in the tensor cores, then added by "
+             "fp32 adds; two consumer warpgroups on one z plane each, 128 channels (64 or 32 when the grid would "
+             "leave SMs idle), the producer warpgroup's registers handed to them (setmaxnreg); persistent; stores "
+             "from the accumulators")
+DESIGNS_F32 = {  # the fp32 kernels' designs (flash, phase conv), beside the bf16 ones in the kernels line
     "fwd": "TMA ring + 3xTF32 on mma.sync m16n8k8 (sm_90a): 32 q rows a CTA, two groups of 2 warps on even "
            "and odd key tiles, exp2, P as register A straight from the score accumulators, S summed over 4 "
            "k-steps at most and P V over one key tile in the tensor cores, then added by fp32 adds, merged in "
@@ -150,6 +162,9 @@ DESIGNS_F32 = {  # the fp32 flash kernels' designs, beside the bf16 ones in the 
     "dkv": "TMA ring + 3xTF32 on mma.sync m16n8k8 (sm_90a): two groups of 4 warps on even and odd q tiles, "
            "S^T and dP^T so that P^T and dS^T are register A operands, exp2, sums over q rows added a tile at "
            "a time by fp32 adds, merged in shared memory; at Dh 128 two CTAs a key block, one a column half",
+    **{variant: TF32_CONV for variant in PHASE_TF32},
+    # shift, select and copy: one kernel for both dtypes
+    **{variant: DESIGNS[variant] for variant in ("shift", "select", "copy")},
 }
 PHASE_ROWS = (  # TPU kernel, its line, the probe entry's subcommand that runs it, the variants that port it
     ("phase_conv", "cips_tpu/ops/pallas/phase_conv.py:50", "phase", ("full",)),
@@ -200,9 +215,13 @@ EVENT_TIMED: list = []  # calls that device_ms timed by CUDA events, the profile
 # Phase conv product variants against their plain version in fp32 from the same
 # inputs, relative to max|out|: bf16 rounds the fp32 sum to bf16 once at the end
 # (2^-9 relative) and both sum 8 taps of pc products in other orders; the worst
-# measured on an H100 is 3.4e-3. fp32 differs in summation order only (1.8e-6
-# measured), and the kernel uses no TF32. The same bf16 limit holds the
-# kernel to the flagship's cuDNN conv, which also rounds an fp32 sum to bf16.
+# measured on an H100 is 3.4e-3. fp32 takes every product as 3xTF32 (split into
+# tf32 parts, three tensor-core passes) and sums a 32-channel chunk of one tap
+# in the tensor cores before an fp32 add: its rounding model,
+# phase_conv_tf32x3_reference, stays within 7.2e-7 of max|out| of the plain
+# version on the CPU (tests/test_torch_port_phase_conv.py holds it to 3e-6); the
+# kernel's distance to the model is printed. The same bf16 limit holds the kernel to the flagship's cuDNN
+# conv, which also rounds an fp32 sum to bf16.
 TOL_PHASE_BF16_REL = 1e-2
 TOL_PHASE_F32_REL = 1e-5
 # The fp32 library yardsticks against the fp32 kernel before they are timed: cuDNN may take
@@ -603,40 +622,51 @@ def bwd_kernel_checks(fa) -> dict:
 def sm90_kernel_report(report: str, fa, pc) -> None:
     """One line for each Hopper kernel that has no other report here (the bf16 dQ
     and the fp32 (3xTF32) forward, dQ and dK/dV kernels at each Dh, every kernel of
-    csrc/phase_conv_sm90.cu) from nvcc's -Xptxas -v report (registers, spills,
-    static shared memory), then the dynamic shared memory that the bf16 dQ's and
-    the phase conv kernels' launchers ask for."""
+    csrc/phase_conv_sm90.cu and of csrc/phase_conv_tf32.cu: the fp32 phase conv at
+    each variant and N tile, and its weight split) from nvcc's -Xptxas -v report
+    (registers, spills, static shared memory), then the dynamic shared memory that
+    the bf16 dQ's and the phase conv kernels' launchers ask for."""
     found = 0
     for name, body in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)(?=Compiling entry|\Z)",
                                  report, flags=re.S):
         kernel = re.search(r"(flash_bwd_dq_bf16_kernel|flash_fwd_tf32x3_kernel|flash_bwd_dq_tf32x3_kernel|"
                            r"flash_bwd_dkv_tf32x3_kernel|"
                            r"phase_conv_sm90_cu\w*?"
-                           r"(?:dot_kernel|noshift_kernel|full_kernel|one_tap_kernel|copy_kernel))(?:ILi(\d+))?", name)
+                           r"(?:dot_kernel|noshift_kernel|full_kernel|one_tap_kernel|copy_kernel)|"
+                           r"phase_conv_tf32_cu\w*?(?:tf32x3_kernel|split_weights_kernel))"
+                           r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", name)
         if kernel is None:
             continue
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         static = re.search(r"(\d+) bytes smem", body)
-        label = re.sub(r"^phase_conv_sm90_cu\w*?(?=dot|noshift|full|one_tap|copy)", "", kernel.group(1)) + (
-            f"<{kernel.group(2)}>" if kernel.group(2) else "")
+        label = re.sub(r"^phase_conv_(?:sm90|tf32)_cu\w*?(?=dot|noshift|full|one_tap|copy|tf32x3|split)", "",
+                       kernel.group(1)) + (f"<{','.join(filter(None, kernel.group(2, 3)))}>" if kernel.group(2) else "")
         print(f"ptxas {label}: {regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{' / '.join(spills.groups()) if spills else '?'} bytes, static shared memory "
               f"{static.group(1) if static else 0} bytes")
         check(spills is None or spills.groups() == ("0", "0"), f"ptxas reports spills in {label}")
         found += 1
     if "nvcc done" in report:  # else the library was up to date and nothing was compiled
-        check(found == 19, f"the build report names {found} of the 19 kernels above (bf16 dQ, fp32 forward, dQ "
-                           f"and dK/dV at 3 Dh each, dot at 2 pc, noshift, full, one_tap at 2 pc, copy)")
+        want = 19 + len(PHASE_TF32) * len(PHASE_TF32_TILES) + 1
+        check(found == want, f"the build report names {found} of the {want} kernels above (bf16 dQ, fp32 forward, "
+                             f"dQ and dK/dV at 3 Dh each, dot at 2 pc, noshift, full, one_tap at 2 pc, copy; fp32 "
+                             f"phase conv at 4 variants x 3 N tiles, its weight split)")
     for dh in fa.HEAD_DIMS:
         print(f"dynamic shared memory: bf16 dQ at Dh {dh}: {fa.dq_kernel_smem(dh)} bytes (a block may have 232,448)")
     for variant, width in PHASE_SM90:
         label = "copy (any dtype, any pc)" if variant == "copy" else f"bf16 {variant} at pc {width}"
         print(f"dynamic shared memory: {label}: {pc.kernel_smem(variant, width)} bytes (a block may have 232,448)")
+    for variant in PHASE_TF32:
+        print(f"dynamic shared memory: fp32 {variant} (any pc) at N tiles of "
+              + ", ".join(f"{bn}: {pc.kernel_smem_f32(variant, bn)}" for bn in PHASE_TF32_TILES) + " bytes")
 
 
-def phase_source(variant: str) -> str:
-    """The CUDA source of a phase conv variant's bf16 kernel (copy: of both dtypes)."""
+def phase_source(variant: str, dtype=torch.bfloat16) -> str:
+    """The CUDA source of a phase conv variant's kernel in ``dtype`` (copy, shift and
+    select: one kernel for both dtypes)."""
+    if dtype == torch.float32 and variant in PHASE_TF32:
+        return "cips_tpu_torch/csrc/phase_conv_tf32.cu"
     sm90 = {v for v, _ in PHASE_SM90}
     return "cips_tpu_torch/csrc/" + ("phase_conv_sm90.cu" if variant in sm90 else "phase_conv.cu")
 
@@ -693,6 +723,10 @@ def phase_conv_checks(pc) -> dict:
                 model = pc.dot_rounded_reference(x, weights["dot"]).float()
                 errs.append(f"dot vs its rounding model {(got.float() - model).abs().max().item():.3e}, the model "
                             f"{((model - want.float()).abs().max() / want.abs().max()).item():.3e} of max|out|")
+            if variant in PHASE_TF32 and dtype == torch.float32:  # 3xTF32, chunked sums
+                model = pc.phase_conv_tf32x3_reference(x, weights[variant], variant)
+                to_model = (got - model).abs().max().item() / want.abs().max().item()
+                errs.append(f"{variant} vs its 3xTF32 model {to_model:.3e} of max|out|")
             if shape == PHASE_SHAPES[0] and dtype == torch.bfloat16:
                 worst[variant] = err
         print(f"phase conv kernels {shape} {str(dtype)[6:]}: max abs err (/ max|out|) " + ", ".join(errs))
@@ -787,7 +821,8 @@ def phase_conv_timing(pc, shape, dtype=torch.bfloat16, variants=PHASE_VARIANTS) 
         if variant == "full":
             rows[variant]["dense_bound_ms"], _ = bound_ms(2.0 * 8 * cells * p * p,
                                                           io_bytes + weight.numel() * weight.element_size(), dtype=dtype)
-            dense = f", dense-count bound {rows[variant]['dense_bound_ms']:.5f} ms"
+            dense = (f", dense-count bound {rows[variant]['dense_bound_ms']:.5f} ms "
+                     f"({rows[variant]['dense_bound_ms'] / ms:.1%})")
         if dtype == torch.float32 and variant in ops:  # the products at the FMA rate, printed only
             dense += f", at the FMA rate {fma_ms(ops[variant]):.5f} ms ({fma_ms(ops[variant]) / ms:.1%})"
         lib = "none" if library_ms is None else \
@@ -1356,12 +1391,14 @@ def main() -> int:
             "launches": sum(entry_launches[name].values()), "max_abs_err": max(phase_err[v] for v in variants),
             **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "library_eager_ms", "dense_bound_ms") if k in head},
-            "variants": {v: {"source": phase_source(v), "design": DESIGNS[v], "launches": entry_launches[name][v],
+            "variants": {v: {"source": phase_source(v), "design": DESIGNS[v],
+                             "source_f32": phase_source(v, torch.float32), "design_f32": DESIGNS_F32[v],
+                             "launches": entry_launches[name][v],
                              "max_abs_err": phase_err[v],
                              "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
                                                                for k, t in phase_timing[shape][v].items()}
                                     for shape in PHASE_SHAPES},
-                             # the fp32 kernel (csrc/phase_conv.cu; copy: phase_conv_sm90.cu), TF32 off
+                             # the fp32 kernel (source_f32), TF32 off
                              **({"at_f32": {"x".join(map(str, shape)): {
                                  k: round(t, 6) if isinstance(t, float) else t
                                  for k, t in phase_timing_f32[shape][v].items()} for shape in PHASE_F32_SHAPES}}

@@ -8,10 +8,11 @@
 //   scripts/probe_pallas_bisect.py:_kernel (MODE nosel, sel, full),
 //   scripts/debug_pallas_stages.py:_kernel (STAGE 1, 2, 3, >= 4).
 // Which file holds each variant's kernel:
-//   phase_conv.cu (here)  fp32 full, noshift, one_tap and dot (one FMA kernel, the variant a
-//                         template parameter); shift and select, both dtypes;
+//   phase_conv.cu (here)  shift and select, both dtypes;
 //   phase_conv_sm90.cu    bf16 full, noshift, one_tap and dot (TMA + wgmma); copy, both
-//                         dtypes (1-D bulk copies through shared memory).
+//                         dtypes (1-D bulk copies through shared memory);
+//   phase_conv_tf32.cu    fp32 full, noshift, one_tap and dot (one 3xTF32 kernel, TMA + wgmma,
+//                         the variant a template parameter).
 //
 // The function. x is a space-to-depth packed volume (B, Z, Y, X, pc), channels last,
 // pc = 8C, phase-major: channel q*C + c holds input phase q = (qz*2 + qy)*2 + qx. With
@@ -40,13 +41,6 @@
 // all pc x pc weights, as the kernels do, the work is 2*8*cells*pc^2 = 3.09e11 operations at
 // pc = 128 (0.3127 ms): 2.37x the function's.
 //
-// The fp32 kernel, for every variant with products: an implicit GEMM over M = output cells
-// (the flattened b, z, y, x index, any Z, Y, X; the ragged last tile is masked), N = 128
-// output channels a block (pc = 256 takes two N blocks, neighbours in launch order), K = the
-// variant's taps x pc input channels in chunks of 16, on plain FMAs (no TF32), as the flash
-// fp32 kernels do. Each thread loads one float4 of A a chunk straight from x at the shifted
-// address (zero where the shifted cell leaves the volume), so x' is never materialised; Wp
-// streams through shared memory a (tap, chunk) at a time. All offsets are 64-bit.
 // Not tried in the bf16 full kernel: skipping the 37 of 64 (q, p) weight blocks that are zero
 // in Wp (the 2.37x above), which needs N split by output phase group.
 
@@ -59,18 +53,6 @@ namespace {
 enum Variant : int { kFull = 0, kNoShift = 1, kOneTap = 2, kDot = 3, kShift = 4, kCopy = 5, kSelect = 6 };
 
 constexpr int kPhases = 8;
-
-// Products over how many taps each variant sums.
-__host__ __device__ constexpr int taps_of(int v) { return (v == kFull || v == kNoShift || v == kDot) ? 8 : 1; }
-
-// The offset along one axis of the cell that tap k reads for input phase bit q.
-template <int V>
-__device__ __forceinline__ int axis_shift(int k, int q) {
-  if (V == kFull) return k - q;
-  if (V == kNoShift) return k - 1;
-  if (V == kOneTap || V == kShift) return -q;
-  return 0;  // kDot
-}
 
 struct Geometry {
   long long cells;  // b * z * y * x
@@ -94,13 +76,11 @@ __device__ __forceinline__ Cell decode(long long m, const Geometry& g) {
   return cell;
 }
 
-// Element offset, relative to cell m's own channel ci, of the value that tap
-// (kz, ky, kx) reads for channel ci; false if it lies outside the volume.
-template <int V>
-__device__ __forceinline__ bool source(const Cell& cell, int kz, int ky, int kx, int ci, const Geometry& g,
-                                       long long* delta) {
+// Element offset, relative to cell m's own channel ci, of the value that `shift` reads for
+// channel ci, x[cell - q] for its phase group q; false if it lies outside the volume.
+__device__ __forceinline__ bool source(const Cell& cell, int ci, const Geometry& g, long long* delta) {
   const int q = ci / g.c;
-  const int dz = axis_shift<V>(kz, q >> 2), dy = axis_shift<V>(ky, (q >> 1) & 1), dx = axis_shift<V>(kx, q & 1);
+  const int dz = -(q >> 2), dy = -((q >> 1) & 1), dx = -(q & 1);
   const bool inside = cell.valid && static_cast<unsigned>(cell.z + dz) < static_cast<unsigned>(g.z) &&
                       static_cast<unsigned>(cell.y + dy) < static_cast<unsigned>(g.y) &&
                       static_cast<unsigned>(cell.x + dx) < static_cast<unsigned>(g.x);
@@ -108,85 +88,9 @@ __device__ __forceinline__ bool source(const Cell& cell, int kz, int ky, int kx,
   return inside;
 }
 
-// ---- fp32: plain FMAs ----------------------------------------------------------------------
-
-constexpr int kFM = 64;   // cells a block
-constexpr int kFN = 128;  // output channels a block
-constexpr int kFK = 16;   // input channels a K chunk
-// 256 threads as 16 x 16; each computes 4 cells x 8 channels.
-
-template <int V>
-__global__ void __launch_bounds__(256) phase_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                                             float* __restrict__ out, Geometry g) {
-  __shared__ __align__(16) float as[kFK][kFM + 4];  // transposed: K major
-  __shared__ __align__(16) float bs[kFK][kFN];
-
-  const int n_tiles = g.pc / kFN;
-  const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * kFM;
-  const int n0 = (blockIdx.x % n_tiles) * kFN;
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-
-  const int a_row = tid / 4, a_col = (tid % 4) * 4;  // one float4 of A a thread per chunk
-  const Cell cell = decode(m0 + a_row, g);
-  const int chunks = g.pc / kFK;
-  const int steps = taps_of(V) * chunks;
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int step = 0; step < steps; ++step) {
-    const int tap = step / chunks;
-    const int c0 = (step % chunks) * kFK;
-    const int kz = tap >> 2, ky = (tap >> 1) & 1, kx = tap & 1;
-    const int ci = c0 + a_col;
-    long long delta;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (source<V>(cell, kz, ky, kx, ci, g, &delta))
-      av = *reinterpret_cast<const float4*>(x + (m0 + a_row) * g.pc + delta + ci);
-    as[a_col + 0][a_row] = av.x;
-    as[a_col + 1][a_row] = av.y;
-    as[a_col + 2][a_row] = av.z;
-    as[a_col + 3][a_row] = av.w;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 256;  // 512 float4 of B
-      const int kr = idx / 32, nc = (idx % 32) * 4;
-      *reinterpret_cast<float4*>(&bs[kr][nc]) =
-          *reinterpret_cast<const float4*>(w + (static_cast<long long>(tap) * g.pc + c0 + kr) * g.pc + n0 + nc);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFK; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&as[k][tr * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][tc * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[k][tc * 8 + 4]);
-      const float av4[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av4[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + tr * 4 + i;
-    if (m >= g.cells) continue;
-    float* o = out + m * g.pc + n0 + tc * 8;
-    *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-}
-
 // ---- shift and select: one 16-byte vector a thread ------------------------------------------
 
-template <int V, typename T>
+template <typename T>
 __global__ void __launch_bounds__(256) phase_gather_kernel(const T* __restrict__ x, T* __restrict__ out, Geometry g) {
   constexpr int kVec = 16 / sizeof(T);
   const long long vectors = g.cells * g.pc / kVec;
@@ -197,7 +101,7 @@ __global__ void __launch_bounds__(256) phase_gather_kernel(const T* __restrict__
     const int ci = static_cast<int>(e % g.pc);
     uint4 value = make_uint4(0u, 0u, 0u, 0u);
     long long delta;
-    if (source<V>(decode(m, g), 0, 0, 0, ci, g, &delta)) value = *reinterpret_cast<const uint4*>(x + e + delta);
+    if (source(decode(m, g), ci, g, &delta)) value = *reinterpret_cast<const uint4*>(x + e + delta);
     *reinterpret_cast<uint4*>(out + e) = value;
   }
 }
@@ -230,21 +134,13 @@ int elementwise_blocks(long long vectors) {
   return static_cast<int>(blocks < 132 * 32 ? blocks : 132 * 32);
 }
 
-template <int V>
-void launch_f32(const void* x, const void* w, void* out, const Geometry& g, cudaStream_t s) {
-  const long long blocks = (g.cells + kFM - 1) / kFM * (g.pc / kFN);
-  phase_conv_f32_kernel<V><<<static_cast<unsigned>(blocks), 256, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), g);
-}
-
-template <int V>
 void launch_gather(bool bf16, const void* x, void* out, const Geometry& g, cudaStream_t s) {
   const int blocks = elementwise_blocks(g.cells * g.pc / (bf16 ? 8 : 4));
   if (bf16)
-    phase_gather_kernel<V, __nv_bfloat16><<<blocks, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                                                 static_cast<__nv_bfloat16*>(out), g);
+    phase_gather_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
+                                                              static_cast<__nv_bfloat16*>(out), g);
   else
-    phase_gather_kernel<V, float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x), static_cast<float*>(out), g);
+    phase_gather_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x), static_cast<float*>(out), g);
 }
 
 }  // namespace
@@ -259,6 +155,9 @@ int phase_conv_noshift_sm90(const void* x, const void* wp, void* out, int b, int
 int phase_conv_one_tap_sm90(const void* x, const void* wp, void* out, int b, int z, int y, int xdim, int pc,
                             cudaStream_t stream);
 int phase_conv_copy_sm90(const void* x, void* out, long long bytes, cudaStream_t stream);
+// The fp32 full, noshift, one_tap and dot kernels (phase_conv_tf32.cu), by variant code.
+int phase_conv_tf32(int variant, const void* x, const void* w, void* out, int b, int z, int y, int xdim, int pc,
+                    cudaStream_t stream);
 
 // x, out (b, z, y, xdim, pc) contiguous, 16-byte aligned; w (8, pc, pc) for the variants
 // with products, unused otherwise. pc a multiple of 128; the bf16 dot and one_tap take pc 128
@@ -269,28 +168,23 @@ extern "C" int cips_phase_conv(const void* x, const void* w, void* out, int vari
   if (b <= 0 || z <= 0 || y <= 0 || xdim <= 0 || pc <= 0 || pc % 128 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g{static_cast<long long>(b) * z * y * xdim, z, y, xdim, pc, pc / kPhases};
-  if ((g.cells + kFM - 1) / kFM * (pc / kFN) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = is_bf16 != 0;
   switch (variant) {
     case kFull:
-      if (bf16) return phase_conv_full_sm90(x, w, out, b, z, y, xdim, pc, s);
-      launch_f32<kFull>(x, w, out, g, s);
-      break;
+      return bf16 ? phase_conv_full_sm90(x, w, out, b, z, y, xdim, pc, s)
+                  : phase_conv_tf32(variant, x, w, out, b, z, y, xdim, pc, s);
     case kNoShift:
-      if (bf16) return phase_conv_noshift_sm90(x, w, out, b, z, y, xdim, pc, s);
-      launch_f32<kNoShift>(x, w, out, g, s);
-      break;
+      return bf16 ? phase_conv_noshift_sm90(x, w, out, b, z, y, xdim, pc, s)
+                  : phase_conv_tf32(variant, x, w, out, b, z, y, xdim, pc, s);
     case kOneTap:
-      if (bf16) return phase_conv_one_tap_sm90(x, w, out, b, z, y, xdim, pc, s);
-      launch_f32<kOneTap>(x, w, out, g, s);
-      break;
+      return bf16 ? phase_conv_one_tap_sm90(x, w, out, b, z, y, xdim, pc, s)
+                  : phase_conv_tf32(variant, x, w, out, b, z, y, xdim, pc, s);
     case kDot:
-      if (bf16) return phase_conv_dot_sm90(x, w, out, g.cells, pc, s);
-      launch_f32<kDot>(x, w, out, g, s);
-      break;
+      return bf16 ? phase_conv_dot_sm90(x, w, out, g.cells, pc, s)
+                  : phase_conv_tf32(variant, x, w, out, b, z, y, xdim, pc, s);
     case kShift:
-      launch_gather<kShift>(bf16, x, out, g, s);
+      launch_gather(bf16, x, out, g, s);
       break;
     case kCopy:
       return phase_conv_copy_sm90(x, out, g.cells * pc * (bf16 ? 2 : 4), s);

@@ -2,8 +2,8 @@
 // TMA tile loads that complete on mbarriers, wgmma on swizzled shared-memory tiles,
 // persistent CTAs (one an SM) of one producer warp and two consumer warpgroups; and `copy`, in
 // any dtype, as 1-D bulk copies through shared memory. Launched by cips_phase_conv
-// (phase_conv.cu, variant codes kDot, kNoShift, kFull, kOneTap and kCopy); fp32 products,
-// shift and select stay in phase_conv.cu.
+// (phase_conv.cu, variant codes kDot, kNoShift, kFull, kOneTap and kCopy); the fp32 products
+// are in phase_conv_tf32.cu, shift and select in phase_conv.cu.
 //
 // Replaces the Pallas TPU kernels
 //   scripts/probe_pallas_dot.py:k_dot4d, k_dot2d       (dot)

@@ -6,7 +6,8 @@ The kernels replace the Pallas TPU kernel `cips_tpu/ops/pallas/phase_conv.py:_ke
 C entry point (`cips_phase_conv`, `csrc/phase_conv.cu`). The bf16 `full`,
 `noshift`, `one_tap` and `dot` kernels (TMA + wgmma) and the `copy` kernel of both
 dtypes (1-D bulk copies) are in `csrc/phase_conv_sm90.cu`; the fp32 product
-variants (one FMA kernel), `shift` and `select` in `csrc/phase_conv.cu`.
+variants (one 3xTF32 kernel on the tensor cores, TMA + wgmma) in
+`csrc/phase_conv_tf32.cu`; `shift` and `select` in `csrc/phase_conv.cu`.
 
   full      `phase_conv_apply`; `scripts/probe_pallas_bisect.py` full;
             `scripts/debug_pallas_stages.py` stage >= 4
@@ -25,7 +26,9 @@ multiple of 128; bf16 or fp32; any Z, Y, X. The function:
 zero outside the volume, fp32 accumulation, out in x's dtype, with
 Wp = `s2d.pack_conv_kernel_phase(w)` (2, 2, 2, 8C, 8C). It equals the packed conv
 `s2d.packed_conv`. The bf16 `dot` kernel computes x . (sum_k W[k]) with the sum
-rounded once to bf16 (`dot_rounded_reference`). The bf16 `dot` and `one_tap`
+rounded once to bf16 (`dot_rounded_reference`). The fp32 kernel takes each
+product as 3xTF32 and sums a 32-channel chunk of one tap in the tensor cores
+before an fp32 add (`phase_conv_tf32x3_reference`). The bf16 `dot` and `one_tap`
 kernels keep their weights in shared memory and take 8C = 128 or 256.
 
 Each wrapper takes the plain version only for tensors on the CPU. For CUDA tensors
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from cips_tpu_torch.ops import cuda_library
+from cips_tpu_torch.ops.flash_attention import tf32_split
 from cips_tpu_torch.ops.s2d import _phase_shift_input, pack_conv_kernel_phase
 
 # variant -> the kernel's variant code (csrc/phase_conv.cu, enum Variant)
@@ -55,6 +59,7 @@ LANES = 128
 # the bf16 dot and one_tap kernels keep sum_k W[k] and Wp[0, 0, 0]'s columns in shared memory
 RESIDENT_BF16 = ("dot", "one_tap")
 RESIDENT_BF16_CHANNELS = (128, 256)
+TF32_CHUNK = 32  # input channels of one tap that the fp32 kernel sums in the tensor cores at a time
 
 
 def _check_x(x: torch.Tensor) -> None:
@@ -127,6 +132,30 @@ def dot_rounded_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), s).to(x.dtype)
 
 
+def phase_conv_tf32x3_reference(x: torch.Tensor, wp: torch.Tensor, variant: str) -> torch.Tensor:
+    """Rounding model of the fp32 kernel of a product variant: each product as
+    3xTF32 (`tf32_split` of both operands; a_b w_s + a_s w_b + a_b w_b, the
+    small-small term dropped), summed over TF32_CHUNK input channels of one tap
+    as the tensor cores chain them, then those sums added in fp32 in the
+    kernel's order (chunk outer, tap inner). fp32 inputs; it models the
+    kernel's rounding and is not bit-equal to it (the tensor cores truncate
+    inside their chained sums, torch.matmul rounds). Matmuls in full fp32
+    (TF32 off)."""
+    _check_contract(x, wp, variant)
+    if variant not in WITH_WEIGHTS or x.dtype != torch.float32:
+        raise ValueError(f"the tf32x3 model covers the fp32 product variants, got {variant!r} in {x.dtype}")
+    pc = x.shape[-1]
+    windows = _windows(x, variant)
+    w = wp.reshape(-1, pc, pc)
+    out = torch.zeros_like(x)
+    for c0 in range(0, pc, TF32_CHUNK):
+        for a, wk in zip(windows, w):
+            a_big, a_small = tf32_split(a[..., c0:c0 + TF32_CHUNK])
+            w_big, w_small = tf32_split(wk[c0:c0 + TF32_CHUNK])
+            out += torch.matmul(a_big, w_small) + torch.matmul(a_small, w_big) + torch.matmul(a_big, w_big)
+    return out
+
+
 def lane_select_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain version of `lane_select`: x on even channels, ((x * 2) * 0.5) * 3 on
     odd ones, rounded to x's dtype after each product."""
@@ -138,7 +167,8 @@ def lane_select_reference(x: torch.Tensor) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return cuda_library.load({"cips_phase_conv": [ptr] * 3 + [i32] * 7 + [ptr],
-                              "cips_phase_conv_smem": [i32, i32, ptr]})
+                              "cips_phase_conv_smem": [i32, i32, ptr],
+                              "cips_phase_conv_tf32_smem": [i32, i32, ptr]})
 
 
 def _launch(x: torch.Tensor, wp: Optional[torch.Tensor], code: int) -> torch.Tensor:
@@ -169,6 +199,15 @@ def kernel_smem(variant: str, pc: int) -> int:
     value = ctypes.c_int(0)
     cuda_library.check(_library().cips_phase_conv_smem(VARIANTS[variant], pc, ctypes.addressof(value)),
                        "cips_phase_conv_smem")
+    return value.value
+
+
+def kernel_smem_f32(variant: str, n_tile: int) -> int:
+    """Dynamic shared memory, in bytes, that the fp32 `full`, `noshift`, `one_tap` or
+    `dot` kernel launches with at N tiles of ``n_tile`` (128, 64 or 32) output channels."""
+    value = ctypes.c_int(0)
+    cuda_library.check(_library().cips_phase_conv_tf32_smem(VARIANTS[variant], n_tile, ctypes.addressof(value)),
+                       "cips_phase_conv_tf32_smem")
     return value.value
 
 

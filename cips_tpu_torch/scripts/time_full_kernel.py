@@ -4,8 +4,9 @@ beside the kernel itself and `noshift`, by device time on one card.
     python -m cips_tpu_torch.scripts.time_full_kernel
 
 Each copy is `csrc/phase_conv_sm90.cu` with the text edits of its entry in COPIES,
-built by nvcc beside `csrc/phase_conv.cu` into a library of its own under
-`build/cips_tpu_torch/full_copies/` and called through `cips_phase_conv`. The
+built by nvcc beside `csrc/phase_conv.cu` and `csrc/phase_conv_tf32.cu` into a
+library of its own under `build/cips_tpu_torch/full_copies/` and called through
+`cips_phase_conv`. The
 copies that drop work (products, halo-box loads, Wp loads) compute nothing
 useful and are for timing only; the other copies are designs that `full` tried
 before its own (Wp stages of two k-steps; two 2 KB copies a Wp k-step). The
@@ -108,9 +109,9 @@ def build_copies(copies: Dict[str, Dict[str, List[Tuple[str, str]]]], sources: S
 
 def build(copies: Dict[str, List[Tuple[str, str]]] = COPIES, subdir: str = "full_copies") -> Dict[str, ctypes.CDLL]:
     """One library per entry of ``copies`` (edits of phase_conv_sm90.cu, linked with
-    phase_conv.cu), each with `cips_phase_conv` declared."""
+    phase_conv.cu and phase_conv_tf32.cu), each with `cips_phase_conv` declared."""
     libs, _ = build_copies({name: {"phase_conv_sm90.cu": edits} for name, edits in copies.items()},
-                           ("phase_conv_sm90.cu",), subdir, companions=("phase_conv.cu",))
+                           ("phase_conv_sm90.cu",), subdir, companions=("phase_conv.cu", "phase_conv_tf32.cu"))
     for lib in libs.values():
         lib.cips_phase_conv.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return libs

@@ -6,8 +6,8 @@ the JAX packed convs; the plain `dot`, `noshift`, `copy`, `shift` and `one_tap` 
 the TPU probes' own Pallas kernels (`scripts/probe_pallas_dot.py`,
 `scripts/probe_pallas_bisect.py`, `scripts/debug_pallas_stages.py`) in TPU
 interpret mode; each probe variant's plain version to the identity that defines
-it; the bf16 `dot` kernel's rounding model to the plain version. The CUDA kernels
-run only on a card; their test skips elsewhere.
+it; the bf16 `dot` kernel's and the fp32 kernel's rounding models to the plain
+version. The CUDA kernels run only on a card; their test skips elsewhere.
 """
 
 import collections
@@ -30,7 +30,7 @@ from cips_tpu.ops.pallas.phase_conv import phase_conv as jax_phase_conv
 from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.ops import phase_conv as pc
 from cips_tpu_torch.ops import s2d
-from cips_tpu_torch.scripts import probe_phase_conv, time_full_kernel, time_stage_kernels
+from cips_tpu_torch.scripts import probe_phase_conv, time_full_kernel, time_phase_f32, time_stage_kernels
 
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 
@@ -183,11 +183,12 @@ def test_plain_noshift_matches_the_tpu_probe(monkeypatch):
     assert _rel(got.numpy(), want) <= 1e-5
 
 
-@pytest.mark.parametrize("stage,variant", [(1, "copy"), (2, "shift"), (3, "one_tap")])
+@pytest.mark.parametrize("stage,variant", [(1, "copy"), (2, "shift"), (3, "one_tap"), (4, "full")])
 def test_plain_stages_match_the_tpu_probe(stage, variant, monkeypatch):
     # scripts/debug_pallas_stages.py:run (its padding, grid, specs, DMA and scratch) with the
-    # script's own _kernel at stage 1 (DMA and copy), 2 (the phase shifts) and 3 (tap (0, 0, 0)
-    # only), fp32, in TPU interpret mode. The script reads its stage from sys.argv at import.
+    # script's own _kernel at stage 1 (DMA and copy), 2 (the phase shifts), 3 (tap (0, 0, 0)
+    # only) and 4 (all 8 taps: the full conv), fp32, in TPU interpret mode. The script reads its
+    # stage from sys.argv at import.
     monkeypatch.setattr(sys, "argv", ["debug_pallas_stages.py"])
     probe = _probe_module("debug_pallas_stages", monkeypatch)
     monkeypatch.setattr(probe, "STAGE", stage)
@@ -196,9 +197,10 @@ def test_plain_stages_match_the_tpu_probe(stage, variant, monkeypatch):
     wp = _normal((2, 2, 2, 128, 128), 19, 0.1)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(probe.run(jnp.asarray(x), jnp.asarray(wp), tz=2, ty=4))
-    got = pc.phase_conv_stage(torch.from_numpy(x), torch.from_numpy(wp) if variant == "one_tap" else None, variant)
+    sums = variant in ("one_tap", "full")
+    got = pc.phase_conv_stage(torch.from_numpy(x), torch.from_numpy(wp) if sums else None, variant)
     assert got.dtype == torch.float32 and got.shape == shape
-    if variant == "one_tap":  # the sums differ in order only
+    if sums:  # the sums differ in order only
         assert _rel(got.numpy(), want) <= 1e-5
     else:  # no arithmetic: exact
         np.testing.assert_array_equal(got.numpy(), want)
@@ -216,6 +218,33 @@ def test_dot_rounding_model(p):
     assert _rel(got.float().numpy(), want.numpy()) <= 0.5e-2
     # the model rounds S itself: it is not the plain version's arithmetic
     assert not torch.equal(got, pc.phase_conv_stage_reference(x, w, "dot"))
+
+
+@pytest.mark.parametrize("p", [128, 256])
+@pytest.mark.parametrize("variant", ["full", "noshift", "one_tap", "dot"])
+def test_tf32x3_rounding_model(variant, p):
+    # the fp32 kernel's arithmetic: every product as 3xTF32, sums of 32 channels of one tap
+    # added in fp32; within 3e-6 of max|out| of the plain fp32 version (the card's limit for the
+    # kernel is 1e-5), and not the plain version's arithmetic
+    x = torch.from_numpy(_normal((1, 3, 4, 5, p), 20))
+    w = torch.from_numpy(_normal((8, p, p) if variant == "dot" else (2, 2, 2, p, p), 21, 0.1))
+    want = pc.phase_conv_stage_reference(x, w, variant)
+    got = pc.phase_conv_tf32x3_reference(x, w, variant)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert _rel(got.numpy(), want.numpy()) <= 3e-6
+    assert not torch.equal(got, want)
+
+
+def test_tf32x3_rounding_model_splits_each_operand():
+    # a product whose operands carry bits below tf32's 10: the model keeps them (big + small),
+    # where one tf32 pass would drop them
+    x = torch.full((1, 1, 1, 1, 128), 1.0 + 2.0 ** -15)
+    w = torch.zeros((2, 2, 2, 128, 128))
+    w[0, 0, 0, 0, 0] = 1.0 + 2.0 ** -14
+    got = pc.phase_conv_tf32x3_reference(x, w, "one_tap")[0, 0, 0, 0, 0].item()
+    assert got == pytest.approx((1.0 + 2.0 ** -15) * (1.0 + 2.0 ** -14), rel=2.0 ** -22)
+    with pytest.raises(ValueError, match="fp32 product variants"):
+        pc.phase_conv_tf32x3_reference(x, None, "shift")
 
 
 def test_variant_identities():
@@ -338,6 +367,17 @@ def test_full_timing_copies_edit_the_source():
         time_full_kernel.edited(source, [("no such text", "")])
 
 
+def test_f32_timing_copies_edit_the_source():
+    # The design and timing-only copies of the fp32 (3xTF32) kernel are text edits of its
+    # source; each must find its target exactly once, and every copy that keeps the function
+    # is one that the script holds to the plain version.
+    with open(pathlib.Path(pc.cuda_library.CSRC) / time_phase_f32.SOURCE, encoding="utf-8") as f:
+        source = f.read()
+    for name, edits in time_phase_f32.COPIES.items():
+        assert (time_full_kernel.edited(source, edits) == source) == (name == "kernel"), name
+    assert set(time_phase_f32.WITH_RESULT) <= set(time_phase_f32.COPIES)
+
+
 @pytest.mark.parametrize("kernel", sorted(time_stage_kernels.KERNELS))
 def test_stage_timing_copies_edit_the_source(kernel):
     # The tuning and timing-only copies of the copy and one_tap kernels are text edits of
@@ -386,16 +426,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+CARD_SHAPES = {"ragged": (1, 5, 7, 9, 128), "pc256": (1, 5, 7, 9, 256), "b2-ragged": (2, 3, 9, 17, 128),
+               "under-one-tile": (1, 1, 2, 3, 128), "one-cell": (1, 1, 1, 1, 128)}
+CARD_CASES = [pytest.param(shape, dtype, tol, id=f"{label}-{name}") for label, shape in CARD_SHAPES.items()
+              for name, dtype, tol in (("bf16", torch.bfloat16, 1e-2), ("f32", torch.float32, 1e-5))]
+# fp32 takes any multiple of 128 (the bf16 dot and one_tap take 128 or 256)
+CARD_CASES.append(pytest.param((1, 3, 5, 7, 384), torch.float32, 1e-5, id="pc384-f32"))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 5, 7, 9, 128), (1, 5, 7, 9, 256), (2, 3, 9, 17, 128), (1, 1, 2, 3, 128),
-                                   (1, 1, 1, 1, 128)],
-                         ids=["ragged", "pc256", "b2-ragged", "under-one-tile", "one-cell"])
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,dtype,tol", CARD_CASES)
 def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol, shape):
     # ragged shapes (no axis a multiple of any tile), pc 256, batch 2, a volume of fewer
     # cells than one tile and one cell (256 or 512 bytes: copy's one chunk is its remainder,
-    # as the last chunk of (1, 5, 7, 9, 128) is); each variant against its plain version
-    # computed in fp32 from the same inputs, relative to max|out|
+    # as the last chunk of (1, 5, 7, 9, 128) is), and pc 384 in fp32; each variant against its
+    # plain version computed in fp32 from the same inputs, relative to max|out|
     g = torch.Generator(device=cuda_device).manual_seed(0)
     p = shape[-1]
     x = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
