@@ -49,7 +49,20 @@ Phases (any failure raises and the script exits non-zero):
                 steps on one fixed batch;
   8. grads    — one fp32 train step from the same random weights on the card
                 and on the CPU at the reduced crop: G and D gradients compared;
-  9. phase conv — every variant of the phase-structured packed conv kernels
+  9. causal serving — cips_tpu_torch.cli.gen_test_causal with the causal generator
+                (configs/training_causal.json) at full width and the full volume
+                in bf16, seeded random weights non-zero everywhere; checks its
+                outputs and 7 flash forwards per generator forward; the
+                generator forward's time (CUDA events), peak memory and device
+                time by kernel kind at batch 2; the fp32 trio on the card against
+                the CPU at the reduced crop;
+ 10. causal training — cips_tpu_torch.cli.train_causal in bf16, batch 2, for 2
+                epochs (default packed loader, eval, a checkpoint each), every step
+                launching 7 forward, 7 dQ and 7 dK/dV kernels; --resume; the
+                trained checkpoint served and gen_latents on it; the train step's
+                time, peak memory and profile on one fixed batch, an exact_d_fake
+                step (7 forwards more); one fp32 step's gradients, card vs CPU;
+ 11. phase conv — every variant of the phase-structured packed conv kernels
                 (csrc/phase_conv.cu, csrc/phase_conv_sm90.cu,
                 csrc/phase_conv_tf32.cu: the Pallas phase_conv and its three TPU
                 probes) against its plain version at the probes' shapes, at
@@ -67,7 +80,7 @@ Phases (any failure raises and the script exits non-zero):
                 3xTF32 rate with the FMA figure beside it; then the slice's main
                 paths: each subcommand of
                 `cips_tpu_torch.scripts.probe_phase_conv`, its launches counted;
- 10. summary  — a JSON line of kernels, the card line, and the result line.
+ 12. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
 """
@@ -109,6 +122,18 @@ TRAIN_BATCH = 2
 TRAIN_EPOCHS = 3  # 4 steps each over 8 subjects: step 10's loss record falls inside
 N_EVAL = 2  # subjects of the per-epoch eval
 STEPS_TIMED = 14  # train steps clocked after 2 warm-up steps, on one fixed batch
+# The causal generator (configs/training_causal.json) at full width and the full volume. A
+# generator forward launches 7 flash forwards: the encoder's level 2 (24x32x24 = 18,432 tokens)
+# has 2 transformers whose attn1 and attn2 both attend to their own tokens (the encoder gets no
+# context), at 4 heads of 32; the PET decoder's level 0 has the mid block's and 2 more
+# transformers' attn1, at 2 heads of 32. Their cross-attentions to the covariate row (Lk = 1)
+# take the plain path. A train step: 7 forward, 7 dQ, 7 dK/dV; exact_d_fake 7 forwards more.
+CAUSAL_FLASH = 7
+CAUSAL_ENCODER_FLASH = 4
+CAUSAL_PARTS = ("encoder", "t1_decoder", "pet_decoder")
+CAUSAL_TRAIN_BATCH = 2
+CAUSAL_EPOCHS = 2  # 4 steps each over 8 subjects, an eval of N_EVAL and a checkpoint each
+CAUSAL_STEPS_TIMED = 6  # after 2 warm-up steps, on one fixed batch
 # Phase conv shapes, packed (B, Z, Y, X, 8C): the TPU probes' level-0 shape (C = 16), their
 # 32-channel case, and the flagship's own level 0 at batch 2.
 PHASE_SHAPES = ((8, 48, 64, 48, 128), (8, 48, 64, 48, 256), (2, 48, 64, 48, 128))
@@ -211,6 +236,11 @@ TOL_METRIC = 1e-3
 # a norm: exactly 0) must stay under that on both sides.
 TOL_GRAD_MODEL_REL = 1e-3
 TOL_STEP_METRIC_REL = 1e-3  # the step's losses, card vs CPU
+# The causal step's gradients are held to an fp64 CPU step: within TOL_GRAD_MODEL_REL, or,
+# for a tensor whose fp32 CPU gradient is itself far from fp64 (ill-conditioned: the
+# discriminator's, `compare_grads_f64`), within this many times the CPU's distance: two fp32
+# implementations round differently (the card's conv_0 2.7x the CPU's on an NVIDIA H100 80GB HBM3, 700 W).
+FP32_NOISE = 4
 EVENT_TIMED: list = []  # calls that device_ms timed by CUDA events, the profiler having seen none of their work
 # Phase conv product variants against their plain version in fp32 from the same
 # inputs, relative to max|out|: bf16 rounds the fp32 sum to bf16 once at the end
@@ -267,7 +297,7 @@ def device_ms(fn, iters: int, traces: int = 3) -> float:
     tens of microseconds is not timed by its host.
 
     CUPTI drops device records now and then. Some of them (on an H100, 10-14 of
-    200 in every phase 9 trace): each kernel's mean over the records kept still
+    200 in every phase 11 trace): each kernel's mean over the records kept still
     times it, where their sum over ``iters`` would read low; this is printed.
     All of them: the trace is taken again, up to ``traces`` times, and if every
     one is empty the call is timed by CUDA events instead, printed as such and
@@ -524,30 +554,28 @@ def uncounted(fa):
 
 
 @contextlib.contextmanager
-def step_launches(fa, record: list):
-    """Each train step that the train CLI runs inside the block appends its own
+def step_launches(fa, record: list, task):
+    """Each train step that a train CLI runs inside the block appends its own
     (forward, dQ, dK/dV) launches to ``record``: wraps the step that
-    `unet_synthesis.make_train_step` returns."""
-    from cips_tpu_torch.training import unet_synthesis
-
-    make_train_step = unet_synthesis.make_train_step
+    ``task.make_train_step`` returns (``task``: `unet_synthesis` or `causal_task`)."""
+    make_train_step = task.make_train_step
 
     def counted_make(*args, **kwargs):
         step = make_train_step(*args, **kwargs)
 
-        def counted(state, batch):
+        def counted(*step_args):
             before = counts(fa)
-            out = step(state, batch)
+            out = step(*step_args)
             record.append(tuple(a - b for a, b in zip(counts(fa), before)))
             return out
 
         return counted
 
-    unet_synthesis.make_train_step = counted_make
+    task.make_train_step = counted_make
     try:
         yield record
     finally:
-        unet_synthesis.make_train_step = make_train_step
+        task.make_train_step = make_train_step
 
 
 def bwd_inputs(fa, shape, dtype, seed: int, lk=None, scale=None) -> tuple:
@@ -1046,6 +1074,40 @@ def compare_grads(label: str, got: dict, want: dict) -> float:
     return worst
 
 
+def compare_grads_f64(label: str, card: dict, cpu: dict, ref: dict) -> None:
+    """Card and CPU fp32 gradients of one network against the CPU's fp64 step (fp64
+    activations from the same fp32 weights; the norms' statistics stay fp32, as the
+    model computes them, which moves the gradients under 1e-6), tensor by tensor,
+    relative to each max|grad|: within TOL_GRAD_MODEL_REL, or within FP32_NOISE
+    times the CPU fp32 step's own distance where that is larger. The second limit
+    is the discriminator's: with random weights its patch logits are nearly
+    uniform, so the gradient reaching each instance norm is nearly constant over
+    its voxels and the norm's backward leaves a small difference of fp32 sums (the
+    CPU's fp32 step: 9.2e-3 of max|grad| at conv_penultimate, 8.9e-4 at conv_0;
+    with two-pass norm statistics the same). A tensor whose fp64 max|grad| is under
+    1e-3 of its network's largest (exactly 0: a conv bias ahead of a norm) must
+    stay under that on the card."""
+    tiny = 1e-3 * max(w.abs().max().item() for w in ref.values())
+    worst, worst_name, floors = 0.0, "", []
+    for name, w in ref.items():
+        g, c, w = card[name], cpu[name], w.float()
+        check(torch.isfinite(g).all().item(), f"{label} {name}: non-finite gradient on the card")
+        scale = w.abs().max().item()
+        if scale < tiny:
+            check(g.abs().max().item() < tiny, f"{label} {name}: a zero gradient in fp64 is not on the card")
+            continue
+        rel, cpu_rel = ((g - w).abs().max().item() / scale), ((c - w).abs().max().item() / scale)
+        tol = max(TOL_GRAD_MODEL_REL, FP32_NOISE * cpu_rel)
+        if tol > TOL_GRAD_MODEL_REL:
+            floors.append(f"{name} card {rel:.3e}, CPU fp32 {cpu_rel:.3e}")
+        check(rel <= tol, f"{label} {name}: card {rel:.3e} of max|grad| from fp64 > {tol:.3e}")
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"grads {label}: {len(ref)} tensors against fp64, card worst {worst:.3e} of max|grad| ({worst_name}); "
+          f"tol {TOL_GRAD_MODEL_REL:g}, or {FP32_NOISE}x the CPU fp32 step's own distance where that is larger: "
+          f"{floors or 'none'}")
+
+
 @contextlib.contextmanager
 def stage_clock(times: dict):
     """Host-clock time of each stage of the real serving path: wraps the
@@ -1089,6 +1151,246 @@ def stage_clock(times: dict):
             setattr(owner, name, fn)
 
 
+@contextlib.contextmanager
+def cpu_noise():
+    """The causal task draws its noise on the CPU from the generator it is given and
+    moves it to the device: a card run and a CPU run from one seed see the same eps."""
+    from cips_tpu_torch.training import causal_task
+
+    sample_noise = causal_task.sample_noise
+    causal_task.sample_noise = lambda shape, dtype, device, generator: \
+        torch.randn(shape, generator=generator).to(device, dtype)
+    try:
+        yield
+    finally:
+        causal_task.sample_noise = sample_noise
+
+
+def causal_models(cfg: dict, states: dict, dtype, device: str) -> tuple:
+    """The causal trio, D and the perceptual net (seed 0) with ``states`` loaded."""
+    from cips_tpu_torch.training import causal_task
+
+    models = causal_task.build_models(cfg, FLAGSHIP_K, dtype=dtype, device=device)
+    for name, model in zip(CAUSAL_PARTS + ("discriminator",), models):
+        model.load_state_dict(states[name])
+    return models
+
+
+def check_causal_outputs(out_dir: str, n: int) -> None:
+    """``n`` rec.nii.gz of the full volume, min-max renormalised and self-masked, and no ori.nii.gz."""
+    from cips_tpu_torch.data import nifti
+
+    recs = [os.path.join(dp, f) for dp, _, fs in os.walk(out_dir) for f in fs if f == "rec.nii.gz"]
+    oris = [f for _, _, fs in os.walk(out_dir) for f in fs if f == "ori.nii.gz"]
+    check(len(recs) == n and not oris, f"expected {n} rec.nii.gz and no ori.nii.gz, found {len(recs)}, {len(oris)}")
+    for path in recs:
+        rec = nifti.read_array(path)
+        check(rec.shape == CROP and np.isfinite(rec).all() and rec.min() >= 0 and 0 < rec.max() <= 1,
+              f"{path}: bad causal output")
+
+
+def causal_serving(fa, cfg: dict, states: dict, tree: dict, args: list, tmp: str, card: str) -> tuple:
+    """Phase 9: gen_test_causal over the 8 subjects at the full volume, bf16, batch 2 (the
+    path's run, its launches counted); the bf16 generator forward timed at batch 2 with its
+    peak memory and profile; the fp32 trio on the card against the CPU at PARITY_CROP.
+    Returns ((forward, dQ, dK/dV) launches of the path's run, forward ms)."""
+    from cips_tpu_torch.cli import gen_test_causal
+    from cips_tpu_torch.training import causal_task
+    from cips_tpu_torch.training.common import CheckpointManager
+
+    exp_dir = os.path.join(tmp, "causal_exp")
+    CheckpointManager(os.path.join(exp_dir, "conditional", "AV45", "ckpt")).save({**states, "epoch": 0}, epoch=0)
+    out_dir = os.path.join(tmp, "causal_gen")
+    forwards = -(-N_SUBJECTS // SERVING_BATCH)
+    set_counts(fa, (0, 0, 0))
+    t0 = time.perf_counter()
+    results = gen_test_causal.main(args + ["--exp_dir", exp_dir, "--eval_info_csv", tree["csv"], "--dtype", "bf16",
+                                           "--batch_size", str(SERVING_BATCH), "--output_dir", out_dir])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launched = counts(fa)  # the causal serving path's run
+    print(f"causal serving: gen_test_causal, {N_SUBJECTS} volumes in {elapsed:.3f} s = {N_SUBJECTS / elapsed:.3f} "
+          f"vol/s end to end (set-up, the first forward and the NIfTI writes included); batch {SERVING_BATCH}, "
+          f"bf16; launches (forward, dQ, dK/dV) {launched} over {forwards} generator forwards; metrics "
+          f"{results.summary()}; {card}")
+    check(launched == (CAUSAL_FLASH * forwards, 0, 0), f"expected {(CAUSAL_FLASH * forwards, 0, 0)}, got {launched}")
+    check(all(np.isfinite(v) for v in results.summary().values()), "non-finite causal metrics")
+    check_causal_outputs(out_dir, N_SUBJECTS)
+
+    with uncounted(fa):
+        enc, _, pet_dec, _, _ = causal_models(cfg, states, torch.bfloat16, "cuda")
+        generate = causal_task.make_generate_fn(enc, pet_dec)
+        batch = synthetic_batch(CROP, SERVING_BATCH, "cuda", seed=7)
+        g = torch.Generator("cuda").manual_seed(0)
+        before = counts(fa)[0]
+        out = generate(batch, g)
+        per_forward = counts(fa)[0] - before
+        check(per_forward == CAUSAL_FLASH and out.shape == (SERVING_BATCH, *CROP, 1)
+              and torch.isfinite(out).all().item() and out.float().std().item() > 0,
+              f"the causal generator forward launched {per_forward} flash forwards or gave a bad output")
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = cuda_ms(lambda: generate(batch, g), 5, warmup=2)
+        print(f"causal serving: generator forward (encoder + PET decoder) {fwd_ms:.3f} ms at batch {SERVING_BATCH} "
+              f"bf16, full volume {CROP} = {SERVING_BATCH / fwd_ms * 1e3:.3f} vol/s (forward only, CUDA events over 5 "
+              f"after 2), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {per_forward} flash "
+              f"forwards a forward; {card}")
+        kinds = profile_window(lambda: generate(batch, g), "causal forward")
+        flash = kinds.get(KERNEL_KINDS[0][0], 0.0)
+        print(f"causal serving: the flash forward {flash:.3f} ms of {sum(kinds.values()):.3f} ms of kernels "
+              f"({flash / sum(kinds.values()):.2%})")
+        del enc, pet_dec, generate, out
+
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.random((1, *PARITY_CROP, 1), dtype=np.float32))
+        info = torch.from_numpy(rng.random((1, 1, FLAGSHIP_K), dtype=np.float32))
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            enc, t1_dec, pet_dec, _, _ = causal_models(cfg, states, torch.float32, dev)
+            before = counts(fa)[0]
+            with torch.inference_mode():
+                latent = enc(x.to(dev))
+                z_mu, z_sigma = causal_task.split_latent(latent)
+                z = z_mu + torch.randn(z_sigma.shape, generator=torch.Generator().manual_seed(4)).to(dev) * z_sigma
+                outs[dev] = [t.cpu() for t in (latent, t1_dec(z), pet_dec(z, info.to(dev)))]
+            check(counts(fa)[0] - before == (CAUSAL_FLASH if dev == "cuda" else 0), f"{dev}: fp32 trio launches")
+        errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(outs["cuda"], outs["cpu"])]
+        print(f"causal parity: fp32 trio {PARITY_CROP} card vs CPU, max abs err / max|out|: encoder {errs[0]:.3e}, "
+              f"T1 decoder {errs[1]:.3e}, PET decoder {errs[2]:.3e} (tol {TOL_MODEL_REL:g})")
+        check(all(e <= TOL_MODEL_REL for e in errs) and all(torch.isfinite(t).all().item() for t in outs["cuda"]),
+              "the causal trio's card and CPU forwards disagree")
+    return launched, fwd_ms
+
+
+def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args: list, tmp: str,
+                    card: str) -> tuple:
+    """Phase 10: train_causal at the full volume, bf16, batch 2 (the path's run: every step
+    7/7/7 flash launches), --resume, the trained checkpoint served and gen_latents on it;
+    the train step timed on one fixed batch, its peak memory and profile, an exact_d_fake
+    step; one fp32 step's gradients on the card against the CPU's at PARITY_CROP.
+    Returns ((forward, dQ, dK/dV) launches of the path's run, step ms)."""
+    from cips_tpu_torch.cli import gen_latents, gen_test_causal, train_causal
+    from cips_tpu_torch.training import causal_task
+    from cips_tpu_torch.training.common import CheckpointManager
+
+    exp_dir = os.path.join(tmp, "causal_train")
+    train_args = args + ["--exp_dir", exp_dir, "--training_info_csv", tree["csv"], "--eval_info_csv", eval_csv,
+                         "--dtype", "bf16", "--batch_size", str(CAUSAL_TRAIN_BATCH), "--save_every", "1"]
+    steps_per_epoch = N_SUBJECTS // CAUSAL_TRAIN_BATCH
+    per_step = []
+    set_counts(fa, (0, 0, 0))
+    t0 = time.perf_counter()
+    with step_launches(fa, per_step, causal_task):
+        trained = train_causal.main(train_args + ["--epochs", str(CAUSAL_EPOCHS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(fa)  # the causal training path's run
+    steps = trained.step
+    n = CAUSAL_FLASH
+    expected = (n * (steps + CAUSAL_EPOCHS * N_EVAL), n * steps, n * steps)  # eval: one trio forward a subject
+    print(f"causal training: train_causal, {steps} steps and {CAUSAL_EPOCHS} evals of {N_EVAL} subjects in "
+          f"{wall:.3f} s ({steps / wall:.3f} steps/s end to end: packing, eval and checkpoints included); launches "
+          f"{launched}; per step {sorted(set(per_step))}; {card}")
+    check(steps == CAUSAL_EPOCHS * steps_per_epoch, f"expected {CAUSAL_EPOCHS * steps_per_epoch} steps, got {steps}")
+    check(len(per_step) == steps and set(per_step) == {(n, n, n)},
+          f"every causal train step must launch {n} forward, {n} dQ and {n} dK/dV kernels: {per_step}")
+    check(launched == expected, f"expected {expected} launches, got {launched}")
+    check(os.path.exists(os.path.join(exp_dir, "packed_train", "volumes.npy")), "the default loader packed nothing")
+    base = os.path.join(exp_dir, "conditional", "AV45")
+    records = [json.loads(line) for line in open(os.path.join(base, "log", "metrics.jsonl"), encoding="utf-8")]
+    with open(os.path.join(base, "ckpt", "meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    print(f"causal training: metric records {records}; meta.json {meta}")
+    check([r["prefix"] for r in records].count("eval") == CAUSAL_EPOCHS and all(
+        np.isfinite(v) for r in records for k, v in r.items() if k != "prefix"), "bad causal metric records")
+    check(meta["last_epoch"] == CAUSAL_EPOCHS - 1 and np.isfinite(meta["best_metric"]), f"bad meta.json {meta}")
+    del trained
+
+    with uncounted(fa):
+        set_counts(fa, (0, 0, 0))
+        resumed = train_causal.main(train_args + ["--epochs", str(CAUSAL_EPOCHS + 1), "--resume"])
+        resume_counts = counts(fa)
+        want = (n * (steps_per_epoch + N_EVAL), n * steps_per_epoch, n * steps_per_epoch)
+        print(f"causal training: --resume ran epoch {CAUSAL_EPOCHS} to step {resumed.step}; launches {resume_counts}")
+        check(resumed.step == steps + steps_per_epoch and resume_counts == want,
+              f"causal resume: step {resumed.step}, launches {resume_counts}, expected {want}")
+        check(CheckpointManager(os.path.join(base, "ckpt")).latest_epoch() == CAUSAL_EPOCHS, "resume saved no epoch")
+        del resumed
+
+        set_counts(fa, (0, 0, 0))
+        out_dir = os.path.join(tmp, "causal_gen_trained")
+        results = gen_test_causal.main(args + ["--exp_dir", exp_dir, "--eval_info_csv", eval_csv, "--dtype", "bf16",
+                                               "--batch_size", str(SERVING_BATCH), "--output_dir", out_dir])
+        check(counts(fa) == (n * -(-N_EVAL // SERVING_BATCH), 0, 0), f"serving the trained trio: {counts(fa)}")
+        check_causal_outputs(out_dir, N_EVAL)
+        print(f"causal training: the trained checkpoint served {N_EVAL} subjects, metrics {results.summary()}")
+
+        set_counts(fa, (0, 0, 0))
+        lat_dir = os.path.join(tmp, "latents")
+        written = gen_latents.main(args + ["--exp_dir", exp_dir, "--eval_info_csv", eval_csv, "--dtype", "bf16",
+                                           "--out_dir", lat_dir])
+        latents = [np.load(os.path.join(dp, f)) for dp, _, fs in os.walk(lat_dir) for f in fs if f == "latent.npy"]
+        latent_shape = (*(c // 4 for c in CROP), 6)
+        print(f"causal training: gen_latents wrote {written} latents {[a.shape for a in latents]}; launches "
+              f"{counts(fa)}")
+        check(written == len(latents) == N_EVAL and all(a.shape == latent_shape and np.isfinite(a).all()
+                                                         for a in latents), "bad latents")
+        check(counts(fa) == (CAUSAL_ENCODER_FLASH * N_EVAL, 0, 0), f"gen_latents launches {counts(fa)}")
+
+        step_fn = causal_task.make_train_step(cfg["training"])
+        batch = synthetic_batch(CROP, CAUSAL_TRAIN_BATCH, "cuda", seed=8)
+        state = causal_task.init_state(*causal_models(cfg, states, torch.bfloat16, "cuda"), cfg["training"])
+        g = torch.Generator("cuda").manual_seed(1)
+        torch.cuda.reset_peak_memory_stats()
+        before = counts(fa)
+        step_fn(state, batch, g)
+        check(tuple(a - b for a, b in zip(counts(fa), before)) == (n, n, n), "the causal step's launches")
+        step_fn(state, batch, g)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        timed = [step_fn(state, batch, g) for _ in range(CAUSAL_STEPS_TIMED)]
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / CAUSAL_STEPS_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"causal train step: {step_ms:.3f} ms at batch {CAUSAL_TRAIN_BATCH} bf16 = {1e3 / step_ms:.3f} "
+              f"steps/s = {CAUSAL_TRAIN_BATCH * 1e3 / step_ms:.3f} vol/s (CUDA events over {CAUSAL_STEPS_TIMED} "
+              f"steps after 2 warm-up, one fixed batch, no data loading; perceptual weight "
+              f"{cfg['training']['perceptual_weight']}); peak memory {peak:.2f} GiB of 80, no remat; last metrics "
+              f"{ {k: round(float(v), 6) for k, v in timed[-1].items()} }; {card}")
+        check(all(np.isfinite(float(v)) for m in timed for v in m.values()), "non-finite causal train-step metrics")
+        profile_window(lambda: step_fn(state, batch, g), "causal train step")
+        before = counts(fa)
+        causal_task.make_train_step(cfg["training"], exact_d_fake=True)(state, batch, g)
+        exact = tuple(a - b for a, b in zip(counts(fa), before))
+        print(f"causal train step: with exact_d_fake, launches {exact}")
+        check(exact == (2 * n, n, n), f"an exact_d_fake step launched {exact}, expected {(2 * n, n, n)}")
+        del state, timed
+
+        got = {}
+        small = synthetic_batch(PARITY_CROP, 1, "cpu", seed=9)
+        with cpu_noise():
+            for run, (dev, dtype) in (("cuda", ("cuda", torch.float32)), ("cpu", ("cpu", torch.float32)),
+                                      ("cpu f64", ("cpu", torch.float64))):
+                state = causal_task.init_state(*causal_models(cfg, states, dtype, dev), cfg["training"])
+                before = counts(fa)
+                metrics = step_fn(state, {k: v.to(dev) for k, v in small.items()}, torch.Generator().manual_seed(3))
+                grown = tuple(a - b for a, b in zip(counts(fa), before))
+                check(grown == ((n, n, n) if dev == "cuda" else (0, 0, 0)), f"{run} causal step launches {grown}")
+                got[run] = ({k: float(v) for k, v in metrics.items()},
+                            {**{f"{part}.{k}": p.grad.cpu() for part in CAUSAL_PARTS
+                                for k, p in state.gen[part].named_parameters()},
+                             **{f"discriminator.{k}": p.grad.cpu() for k, p in state.d.named_parameters()}})
+                del state
+    print(f"causal grads: step metrics card {got['cuda'][0]} vs CPU {got['cpu'][0]}")
+    for key, want in got["cpu"][0].items():
+        rel = abs(got["cuda"][0][key] - want) / max(abs(want), 1e-12)
+        check(rel <= TOL_STEP_METRIC_REL, f"causal train-step {key} card vs CPU: {rel:.3e} > {TOL_STEP_METRIC_REL:g}")
+    for part in CAUSAL_PARTS + ("discriminator",):
+        keys = [k for k in got["cpu f64"][1] if k.startswith(part + ".")]
+        compare_grads_f64(f"causal {part}", *({k: got[run][1][k] for k in keys} for run in ("cuda", "cpu", "cpu f64")))
+    return launched, step_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1101,7 +1403,7 @@ def main() -> int:
     from cips_tpu_torch.ops import phase_conv as pc
     from cips_tpu_torch.ops.masking import get_mask
     from cips_tpu_torch.ops.metrics import mae, ms_ssim, psnr
-    from cips_tpu_torch.training import unet_synthesis
+    from cips_tpu_torch.training import causal_task, unet_synthesis
     from cips_tpu_torch.training.common import CheckpointManager
 
     phase("1 device")
@@ -1257,7 +1559,7 @@ def main() -> int:
         per_step = []
         set_counts(fa, (0, 0, 0))
         t0 = time.perf_counter()
-        with step_launches(fa, per_step):
+        with step_launches(fa, per_step, unet_synthesis):
             trained = train_unet.main(train_args + ["--epochs", str(TRAIN_EPOCHS)])
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
@@ -1355,7 +1657,24 @@ def main() -> int:
         compare_grads("generator", got["cuda"][1], got["cpu"][1])
         compare_grads("discriminator", got["cuda"][2], got["cpu"][2])
 
-    phase("9 phase conv")
+        phase("9 causal serving")
+        causal_cfg = load_config(None, "training_causal.json")
+        causal_args = ["--PET_dir", tree["pet"], "--T1_dir", tree["t1"], "--min_and_max", tree["stats"],
+                       "--crop_size", *map(str, CROP), "--device", "cuda"]
+        built = causal_task.build_models(causal_cfg, FLAGSHIP_K, dtype=torch.float32, device="cpu")
+        causal_states = {name: random_state_dict(model, seed=10 + i)
+                         for i, (name, model) in enumerate(zip(CAUSAL_PARTS + ("discriminator",), built))}
+        del built
+        causal_serving_counts, causal_fwd_ms = causal_serving(fa, causal_cfg, causal_states, tree, causal_args, tmp,
+                                                              card)
+
+        phase("10 causal training")
+        causal_train_counts, causal_step_ms = causal_training(fa, causal_cfg, causal_states, tree, eval_csv,
+                                                              causal_args, tmp, card)
+        print(f"causal: generator forward {causal_fwd_ms:.3f} ms, train step {causal_step_ms:.3f} ms, at batch "
+              f"{SERVING_BATCH} and {CAUSAL_TRAIN_BATCH}, bf16, full volume; {card}")
+
+    phase("11 phase conv")
     with uncounted(fa):
         t0 = time.perf_counter()
         phase_err = phase_conv_checks(pc)
@@ -1366,7 +1685,7 @@ def main() -> int:
         print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
         entry_launches = phase_conv_entry(pc)
 
-    phase("10 summary")
+    phase("12 summary")
     kernels = []
     for name, kind, replaces, launches, err in (
         ("flash_attention_fwd", "fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err),
@@ -1376,9 +1695,13 @@ def main() -> int:
          bwd_err["dkv"]),
     ):
         source = "cips_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if kind == "fwd" else "flash_attention_bwd.cu")
+        i = ("fwd", "dq", "dkv").index(kind)
         kernels.append({"name": name, "route": "cuda", "source": source, "design": DESIGNS[kind],
                         "design_f32": DESIGNS_F32[kind],
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
+                        # the causal generator's paths (phases 9 and 10), each counted from 0
+                        "launches_causal_serving": causal_serving_counts[i],
+                        "launches_causal_training": causal_train_counts[i],
                         **flash_at["x".join(map(str, TRAIN_ATTN))][kind],
                         "at": {label: {k: round(t, 6) if isinstance(t, float) else t for k, t in rows[kind].items()}
                                for label, rows in flash_at.items()}})

@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from cips_tpu_torch.data.covariates import COVARIATES_BY_TRACER, load_min_and_max
-from cips_tpu_torch.data.dataset import PairedVolumeDataset, StreamingLoader
+from cips_tpu_torch.data.dataset import BatchLoader, PackedDataset, PairedVolumeDataset, StreamingLoader, pack_pairs
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
@@ -49,10 +49,9 @@ def add_common_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--eval_info_csv", help="eval/test pair manifest CSV")
     p.add_argument("--PET_dir", help="PET volume tree {dir}/{Subject}/{date}/")
     p.add_argument("--T1_dir", help="T1 volume tree {dir}/{Subject}/{date}/")
-    p.add_argument("--packed_dir", help="packed-array dataset dir (not ported yet: "
-                                        "output_predict ignores it, train_unet raises)")
-    p.add_argument("--eval_packed_dir", help="packed eval dataset dir (not ported yet: "
-                                             "output_predict ignores it, train_unet raises)")
+    p.add_argument("--packed_dir", help="packed-array dataset dir: reused when it holds volumes.npy, "
+                                        "else the training pairs are packed there (trainers only)")
+    p.add_argument("--eval_packed_dir", help="packed eval dataset dir, as --packed_dir (trainers only)")
     p.add_argument("--min_and_max", help="covariate stats JSON/pkl")
     p.add_argument("--pet_kind", default="AV45", choices=["AV45", "AV1451"])
     p.add_argument("--batch_size", type=int, default=4)
@@ -60,9 +59,10 @@ def add_common_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--crop_size", type=int, nargs=3, default=[96, 128, 96],
                    help="working volume shape (train_unet.py:111)")
     p.add_argument("--random_crop_size", type=int, nargs=3, default=None,
-                   help="training-time joint random crop (not ported yet: train_unet raises)")
+                   help="training-time joint random crop of the packed volumes, re-max-normalised "
+                        "(the packed loader only); eval stays center-cropped")
     p.add_argument("--streaming", action="store_true",
-                   help="decode NIfTIs on the fly (the port always does)")
+                   help="decode NIfTIs on the fly in fp32 instead of packing them to a float16 store")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run; cuda is required unless cpu is asked for")
 
@@ -76,9 +76,16 @@ def dtype_arg(name: str) -> torch.dtype:
 
 
 def make_loaders(args, need_values) -> tuple:
-    """(train, eval) loaders over the NIfTI trees: the training manifest shuffled
-    at ``--batch_size``, dropping a short last batch; the eval manifest at batch
-    1, in order, keeping every subject."""
+    """(train, eval) loaders: the training manifest shuffled at ``--batch_size``,
+    dropping a short last batch; the eval manifest at batch 1, in order, keeping
+    every subject.
+
+    By default both manifests are packed once to float16 stores and served by
+    `BatchLoader` (the JAX package's default): ``--packed_dir`` and
+    ``--eval_packed_dir`` are reused when they hold a store, else the pairs are
+    packed there, or into ``{exp_dir}/packed_{train,eval}`` when not given.
+    ``--random_crop_size`` crops the training batches. ``--streaming`` decodes
+    the NIfTIs in fp32 as it goes (`StreamingLoader`) instead, without a crop."""
 
     def dataset(info_csv: str) -> PairedVolumeDataset:
         return PairedVolumeDataset(
@@ -86,6 +93,20 @@ def make_loaders(args, need_values) -> tuple:
             need_values=need_values, min_and_max=load_stats(args.min_and_max),
         )
 
-    train = StreamingLoader(dataset(args.training_info_csv), args.batch_size, seed=args.seed)
-    evaluate = StreamingLoader(dataset(args.eval_info_csv), 1, shuffle=False, drop_last=False)
+    if args.streaming:
+        if args.random_crop_size is not None:
+            raise NotImplementedError("--random_crop_size with --streaming: the streaming crop is not ported yet")
+        train = StreamingLoader(dataset(args.training_info_csv), args.batch_size, seed=args.seed)
+        evaluate = StreamingLoader(dataset(args.eval_info_csv), 1, shuffle=False, drop_last=False)
+        return train, evaluate
+
+    def ensure_packed(info_csv: str, packed_dir: Optional[str], tag: str) -> PackedDataset:
+        if packed_dir and os.path.exists(os.path.join(packed_dir, "volumes.npy")):
+            return PackedDataset(packed_dir)
+        return PackedDataset(pack_pairs(dataset(info_csv), packed_dir or os.path.join(args.exp_dir, f"packed_{tag}")))
+
+    train = BatchLoader(ensure_packed(args.training_info_csv, args.packed_dir, "train"), args.batch_size,
+                        seed=args.seed, random_crop_size=args.random_crop_size)
+    evaluate = BatchLoader(ensure_packed(args.eval_info_csv, args.eval_packed_dir, "eval"), 1, shuffle=False,
+                           drop_last=False)
     return train, evaluate

@@ -5,7 +5,8 @@ The JAX CLI's experiment semantics: the covariate set by --pet_kind, the
 NIfTI dumps (visual/epoch{e}_{rec,ori,t1}.nii.gz), checkpoints every
 --save_every epochs ranked by the eval loss, and --resume, which restores G,
 D, both optimisers and the step count and begins at the epoch after the last
-one saved. Runs on the card unless ``--device cpu``.
+one saved. The batches come from the packed float16 store unless
+``--streaming`` (`common.make_loaders`). Runs on the card unless ``--device cpu``.
 
   python -m cips_tpu_torch.cli.train_unet --exp_dir /tmp/exp \\
       --training_info_csv train.csv --eval_info_csv test.csv \\
@@ -26,7 +27,7 @@ from cips_tpu_torch.data import nifti
 from cips_tpu_torch.training import unet_synthesis
 from cips_tpu_torch.training.common import CheckpointManager, MetricWriter, StepTimer
 
-UNPORTED = ("random_crop_size", "packed_dir", "eval_packed_dir", "perceptual_weights")
+UNPORTED = ("perceptual_weights",)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -43,7 +44,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--n_space", type=int, default=1, help="spatial-shard axis size (only 1: not ported yet)")
     p.add_argument("--max_steps", type=int, default=0, help="debug: stop after N steps")
     p.add_argument("--profile_dir", default=None, help="write a torch.profiler trace of steps 10-15 there")
-    p.add_argument("--perceptual_weights", default=None, help="LPIPS weights (not ported yet: raises)")
+    p.add_argument("--perceptual_weights", default=None,
+                   help="LPIPS weights (the flagship's perceptual term is not wired yet: raises)")
     p.add_argument("--nan_guard", action="store_true",
                    help="skip both optimiser steps on a non-finite G loss (failure detection)")
     p.add_argument("--exact_d_fake", action="store_true",

@@ -1,13 +1,20 @@
-"""Paired T1/PET volume dataset and its streaming batch loader (port of the
-NIfTI-backed dataset and `StreamingLoader` in cips_tpu/data/dataset.py).
+"""Paired T1/PET volume dataset, the packed-array store and the two batch
+loaders (port of the NIfTI-backed dataset, `pack_pairs`, `PackedDataset`,
+`BatchLoader` and `StreamingLoader` in cips_tpu/data/dataset.py).
 
-Decoding is the pure-numpy NIfTI reader, synchronous in the loader; the JAX
+The trainers' default path decodes every pair once: `pack_pairs` writes a
+memory-mapped float16 store (N, 2, D, H, W) and `BatchLoader` serves shuffled
+batches from it, so training sees the fp16-rounded volumes, as the JAX
+package's does. The store's files are the JAX package's, so a store packed by
+either package loads in the other. `StreamingLoader` (``--streaming``) decodes
+the NIfTIs as it goes. Decoding is the pure-numpy NIfTI reader; the JAX
 package's C++ decode runtime and its prefetch pool are not ported yet, and
 there is no fallback between the two.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
@@ -146,3 +153,116 @@ class StreamingLoader:
                 "pet": np.stack([s.pet for s in samples])[..., None],
                 "info": np.stack([s.info for s in samples])[:, None, :],
             }
+
+
+def pack_pairs(dataset: PairedVolumeDataset, out_dir: str, dtype=np.float16) -> str:
+    """Decode and preprocess every pair once into memory-mapped arrays.
+
+    Writes volumes.npy (N, 2, D, H, W) in ``dtype`` (T1 then PET), covariates.npy
+    (N, K) float32 and index.json (the covariate names and each row's subject
+    and dates). Returns ``out_dir``.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(dataset)
+    d, h, w = dataset.crop_size
+    k = len(dataset.need_values)
+    vols = np.lib.format.open_memmap(
+        os.path.join(out_dir, "volumes.npy"), mode="w+", dtype=dtype, shape=(n, 2, d, h, w)
+    )
+    covs = np.zeros((n, k), np.float32)
+    index = []
+    for i in range(n):
+        s = dataset[i]
+        vols[i, 0] = s.t1.astype(dtype)
+        vols[i, 1] = s.pet.astype(dtype)
+        if k:
+            covs[i] = s.info
+        index.append({"subject": s.subject, "t1_date": s.t1_date, "pet_date": s.pet_date})
+    vols.flush()
+    np.save(os.path.join(out_dir, "covariates.npy"), covs)
+    with open(os.path.join(out_dir, "index.json"), "w", encoding="utf-8") as f:
+        json.dump({"need_values": dataset.need_values, "rows": index}, f)
+    return out_dir
+
+
+class PackedDataset:
+    """The memory-mapped pairs that `pack_pairs` wrote."""
+
+    def __init__(self, path: str):
+        self.volumes = np.load(os.path.join(path, "volumes.npy"), mmap_mode="r")
+        self.covariates = np.load(os.path.join(path, "covariates.npy"))
+        with open(os.path.join(path, "index.json"), encoding="utf-8") as f:
+            meta = json.load(f)
+        self.need_values = meta["need_values"]
+        self.index = meta["rows"]
+
+    def __len__(self) -> int:
+        return self.volumes.shape[0]
+
+
+class BatchLoader:
+    """Shuffled epoch iterator over a `PackedDataset`, sliced per host.
+
+    The JAX package's order and values: ``np.random.default_rng(seed + epoch)``
+    shuffles the indices (when ``shuffle``), host ``process_index`` of
+    ``process_count`` takes every ``process_count``-th of them, ``drop_last``
+    drops a short last batch, and each batch is read from the store in sorted
+    index order (covariates sorted the same way) and widened to float32. With
+    ``random_crop_size``, each sample is cut at a random offset drawn from the
+    same generator, T1 and PET jointly, and each modality is re-max-normalised.
+    Yields numpy batches {"t1": (B, D, H, W, 1), "pet": (B, D, H, W, 1),
+    "info": (B, 1, K)}.
+    """
+
+    def __init__(
+        self,
+        packed: PackedDataset,
+        batch_size: int,
+        *,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        seed: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
+        random_crop_size: Optional[Sequence[int]] = None,
+    ):
+        self.packed = packed
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
+        self.random_crop_size = tuple(random_crop_size) if random_crop_size else None
+
+    def _crop(self, vols: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+        rcs = self.random_crop_size
+        out = np.empty((vols.shape[0], 2, *rcs), np.float32)
+        for i in range(vols.shape[0]):
+            offsets = [int(rng.integers(0, c - r + 1)) for c, r in zip(vols.shape[2:], rcs)]
+            crop = vols[(i, slice(None)) + tuple(slice(o, o + r) for o, r in zip(offsets, rcs))]
+            for m in range(2):
+                peak = crop[m].max()
+                out[i, m] = crop[m] / peak if peak > 0 else crop[m]
+        return out
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.packed))
+        rng = np.random.default_rng(self.seed + epoch)
+        if self.shuffle:
+            rng.shuffle(order)
+        order = order[self.process_index :: self.process_count]
+        num_batches = len(order) // self.batch_size
+        if not self.drop_last and len(order) % self.batch_size:
+            num_batches += 1
+        for b in range(num_batches):
+            idx = np.sort(order[b * self.batch_size : (b + 1) * self.batch_size])
+            vols = self.packed.volumes[idx].astype(np.float32)
+            if self.random_crop_size is not None:
+                vols = self._crop(vols, rng)
+            yield {"t1": vols[:, 0][..., None], "pet": vols[:, 1][..., None],
+                   "info": self.packed.covariates[idx][:, None, :]}
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.packed) // self.process_count
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)

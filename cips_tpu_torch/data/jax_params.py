@@ -1,11 +1,16 @@
-"""Carry AttenUNet and PatchDiscriminator weights from the JAX package's flax
-trees to the port.
+"""Carry weights from the JAX package's flax trees to the port.
 
 `from_jax_params` is the inverse of the JAX package's
 `cips_tpu/data/torch_import.py:import_atten_unet`: it maps a flax parameter
 tree (plain numpy arrays) to the reference's torch ``state_dict`` names that
 this package's `AttenUNet` uses. `discriminator_from_jax_params` is the
-inverse of `import_patch_discriminator`. Neither imports anything of JAX.
+inverse of `import_patch_discriminator`. The causal generator's three
+networks: `encoder_from_jax_params` inverts `import_diffusion_encoder` (the
+spatial head, which that importer does not read, keeps its flax names
+``out_norm`` and ``conv_out``), `vae_decoder_from_jax_params` inverts
+`import_vae_decoder` and `diffusion_decoder_from_jax_params` inverts
+`import_diffusion_decoder`. `perceptual_from_jax_params` maps the LPIPS
+network's tree, whose names the port keeps. Nothing here imports JAX.
 
   flax                                      torch
   ----------------------------------------  ------------------------------------------
@@ -25,7 +30,7 @@ Conv kernels (kd, kh, kw, in, out) -> (out, in, kd, kh, kw); dense kernels
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -74,16 +79,23 @@ def _is_conv(tree: Mapping[str, Any], module: tuple) -> bool:
     return np.ndim(node.get("kernel", 0)) >= 3
 
 
-def convert_tree(tree: Mapping[str, Any], transformer_num_layers: int = 1) -> Dict[str, torch.Tensor]:
+def _tensors(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in state.items()}
+
+
+def convert_tree(
+    tree: Mapping[str, Any], transformer_num_layers: int = 1, names: Callable[[tuple], str] = _module_name
+) -> Dict[str, torch.Tensor]:
     """Any flax subtree of the AttenUNet family (a whole model or one block)
-    -> ``state_dict`` of the matching port module (fp32 tensors)."""
+    -> ``state_dict`` of the matching port module (fp32 tensors). ``names``
+    maps a module's flax path to its torch name."""
     state = {}
     for path, arr in _flatten(tree).items():
         module, leaf = path[:-1], path[-1]
         layers = [int(m.group(1)) for m in (re.fullmatch(r"block_(\d+)", s) for s in module) if m]
         if any(i >= transformer_num_layers for i in layers):
             raise ValueError(f"{'/'.join(path)}: more than {transformer_num_layers} transformer layers")
-        prefix = _module_name(module)
+        prefix = names(module)
         prefix = f"{prefix}." if prefix else ""
         if leaf == "scale":  # GroupNorm / LayerNorm
             state[f"{prefix}weight"] = arr
@@ -95,7 +107,7 @@ def convert_tree(tree: Mapping[str, Any], transformer_num_layers: int = 1) -> Di
             state[f"{prefix}weight"] = arr.T
         else:
             state[f"{prefix}bias"] = arr
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in state.items()}
+    return _tensors(state)
 
 
 def from_jax_params(
@@ -129,4 +141,88 @@ def discriminator_from_jax_params(flax_params: Mapping[str, Any], num_layers_d: 
         else:
             state[f"{name}.weight"] = leaves["scale"]
             state[f"{name}.bias"] = leaves["bias"]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in state.items()}
+    return _tensors(state)
+
+
+def _with_rest(head: str, module: tuple) -> str:
+    rest = _module_name(module[1:])
+    return f"{head}.{rest}" if rest else head
+
+
+def encoder_from_jax_params(flax_params: Mapping[str, Any], transformer_num_layers: int = 1) -> Dict[str, torch.Tensor]:
+    """flax DiffusionModelEncoder params (either head) -> the port's ``state_dict``.
+    The mlp head's fc1 rows go from flax's channels-last flatten (S, C) to the
+    reference's (C, S), the permutation `import_diffusion_encoder` undoes."""
+    tree = flax_params.get("params", flax_params)
+    heads = {"out_norm": "out_norm", "conv_out": "conv_out", "fc1": "out.0", "fc2": "out.3"}
+
+    def names(module: tuple) -> str:
+        return heads[module[0]] if module and module[0] in heads else _module_name(module)
+
+    state = convert_tree(tree, transformer_num_layers, names)
+    if "fc1" in tree:
+        levels = sorted(int(k[5:]) for k in tree if re.fullmatch(r"down_\d+", k))
+        c = np.shape(tree[f"down_{levels[-1]}"]["resnet_0"]["conv2"]["kernel"])[-1]
+        w = state["out.0.weight"]  # (hidden, S * C), channels-last order
+        state["out.0.weight"] = w.reshape(w.shape[0], -1, c).transpose(1, 2).reshape(w.shape[0], -1).contiguous()
+    return state
+
+
+def _vae_rank(key: str) -> tuple:
+    """Construction order of the VAE Decoder's flax modules (its ``blocks`` list)."""
+    if key == "conv_in":
+        return (0,)
+    if key in ("mid_res_1", "mid_attn", "mid_res_2"):
+        return (1, ("mid_res_1", "mid_attn", "mid_res_2").index(key))
+    m = re.fullmatch(r"up_(\d+)_(?:res_(\d+)|us)", key)
+    if m:
+        return (2, int(m.group(1)), 0 if m.group(2) is not None else 1, int(m.group(2) or 0))
+    return (3, ("out_norm", "conv_out").index(key))
+
+
+def vae_decoder_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax VAE Decoder params -> the port's ``Decoder`` ``state_dict``: each
+    top-level module becomes ``blocks.{k}`` in construction order; a resnet's
+    ``skip`` is ``nin_shortcut``."""
+    tree = flax_params.get("params", flax_params)
+    index = {key: k for k, key in enumerate(sorted(tree, key=_vae_rank))}
+
+    def names(module: tuple) -> str:
+        if not module:
+            return ""
+        return _with_rest(f"blocks.{index[module[0]]}", module).replace("skip_connection", "nin_shortcut")
+
+    return convert_tree(tree, 1, names)
+
+
+def diffusion_decoder_from_jax_params(
+    flax_params: Mapping[str, Any], transformer_num_layers: int = 1
+) -> Dict[str, torch.Tensor]:
+    """flax DiffusionModelDecoder params -> the port's ``state_dict``:
+    ``up_{i}_resnet_{j}``, ``up_{i}_attn_{j}`` and ``up_{i}_upsampler`` become
+    ``up_blocks.i.resnets.j``, ``up_blocks.i.attentions.j`` and ``up_blocks.i.upsampler``."""
+    tree = flax_params.get("params", flax_params)
+    children = {"resnet": "resnets.{}", "attn": "attentions.{}", "upsampler": "upsampler"}
+
+    def names(module: tuple) -> str:
+        m = re.fullmatch(r"up_(\d+)_(resnet|attn|upsampler)(?:_(\d+))?", module[0]) if module else None
+        if m is None:
+            return _module_name(module)
+        return _with_rest(f"up_blocks.{m.group(1)}." + children[m.group(2)].format(m.group(3)), module)
+
+    return convert_tree(tree, transformer_num_layers, names)
+
+
+def perceptual_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax PerceptualLoss params (``{"params": ...}`` or its subtree, numpy
+    leaves) -> the port's ``state_dict``: paths joined by dots, conv kernels
+    (kh, kw, in, out) -> ``weight`` (out, in, kh, kw), the lin weights as they are."""
+    tree = flax_params.get("params", flax_params)
+    state = {}
+    for path, arr in _flatten(tree).items():
+        *module, leaf = path
+        if leaf == "kernel":
+            state[".".join(module + ["weight"])] = _conv_kernel(arr)
+        else:
+            state[".".join(path)] = arr
+    return _tensors(state)

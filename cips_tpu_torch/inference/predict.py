@@ -3,7 +3,7 @@
 Runs the generator over a test manifest, brain-masks each synthesized volume
 with the mask of the REAL PET (reference output_predict.py:118-119), computes
 MAE / MS-SSIM (kernel 5, sigma 0.5) / PSNR, writes ``rec.nii.gz`` and
-``ori.nii.gz`` per subject/date and reports mean ± std. ``mask_mode="self"``
+(``write_ori``) ``ori.nii.gz`` per subject/date and reports mean ± std. ``mask_mode="self"``
 is the causal path's post-processing: min-max renormalise, then mask with
 the synthesized volume's own mask.
 """
@@ -65,11 +65,14 @@ def predict_dataset(
     output_dir: Optional[str] = None,
     mask_mode: str = "real",
     batch_size: int = 1,
+    write_ori: bool = True,
 ) -> VolumeMetrics:
     """Run inference over a PairedVolumeDataset on ``device``; returns the metrics.
 
     ``predict_fn`` maps a {"t1", "pet", "info"} batch (channels-last tensors
-    on ``device``) to the synthesized volume batch.
+    on ``device``) to the synthesized volume batch. With ``output_dir``, each
+    subject's ``rec.nii.gz`` is written, and its real PET as ``ori.nii.gz``
+    unless ``write_ori`` is False (the causal generation CLI's choice).
     """
     if mask_mode not in MASK_MODES:
         raise ValueError(f"mask_mode must be one of {MASK_MODES}, got {mask_mode!r}")
@@ -97,5 +100,6 @@ def predict_dataset(
             if output_dir is not None:
                 out_dir = os.path.join(output_dir, s.subject, s.pet_date)
                 nifti.write(os.path.join(out_dir, "rec.nii.gz"), masked.cpu().numpy())
-                nifti.write(os.path.join(out_dir, "ori.nii.gz"), real.cpu().numpy())
+                if write_ori:
+                    nifti.write(os.path.join(out_dir, "ori.nii.gz"), real.cpu().numpy())
     return results

@@ -1,6 +1,8 @@
-"""Training losses of the flagship GAN (port of cips_tpu/losses.py).
+"""Training losses of the flagship GAN and the causal generator (port of cips_tpu/losses.py).
 
   * L1 — mean absolute error (the reference's ``nn.L1Loss()``);
+  * `kl_divergence(mu, logvar)` — -0.5 * sum(1 + logvar - mu^2 - exp(logvar))
+    per sample, then the mean over the batch (the causal and BMGAN form);
   * `patch_adversarial_loss` — MONAI PatchAdversarialLoss(criterion=
     "least_squares", no_activation_leastsq=True): MSE of the raw patch logits
     against 1 (real) or 0 (fake); the generator's form targets real on fakes;
@@ -16,6 +18,13 @@ import torch
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred.float() - target.float()).abs().mean()
+
+
+def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu, exp(logvar)) || N(0, 1)), summed per sample, mean over the batch."""
+    mu, logvar = mu.float(), logvar.float()
+    per_sample = -0.5 * (1.0 + logvar - mu * mu - logvar.exp()).flatten(1).sum(dim=1)
+    return per_sample.mean()
 
 
 def patch_adversarial_loss(logits: torch.Tensor, *, target_is_real: bool, for_discriminator: bool) -> torch.Tensor:

@@ -142,12 +142,15 @@ class ResnetBlock(nn.Module):
     """GN -> SiLU -> (up/down) -> conv -> GN -> SiLU -> zero-conv, + skip.
 
     With ``up``/``down`` the 2x resample is applied to both the input and the
-    normalised branch, after norm1/SiLU and before conv1.
+    normalised branch, after norm1/SiLU and before conv1. ``skip_name`` names
+    the 1x1 skip conv: ``skip_connection`` in the AttenUNet family,
+    ``nin_shortcut`` in MONAI-generative's AutoencoderKL.
     """
 
     def __init__(
         self, spatial_dims: int, in_channels: int, out_channels: Optional[int] = None,
         up: bool = False, down: bool = False, norm_num_groups: int = 32, norm_eps: float = 1e-6,
+        skip_name: str = "skip_connection",
     ):
         super().__init__()
         out_channels = out_channels or in_channels
@@ -156,9 +159,9 @@ class ResnetBlock(nn.Module):
         self.conv1 = Conv(spatial_dims, in_channels, out_channels, 3)
         self.norm2 = GroupNorm(norm_num_groups, out_channels, norm_eps)
         self.conv2 = Conv(spatial_dims, out_channels, out_channels, 3, zero_init=True)
-        self.skip_connection = (
-            Conv(spatial_dims, in_channels, out_channels, 1) if out_channels != in_channels else None
-        )
+        self._skip_name = skip_name
+        setattr(self, skip_name,
+                Conv(spatial_dims, in_channels, out_channels, 1) if out_channels != in_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(self.norm1(x))
@@ -168,8 +171,9 @@ class ResnetBlock(nn.Module):
             x, h = avg_pool_2x(x), avg_pool_2x(h)
         h = self.conv1(h)
         h = self.conv2(F.silu(self.norm2(h)))
-        if self.skip_connection is not None:
-            x = self.skip_connection(x)
+        skip = getattr(self, self._skip_name)
+        if skip is not None:
+            x = skip(x)
         return x + h
 
 

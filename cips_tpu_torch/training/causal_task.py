@@ -1,0 +1,238 @@
+"""The causal unified generator, the paper's core model (port of
+cips_tpu/training/causal_task.py).
+
+T1 -> spatial DiffusionModelEncoder -> a 2z-channel latent split into
+(z_mu, z_sigma); reparameterised samples z_mu + eps * z_sigma feed (a) the VAE
+Decoder, which reconstructs T1, and (b) the DiffusionModelDecoder, which
+cross-attends to the covariate row and synthesizes PET. Anatomy lives in the
+KL-constrained latent; the covariates enter only through the PET decoder's
+cross-attention.
+
+Losses (config training_causal.json):
+  g_loss  = L1(PET) + perceptual_weight * LPIPS + adv_weight * LSGAN
+  t1_loss = L1(T1) + kl_weight * KL(z_mu, z_sigma), z_sigma fed as the logvar,
+            exactly as the JAX package and the reference do;
+  one Adam over encoder + T1 decoder + PET decoder on g_loss + t1_loss, D's
+  parameters taking no gradient; then a D step on the detached fake. By
+  default the fake is the pre-update one (the JAX package's one-step-stale
+  choice); ``exact_d_fake`` regenerates it with the updated encoder and PET
+  decoder under no_grad, with the PET step's noise, as JAX does.
+
+The noise eps is drawn by `sample_noise` from the caller's ``torch.Generator``:
+eps_t1 first, then eps_pet. Tests replace `sample_noise` to feed the noise
+that the JAX package draws. The unpacked, un-rematted function: the JAX
+package's space-to-depth packing and remat policies are TPU layout and memory
+devices that do not change the result, and are not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from cips_tpu_torch import default_device
+from cips_tpu_torch.losses import kl_divergence, l1_loss, lsgan_discriminator_loss, patch_adversarial_loss
+from cips_tpu_torch.models import perceptual as lpips
+from cips_tpu_torch.models.atten_unet import init_params
+from cips_tpu_torch.models.autoencoder_kl import Decoder
+from cips_tpu_torch.models.decoder import DiffusionModelDecoder
+from cips_tpu_torch.models.discriminator import PatchDiscriminator
+from cips_tpu_torch.models.encoder import DiffusionModelEncoder
+from cips_tpu_torch.training.common import adam, guard_nonfinite
+
+GENERATOR_PARTS = ("encoder", "t1_decoder", "pet_decoder")
+
+
+@dataclass
+class CausalState:
+    """The trio (``gen``: encoder, t1_decoder, pet_decoder), D, the frozen
+    perceptual net (None when its weight is 0), the two Adams and the step count."""
+
+    gen: nn.ModuleDict
+    d: PatchDiscriminator
+    perceptual: Optional[lpips.PerceptualLoss]
+    opt_g: torch.optim.Adam
+    opt_d: torch.optim.Adam
+    step: int = 0
+
+
+def build_models(
+    model_cfg: Mapping[str, Any],
+    n_covariates: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: Optional[Union[str, torch.device]] = None,
+    seed: int = 0,
+) -> Tuple[DiffusionModelEncoder, Decoder, DiffusionModelDecoder, PatchDiscriminator, lpips.PerceptualLoss]:
+    """(encoder, t1_decoder, pet_decoder, discriminator, perceptual) from a
+    reference-schema config dict. The PET decoder cross-attends to
+    max(n_covariates, 1) features; the encoder gets no context, so its
+    transformers attend to their own tokens in both attentions. Weights are
+    drawn in that order from one generator seeded with ``seed``."""
+    enc_def = dict(model_cfg["t1_autoencoder_def"]["atten_encoder"])
+    enc_def.pop("cross_attention_dim", None)
+    pet_def = dict(model_cfg["pet_decoder_def"])
+    pet_def["cross_attention_dim"] = max(n_covariates, 1)
+    with torch.device("meta"):
+        models = (
+            DiffusionModelEncoder(head="spatial", dtype=dtype, **enc_def),
+            Decoder(dtype=dtype, **model_cfg["t1_autoencoder_def"]["decoder"]),
+            DiffusionModelDecoder(dtype=dtype, **pet_def),
+            PatchDiscriminator(dtype=dtype, **model_cfg.get("discriminator", {})),
+            lpips.PerceptualLoss(dtype=dtype, **model_cfg.get("perceptual_network", {})),
+        )
+    rng = torch.Generator().manual_seed(seed)
+    device = default_device(device)
+    for model in models:
+        model.to_empty(device="cpu")
+        (lpips.init_params if isinstance(model, lpips.PerceptualLoss) else init_params)(model, rng)
+    return tuple(model.to(device) for model in models)
+
+
+def init_state(
+    encoder: DiffusionModelEncoder,
+    t1_decoder: Decoder,
+    pet_decoder: DiffusionModelDecoder,
+    discriminator: PatchDiscriminator,
+    perceptual: lpips.PerceptualLoss,
+    train_cfg: Mapping[str, Any],
+) -> CausalState:
+    gen = nn.ModuleDict(dict(zip(GENERATOR_PARTS, (encoder, t1_decoder, pet_decoder))))
+    return CausalState(
+        gen=gen,
+        d=discriminator,
+        perceptual=perceptual if float(train_cfg.get("perceptual_weight", 0.02)) > 0 else None,
+        opt_g=adam(gen.parameters(), train_cfg.get("base_lr", 1e-4)),
+        opt_d=adam(discriminator.parameters(), train_cfg.get("disc_lr", 1e-3)),
+    )
+
+
+def sample_noise(
+    shape: torch.Size, dtype: torch.dtype, device: torch.device, generator: torch.Generator
+) -> torch.Tensor:
+    """Standard normal noise of ``shape`` from ``generator`` (on ``device``), in ``dtype``."""
+    return torch.randn(shape, generator=generator, device=device).to(dtype)
+
+
+def split_latent(latent: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z_mu, z_sigma): the first and second halves of the latent's channels (last axis)."""
+    return latent.chunk(2, dim=-1)
+
+
+def _encode(gen: nn.ModuleDict, t1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return split_latent(gen["encoder"](t1))
+
+
+def _noise_like(z: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    return sample_noise(z.shape, z.dtype, z.device, generator)
+
+
+@contextlib.contextmanager
+def _frozen(model: nn.Module):
+    """The model's parameters take no gradient inside the block."""
+    model.requires_grad_(False)
+    try:
+        yield
+    finally:
+        model.requires_grad_(True)
+
+
+def make_train_step(
+    train_cfg: Mapping[str, Any], exact_d_fake: Optional[bool] = None, nan_guard: bool = False
+) -> Callable[[CausalState, Mapping[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]:
+    """One generator step then one D step on a batch {"t1", "pet", "info"} of
+    device tensors, the noise drawn from the given generator. Updates the
+    state in place and returns the JAX package's metrics (0-d tensors):
+    g_loss (g_loss + t1_loss), rec_pet_loss, rec_t1_loss, kl_loss, p_loss and
+    adv_loss (each times its weight) and d_loss. With ``nan_guard``, a
+    non-finite total skips both optimiser steps (the step count stays) and the
+    metrics gain ``skipped_nonfinite``."""
+    pw = float(train_cfg.get("perceptual_weight", 0.02))
+    aw = float(train_cfg.get("adv_weight", 0.005))
+    kw = float(train_cfg.get("kl_weight", 0.001))
+    if exact_d_fake is None:
+        exact_d_fake = bool(train_cfg.get("exact_d_fake", False))
+
+    def train_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
+        t1, pet, info = batch["t1"], batch["pet"], batch["info"]
+        zero = torch.zeros((), device=t1.device)
+        gen = state.gen
+
+        state.opt_g.zero_grad(set_to_none=True)
+        with _frozen(state.d):
+            z_mu, z_sigma = _encode(gen, t1)
+            eps_t1 = _noise_like(z_sigma, generator)
+            t1_rec = gen["t1_decoder"](z_mu + eps_t1 * z_sigma)
+            eps_pet = _noise_like(z_sigma, generator)
+            rec_pet = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info)
+            rec_pet_loss = l1_loss(rec_pet, pet)
+            rec_t1_loss = l1_loss(t1_rec, t1)
+            kl = kl_divergence(z_mu, z_sigma)
+            p = state.perceptual(rec_pet, pet) if pw > 0 and state.perceptual is not None else zero
+            adv = (patch_adversarial_loss(state.d(rec_pet)[-1], target_is_real=True, for_discriminator=False)
+                   if aw > 0 else zero)
+            total = rec_pet_loss + pw * p + aw * adv + rec_t1_loss + kw * kl
+            total.backward()
+        metrics = {"g_loss": total.detach(), "rec_pet_loss": rec_pet_loss.detach(),
+                   "rec_t1_loss": rec_t1_loss.detach(), "kl_loss": kl.detach(), "p_loss": p.detach() * pw,
+                   "adv_loss": adv.detach() * aw}
+        if nan_guard:
+            ok = guard_nonfinite(total)
+            metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
+            if not ok:
+                metrics["d_loss"] = torch.tensor(float("nan"))
+                return metrics
+        state.opt_g.step()
+
+        if aw > 0:
+            fake = rec_pet
+            if exact_d_fake:  # the updated generator's fake, with the PET step's noise (JAX's r_pet)
+                with torch.no_grad():
+                    z_mu, z_sigma = _encode(gen, t1)
+                    fake = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info)
+            fake = fake.detach()
+            state.opt_d.zero_grad(set_to_none=True)
+            logits_fake, logits_real = state.d(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
+            d_loss = lsgan_discriminator_loss(logits_fake, logits_real)
+            d_loss.backward()
+            state.opt_d.step()
+            metrics["d_loss"] = d_loss.detach()
+        else:
+            metrics["d_loss"] = zero
+        state.step += 1
+        return metrics
+
+    return train_step
+
+
+def make_eval_step() -> Callable[[CausalState, Mapping[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]:
+    """Eval losses with fresh reconstructions (one eps for both decoders), no
+    updates: rec_pet_loss, rec_t1_loss, and the volumes ``fake`` and ``t1_rec``."""
+
+    def eval_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
+        gen = state.gen
+        with torch.inference_mode():
+            z_mu, z_sigma = _encode(gen, batch["t1"])
+            z = z_mu + _noise_like(z_sigma, generator) * z_sigma
+            t1_rec = gen["t1_decoder"](z)
+            fake = gen["pet_decoder"](z, batch["info"])
+            return {"rec_pet_loss": l1_loss(fake, batch["pet"]), "rec_t1_loss": l1_loss(t1_rec, batch["t1"]),
+                    "fake": fake, "t1_rec": t1_rec}
+
+    return eval_step
+
+
+def make_generate_fn(
+    encoder: DiffusionModelEncoder, pet_decoder: DiffusionModelDecoder
+) -> Callable[[Mapping[str, torch.Tensor], torch.Generator], torch.Tensor]:
+    """Inference: encode T1, sample the latent, decode PET conditioned on the covariates."""
+
+    def generate(batch: Mapping[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+        with torch.inference_mode():
+            z_mu, z_sigma = split_latent(encoder(batch["t1"]))
+            return pet_decoder(z_mu + _noise_like(z_sigma, generator) * z_sigma, batch["info"])
+
+    return generate

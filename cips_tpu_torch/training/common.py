@@ -6,7 +6,9 @@ Checkpoints keep the JAX package's directory contract: ``{ckpt_dir}/epoch_{n}``,
 ``best_epoch`` and ``best_metric``. Each checkpoint is one ``torch.save``
 file of a dict in the reference's layout, extended for resuming:
 ``{"unet", "discriminator", "optimizer_g", "optimizer_d", "step", "epoch"}``
-(state dicts; a serving checkpoint may hold ``unet`` alone). Orbax
+(state dicts; a serving checkpoint may hold ``unet`` alone); the causal
+generator's holds ``encoder``, ``t1_decoder``, ``pet_decoder`` and
+``perceptual`` in place of ``unet``. Orbax
 checkpoints of the JAX package are not read.
 
 Metrics are written as ``metrics.jsonl`` records in the JAX package's format;
@@ -80,7 +82,7 @@ class CheckpointManager:
                 raise FileNotFoundError(f"no checkpoints in {self.ckpt_dir}")
             path = os.path.join(self.ckpt_dir, f"epoch_{epoch}")
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        for key in ("unet", "discriminator"):
+        for key in ("unet", "discriminator", "encoder", "t1_decoder", "pet_decoder", "perceptual"):
             if key in payload:
                 payload[key] = strip_ddp_prefix(payload[key])
         return payload

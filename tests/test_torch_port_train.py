@@ -359,8 +359,7 @@ def test_train_cli_needs_cuda_unless_asked_and_refuses_unported_flags(tree, tmp_
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_unet.main(_train_args(tree, str(tmp_path / "a"), "--epochs", "1"))
-    for extra in (["--random_crop_size", "8", "8", "8"], ["--packed_dir", "p"], ["--eval_packed_dir", "p"],
-                  ["--perceptual_weights", "w.npz"], ["--n_space", "2"]):
+    for extra in (["--perceptual_weights", "w.npz"], ["--n_space", "2"]):
         with pytest.raises(NotImplementedError, match=extra[0]):
             train_unet.main(_train_args(tree, str(tmp_path / "b"), "--device", "cpu", *extra))
 
