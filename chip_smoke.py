@@ -14,14 +14,15 @@ Phases (any failure raises and the script exits non-zero):
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
-                128, the causal generator's long attention (1, 1, 18432, 32)
+                128, the classifier's (2, 4, 288, 32) and (2, 4, 2304, 32), the
+                causal generator's long attention (1, 1, 18432, 32)
                 and scale -0.3 and 0, the forward and the backward at each in
                 bf16 and fp32 (fp32 also against their 3xTF32 rounding models,
                 the forward's distance printed); then each
                 kernel's device time (torch.profiler; its
-                eager time beside it) at the flagship's (2, 4, 2304, 32)
-                and the causal encoder's level-2 (2, 4, 18432, 32) shape in
-                bf16, and the fp32 kernels (--dtype f32) at the flagship's,
+                eager time beside it) at the flagship's (2, 4, 2304, 32),
+                the causal encoder's level-2 (2, 4, 18432, 32) and the
+                classifier's level-4 (2, 4, 288, 32) shape in bf16, and the fp32 kernels (--dtype f32) at the flagship's,
                 beside its three-term bound (operations, bytes, exponentials),
                 its plain version's time (flagship shape only) and the fastest
                 of SDPA's flash, efficient and cuDNN backends, each pinned and,
@@ -62,7 +63,19 @@ Phases (any failure raises and the script exits non-zero):
                 trained checkpoint served and gen_latents on it; the train step's
                 time, peak memory and profile on one fixed batch, an exact_d_fake
                 step (7 forwards more); one fp32 step's gradients, card vs CPU;
- 11. phase conv — every variant of the phase-structured packed conv kernels
+ 11. classifier — cips_tpu_torch.cli.train_classifier (configs/training_atten.json) at full
+                width and the full volume in bf16, batch 2, PET + T1 + covariates, on the same
+                8 subjects with a converter CSV of both classes, for 2 epochs with eval and
+                checkpoints, every step launching 4 forward, 4 dQ and 4 dK/dV kernels (level 3 at
+                2,304 tokens, level 4 at 288); test_mci --best on real PET, then on the PET that
+                phase 4 synthesized; the forward's and the train step's time, peak memory and
+                profile; the fp32 logits and one fp32 step's gradients, card vs CPU;
+ 12. BMGAN    — cips_tpu_torch.cli.train_bmgan at the default widths and the full volume in
+                bf16, batch 2, for 2 epochs with eval and checkpoints (no attention: no kernel of
+                this port), --resume, gen_test_bmgan on the trained checkpoint; the train step's
+                time, peak memory and profile; one fp32 step's G, E and D gradients, card vs CPU,
+                at (64, 64, 64);
+ 13. phase conv — every variant of the phase-structured packed conv kernels
                 (csrc/phase_conv.cu, csrc/phase_conv_sm90.cu,
                 csrc/phase_conv_tf32.cu: the Pallas phase_conv and its three TPU
                 probes) against its plain version at the probes' shapes, at
@@ -80,7 +93,7 @@ Phases (any failure raises and the script exits non-zero):
                 3xTF32 rate with the FMA figure beside it; then the slice's main
                 paths: each subcommand of
                 `cips_tpu_torch.scripts.probe_phase_conv`, its launches counted;
- 12. summary  — a JSON line of kernels, the card line, and the result line.
+ 14. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
 """
@@ -134,6 +147,24 @@ CAUSAL_PARTS = ("encoder", "t1_decoder", "pet_decoder")
 CAUSAL_TRAIN_BATCH = 2
 CAUSAL_EPOCHS = 2  # 4 steps each over 8 subjects, an eval of N_EVAL and a checkpoint each
 CAUSAL_STEPS_TIMED = 6  # after 2 warm-up steps, on one fixed batch
+# The MCI classifier (configs/training_atten.json) at full width and the full volume, PET + T1 +
+# covariates: its encoder downsamples at every level, so level 3 attends at 12x16x12 = 2,304 tokens
+# and level 4 at 6x8x6 = 288, each in 2 transformers whose attn1 (4 heads of 32) is a flash
+# forward; their cross-attentions to the covariate row (Lk = 1) take the plain path. A forward
+# launches 4 flash forwards, a train step 4/4/4.
+CLASSIFIER_FLASH = 4
+CLASSIFIER_ATTN = (2, 4, 288, 32)
+CLASSIFIER_BATCH = 2
+CLASSIFIER_EPOCHS = 2  # 4 steps each over 8 subjects, an eval of N_EVAL (both classes) and a checkpoint each
+CLASSIFIER_STEPS_TIMED = 6  # after 2 warm-up steps, on one fixed batch
+# BMGAN at its default widths and the full volume; no attention, so no kernel of this port. Its
+# discriminator (num_layers_d 4) needs 48 voxels an axis and its generator (a stride-2 stem, 4
+# stride-2 levels, then 5 x2 transposed convs) a multiple of 32: the fp32 gradients are compared
+# at BMGAN_PARITY_CROP, the smallest such volume.
+BMGAN_BATCH = 2
+BMGAN_EPOCHS = 2
+BMGAN_STEPS_TIMED = 4  # after 2 warm-up steps, on one fixed batch
+BMGAN_PARITY_CROP = (64, 64, 64)
 # Phase conv shapes, packed (B, Z, Y, X, 8C): the TPU probes' level-0 shape (C = 16), their
 # 32-channel case, and the flagship's own level 0 at batch 2.
 PHASE_SHAPES = ((8, 48, 64, 48, 128), (8, 48, 64, 48, 256), (2, 48, 64, 48, 128))
@@ -241,6 +272,18 @@ TOL_STEP_METRIC_REL = 1e-3  # the step's losses, card vs CPU
 # discriminator's, `compare_grads_f64`), within this many times the CPU's distance: two fp32
 # implementations round differently (the card's conv_0 2.7x the CPU's on an NVIDIA H100 80GB HBM3, 700 W).
 FP32_NOISE = 4
+# BMGAN's fp32 step from random weights, each network's whole gradient against the fp64 step,
+# relative in the 2-norm, a limit per network about 2.5-4x the card's reading. On an NVIDIA H100
+# 80GB HBM3 at 700 W the card reads 2.1e-2 (G), 5.0e-4 (E) and 2.5e-3 (D) under every cuDNN
+# algorithm choice and without cuDNN, the CPU 1.4e-2, 4.0e-4 and 4.7e-4, while the card's
+# fp64 step is within 4e-7 of the CPU's tensor by tensor
+# (cips_tpu_torch/scripts/probe_bmgan_grads.py; PERF.md §6). G's coarse instance norms (8 voxels
+# at its deepest level at (64, 64, 64)) amplify its own rounding. D's own arithmetic is as
+# close on both (3e-6 on one fixed input): its distance is the fake's rounding (G's forward,
+# 5.8e-5 from fp64 on the card, 3.2e-5 on the CPU) amplified through near-uniform patch
+# logits. Each network's own fp32 arithmetic is held to the CPU's at TOL_MODEL_REL (G's
+# forward) and TOL_GRAD_MODEL_REL (D's step on one input); a wrong function moves either by O(1).
+TOL_BMGAN_F32_GRAD_NORM = {"g": 5e-2, "e": 2e-3, "d": 1e-2}
 EVENT_TIMED: list = []  # calls that device_ms timed by CUDA events, the profiler having seen none of their work
 # Phase conv product variants against their plain version in fp32 from the same
 # inputs, relative to max|out|: bf16 rounds the fp32 sum to bf16 once at the end
@@ -409,6 +452,8 @@ def kernel_checks(fa) -> float:
         ((SERVING_BATCH, 4, 2304, 32), None, bf16),
         ((1, 2, 1000, 32), None, bf16), ((1, 2, 1000, 32), None, f32),
         ((1, 2, 4608, 64), None, bf16), ((1, 2, 4608, 64), None, f32),
+        # the classifier's two attention levels at training batch 2
+        (CLASSIFIER_ATTN, None, bf16), (CLASSIFIER_ATTN, None, f32), ((CLASSIFIER_BATCH, 4, 2304, 32), None, f32),
         *((shape, lk, bf16, *scale) for shape, lk, *scale in edges),
         # every edge in fp32 too: the fp32 kernel is tiled as the bf16 one is
         *((shape, lk, f32, *scale) for shape, lk, *scale in edges),
@@ -605,6 +650,7 @@ def bwd_kernel_checks(fa) -> dict:
     ]
     cases = [
         (TRAIN_ATTN, torch.bfloat16), (TRAIN_ATTN, torch.float32), ((4, 4, 2304, 32), torch.bfloat16),
+        (CLASSIFIER_ATTN, torch.bfloat16), (CLASSIFIER_ATTN, torch.float32),  # the classifier's level 4
         ((1, 2, 1000, 32), torch.bfloat16), ((1, 2, 1000, 32), torch.float32),
         ((1, 2, 4608, 64), torch.bfloat16), ((1, 2, 4608, 64), torch.float32),
         *((shape, torch.bfloat16, *extra) for shape, *extra in edges),
@@ -1076,15 +1122,15 @@ def compare_grads(label: str, got: dict, want: dict) -> float:
 
 def compare_grads_f64(label: str, card: dict, cpu: dict, ref: dict) -> None:
     """Card and CPU fp32 gradients of one network against the CPU's fp64 step (fp64
-    activations from the same fp32 weights; the norms' statistics stay fp32, as the
-    model computes them, which moves the gradients under 1e-6), tensor by tensor,
+    activations and norm statistics from the same fp32 weights; the losses, the
+    plain attention's scores and LPIPS's unit normalisation stay fp32), tensor by tensor,
     relative to each max|grad|: within TOL_GRAD_MODEL_REL, or within FP32_NOISE
     times the CPU fp32 step's own distance where that is larger. The second limit
     is the discriminator's: with random weights its patch logits are nearly
     uniform, so the gradient reaching each instance norm is nearly constant over
     its voxels and the norm's backward leaves a small difference of fp32 sums (the
     CPU's fp32 step: 9.2e-3 of max|grad| at conv_penultimate, 8.9e-4 at conv_0;
-    with two-pass norm statistics the same). A tensor whose fp64 max|grad| is under
+    with two-pass norm statistics, or fp64 ones in the reference, the same). A tensor whose fp64 max|grad| is under
     1e-3 of its network's largest (exactly 0: a conv bias ahead of a norm) must
     stay under that on the card."""
     tiny = 1e-3 * max(w.abs().max().item() for w in ref.values())
@@ -1099,13 +1145,13 @@ def compare_grads_f64(label: str, card: dict, cpu: dict, ref: dict) -> None:
         rel, cpu_rel = ((g - w).abs().max().item() / scale), ((c - w).abs().max().item() / scale)
         tol = max(TOL_GRAD_MODEL_REL, FP32_NOISE * cpu_rel)
         if tol > TOL_GRAD_MODEL_REL:
-            floors.append(f"{name} card {rel:.3e}, CPU fp32 {cpu_rel:.3e}")
+            floors.append((rel, f"{name} card {rel:.3e}, CPU fp32 {cpu_rel:.3e}"))
         check(rel <= tol, f"{label} {name}: card {rel:.3e} of max|grad| from fp64 > {tol:.3e}")
         if rel > worst:
             worst, worst_name = rel, name
     print(f"grads {label}: {len(ref)} tensors against fp64, card worst {worst:.3e} of max|grad| ({worst_name}); "
           f"tol {TOL_GRAD_MODEL_REL:g}, or {FP32_NOISE}x the CPU fp32 step's own distance where that is larger: "
-          f"{floors or 'none'}")
+          f"{len(floors)} tensors" + "".join(f"; {text}" for _, text in sorted(floors, reverse=True)[:8]))
 
 
 @contextlib.contextmanager
@@ -1391,6 +1437,300 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
     return launched, step_ms
 
 
+def write_converters(path: str) -> str:
+    """The MCI converter CSV of the synthetic subjects: odd ones convert (in
+    2030, after every scan, so none is dropped), even ones do not."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["Subject", "MCI_converter", "Converter_date"])
+        w.writerows([f"sub{i:03d}", i % 2, "2030-01-01" if i % 2 else ""] for i in range(N_SUBJECTS))
+    return path
+
+
+def classifier_batch(shape, batch: int, device: str, seed: int) -> dict:
+    """{"imgs": (B, *shape, 2) PET and T1, "info": (B, 1, K), "labels": both classes}."""
+    rng = np.random.default_rng(seed)
+    return {"imgs": torch.from_numpy(rng.random((batch, *shape, 2), dtype=np.float32)).to(device),
+            "info": torch.from_numpy(rng.random((batch, 1, FLAGSHIP_K), dtype=np.float32)).to(device),
+            "labels": torch.arange(batch, device=device) % 2}
+
+
+def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str, card: str) -> dict:
+    """Phase 11: train_classifier at full width and the full volume, bf16, batch 2, PET + T1 +
+    covariates, for CLASSIFIER_EPOCHS epochs with eval and checkpoints (the path's run: every step
+    4/4/4 flash launches); test_mci --best on real PET, then on the PET that the flagship's serving
+    phase synthesized (synthesize, then classify), each run's launches counted from 0; the forward's
+    and the train step's time, peak memory and profile; the fp32 forward and one fp32 step's
+    gradients on the card against the CPU at PARITY_CROP. Returns the paths' launches and times."""
+    from cips_tpu_torch.cli import test_mci, train_classifier
+    from cips_tpu_torch.cli.common import load_config
+    from cips_tpu_torch.training import classifier_task
+
+    n = CLASSIFIER_FLASH
+    exp_dir = os.path.join(tmp, "cls_exp")
+    args = ["--PET_dir", tree["pet"], "--T1_dir", tree["t1"], "--min_and_max", tree["stats"], "--crop_size",
+            *map(str, CROP), "--device", "cuda", "--dtype", "bf16", "--batch_size", str(CLASSIFIER_BATCH),
+            "--converter_csv", write_converters(os.path.join(tmp, "mci_converters.csv")), "--use_T1",
+            "--use_tabular_info"]
+    per_step = []
+    set_counts(fa, (0, 0, 0))
+    t0 = time.perf_counter()
+    with step_launches(fa, per_step, classifier_task):
+        trained = train_classifier.main(args + ["--exp_dir", exp_dir, "--training_info_csv", tree["csv"],
+                                                "--eval_info_csv", eval_csv, "--epochs", str(CLASSIFIER_EPOCHS),
+                                                "--save_every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(fa)  # the classifier's training path
+    steps = trained.step
+    evals = CLASSIFIER_EPOCHS * -(-N_EVAL // CLASSIFIER_BATCH)  # eval forwards
+    expected = (n * (steps + evals), n * steps, n * steps)
+    print(f"classifier training: train_classifier, {steps} steps and {CLASSIFIER_EPOCHS} evals of {N_EVAL} "
+          f"sessions in {wall:.3f} s ({steps / wall:.3f} steps/s end to end: packing, eval and checkpoints "
+          f"included); launches {launched}; per step {sorted(set(per_step))}; {card}")
+    check(steps == CLASSIFIER_EPOCHS * (N_SUBJECTS // CLASSIFIER_BATCH), f"classifier steps {steps}")
+    check(len(per_step) == steps and set(per_step) == {(n, n, n)},
+          f"every classifier train step must launch {n} forward, {n} dQ and {n} dK/dV kernels: {per_step}")
+    check(launched == expected, f"expected {expected} classifier launches, got {launched}")
+    run = os.path.join(exp_dir, "pet_t1_tab")
+    records = [json.loads(line) for line in open(os.path.join(run, "log", "metrics.jsonl"), encoding="utf-8")]
+    with open(os.path.join(run, "ckpt", "meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    print(f"classifier training: metric records {records}; meta.json {meta}")
+    check([r["prefix"] for r in records] == ["training", "eval"] * CLASSIFIER_EPOCHS, "classifier metric records")
+    check(all(np.isfinite(r[k]) for r in records if r["prefix"] == "eval" for k in ("auc", "f1", "accuracy")),
+          "non-finite classifier eval metrics")
+    check(meta["last_epoch"] == CLASSIFIER_EPOCHS - 1 and np.isfinite(meta["best_metric"]), f"bad meta.json {meta}")
+    del trained
+
+    tested = {}
+    for name, extra in (("real", []), ("synthesized", ["--test_fake_pet", "--fake_pet_dir", fake_pet_dir])):
+        set_counts(fa, (0, 0, 0))
+        t0 = time.perf_counter()
+        m = test_mci.main(args + ["--exp_dir", run, "--eval_info_csv", tree["csv"], "--best", *extra])
+        torch.cuda.synchronize()
+        tested[name] = counts(fa)  # the test path on real, then synthesized PET
+        print(f"classifier test ({name} PET): test_mci --best over {N_SUBJECTS} sessions in "
+              f"{time.perf_counter() - t0:.3f} s, metrics {m}; launches {tested[name]}")
+        check(tested[name] == (n * N_SUBJECTS, 0, 0), f"test_mci on {name} PET launched {tested[name]}")
+        check(all(np.isfinite(m[k]) for k in ("accuracy", "precision", "recall", "f1", "auc")),
+              f"test_mci on {name} PET: {m}")
+
+    cfg = load_config(None, "training_atten.json")
+
+    def build(shape, dtype, device):
+        return classifier_task.build_model(cfg, in_channels=2, input_shape=shape, n_covariates=FLAGSHIP_K,
+                                           dtype=dtype, device=device, seed=5)
+
+    with uncounted(fa):
+        model = build(CROP, torch.bfloat16, "cuda")
+        batch = classifier_batch(CROP, CLASSIFIER_BATCH, "cuda", seed=11)
+        predict = classifier_task.make_predict_fn(model, use_tabular=True)
+        before = counts(fa)[0]
+        logits = predict(batch)
+        check(counts(fa)[0] - before == n and logits.shape == (CLASSIFIER_BATCH, 2)
+              and torch.isfinite(logits).all().item(), "the classifier forward's launches or logits")
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = cuda_ms(lambda: predict(batch), 5, warmup=2)
+        print(f"classifier: forward {fwd_ms:.3f} ms at batch {CLASSIFIER_BATCH} bf16, full volume {CROP}, PET + T1 + "
+              f"{FLAGSHIP_K} covariates (CUDA events over 5 after 2), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {n} flash forwards a forward; {card}")
+        kinds = profile_window(lambda: predict(batch), "classifier forward")
+        print(f"classifier: the flash forward {kinds.get(KERNEL_KINDS[0][0], 0.0):.3f} ms of "
+              f"{sum(kinds.values()):.3f} ms of kernels")
+        state = classifier_task.init_state(model, cfg["training"]["base_lr"])
+        step_fn = classifier_task.make_train_step(use_tabular=True)
+        torch.cuda.reset_peak_memory_stats()
+        before = counts(fa)
+        step_fn(state, batch)
+        check(tuple(a - b for a, b in zip(counts(fa), before)) == (n, n, n), "the classifier step's launches")
+        timed = []
+        step_ms = cuda_ms(lambda: timed.append(step_fn(state, batch)), CLASSIFIER_STEPS_TIMED, warmup=1)
+        timed = timed[1:]
+        print(f"classifier train step: {step_ms:.3f} ms at batch {CLASSIFIER_BATCH} bf16 = {1e3 / step_ms:.3f} steps/s "
+              f"(CUDA events over {CLASSIFIER_STEPS_TIMED} after 2 warm-up, one fixed batch, dropout on); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of 80, no remat; last loss "
+              f"{float(timed[-1]['ce_loss']):.6f}; {card}")
+        check(all(np.isfinite(float(m["ce_loss"])) for m in timed), "non-finite classifier losses")
+        kinds = profile_window(lambda: step_fn(state, batch), "classifier train step")
+        flash = sum(ms for kind, ms in kinds.items() if kind in (KERNEL_KINDS[0][0], KERNEL_KINDS[1][0]))
+        print(f"classifier train step: flash forward and backward {flash:.3f} ms of {sum(kinds.values()):.3f} ms "
+              f"of kernels ({flash / sum(kinds.values()):.2%})")
+        del model, state, timed
+
+        weights = random_state_dict(build(PARITY_CROP, torch.float32, "cpu"), seed=30)
+        small = classifier_batch(PARITY_CROP, CLASSIFIER_BATCH, "cpu", seed=12)
+        got = {}
+        for run_name, (dev, dtype) in (("cuda", ("cuda", torch.float32)), ("cpu", ("cpu", torch.float32)),
+                                       ("cpu f64", ("cpu", torch.float64))):
+            model = build(PARITY_CROP, dtype, dev)
+            model.load_state_dict(weights)
+            on_dev = {k: v.to(dev) for k, v in small.items()}
+            before = counts(fa)
+            logits = classifier_task.make_predict_fn(model, use_tabular=True)(on_dev).cpu()
+            state = classifier_task.init_state(model)
+            metrics = classifier_task.make_train_step(use_tabular=True, dropout=False)(state, on_dev)
+            grown = tuple(a - b for a, b in zip(counts(fa), before))
+            check(grown == ((2 * n, n, n) if dev == "cuda" else (0, 0, 0)), f"{run_name} classifier launches {grown}")
+            got[run_name] = (logits, float(metrics["ce_loss"]),
+                             {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+            del model, state
+    rel = ((got["cuda"][0] - got["cpu"][0]).abs().max() / got["cpu"][0].abs().max()).item()
+    loss_rel = abs(got["cuda"][1] - got["cpu"][1]) / abs(got["cpu"][1])
+    print(f"classifier parity: fp32 logits {PARITY_CROP} card vs CPU {rel:.3e} of max|out| (tol {TOL_MODEL_REL:g}); "
+          f"loss card {got['cuda'][1]:.6f} vs CPU {got['cpu'][1]:.6f} ({loss_rel:.3e}, tol {TOL_STEP_METRIC_REL:g})")
+    check(rel <= TOL_MODEL_REL and loss_rel <= TOL_STEP_METRIC_REL, "the classifier's card and CPU runs disagree")
+    compare_grads_f64("classifier", *(got[run][2] for run in ("cuda", "cpu", "cpu f64")))
+    return {"training": launched, "test": tested, "forward_ms": fwd_ms, "step_ms": step_ms}
+
+
+@contextlib.contextmanager
+def cpu_latents():
+    """BMGAN draws its latent on the CPU from the generator it is given and moves it to the
+    device: a card run and a CPU run from one seed see the same z."""
+    from cips_tpu_torch.training import bmgan_task
+
+    sample_latent = bmgan_task.sample_latent
+    bmgan_task.sample_latent = lambda shape, dtype, device, generator: \
+        torch.randn(shape, generator=generator).to(device, dtype)
+    try:
+        yield
+    finally:
+        bmgan_task.sample_latent = sample_latent
+
+
+def bmgan_phase(fa, tree: dict, eval_csv: str, tmp: str, card: str) -> dict:
+    """Phase 12: train_bmgan at the default widths and the full volume, bf16, batch 2, for
+    BMGAN_EPOCHS epochs with eval and checkpoints (no attention: no kernel of this port
+    launches), --resume for one more epoch, gen_test_bmgan on the trained checkpoint; the train
+    step's time, peak memory and profile on one fixed batch; one fp32 step's gradients on the
+    card against the CPU's at BMGAN_PARITY_CROP. Returns the times."""
+    from cips_tpu_torch.cli import gen_test_bmgan, train_bmgan
+    from cips_tpu_torch.data import nifti
+    from cips_tpu_torch.losses import lsgan_discriminator_loss
+    from cips_tpu_torch.models import bmgan
+    from cips_tpu_torch.training import bmgan_task
+    from cips_tpu_torch.training.common import CheckpointManager
+
+    exp_dir = os.path.join(tmp, "bmgan_exp")
+    args = ["--PET_dir", tree["pet"], "--T1_dir", tree["t1"], "--crop_size", *map(str, CROP), "--device", "cuda",
+            "--dtype", "bf16", "--batch_size", str(BMGAN_BATCH), "--exp_dir", exp_dir]
+    train_args = args + ["--training_info_csv", tree["csv"], "--eval_info_csv", eval_csv, "--save_every", "1"]
+    steps_per_epoch = N_SUBJECTS // BMGAN_BATCH
+    set_counts(fa, (0, 0, 0))
+    t0 = time.perf_counter()
+    trained = train_bmgan.main(train_args + ["--epochs", str(BMGAN_EPOCHS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = trained.step
+    print(f"bmgan training: train_bmgan, {steps} steps and {BMGAN_EPOCHS} evals of {N_EVAL} subjects in {wall:.3f} s "
+          f"({steps / wall:.3f} steps/s end to end: packing, eval and checkpoints of "
+          f"{sum(p.numel() for p in trained.g.parameters()) / 1e6:.1f}M generator parameters included); batch "
+          f"{BMGAN_BATCH}, bf16; launches {counts(fa)} (no attention); {card}")
+    check(steps == BMGAN_EPOCHS * steps_per_epoch and counts(fa) == (0, 0, 0), f"bmgan steps {steps}, {counts(fa)}")
+    records = [json.loads(line) for line in open(os.path.join(exp_dir, "log", "metrics.jsonl"), encoding="utf-8")]
+    with open(os.path.join(exp_dir, "ckpt", "meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    print(f"bmgan training: metric records {records}; meta.json {meta}")
+    check([r["prefix"] for r in records].count("eval") == BMGAN_EPOCHS and all(
+        np.isfinite(v) for r in records for k, v in r.items() if k != "prefix"), "bad bmgan metric records")
+    check(meta["last_epoch"] == BMGAN_EPOCHS - 1 and np.isfinite(meta["best_metric"]), f"bad meta.json {meta}")
+    del trained
+
+    resumed = train_bmgan.main(train_args + ["--epochs", str(BMGAN_EPOCHS + 1), "--resume"])
+    print(f"bmgan training: --resume ran epoch {BMGAN_EPOCHS} to step {resumed.step}")
+    check(resumed.step == (BMGAN_EPOCHS + 1) * steps_per_epoch, f"bmgan resume: step {resumed.step}")
+    check(CheckpointManager(os.path.join(exp_dir, "ckpt")).latest_epoch() == BMGAN_EPOCHS, "resume saved no epoch")
+    del resumed
+
+    out_dir = os.path.join(tmp, "bmgan_gen")
+    t0 = time.perf_counter()
+    results = gen_test_bmgan.main(args + ["--eval_info_csv", eval_csv, "--best", "--output_dir", out_dir])
+    torch.cuda.synchronize()
+    recs = [os.path.join(dp, f) for dp, _, fs in os.walk(out_dir) for f in fs if f == "rec.nii.gz"]
+    print(f"bmgan serving: gen_test_bmgan on the trained checkpoint, {len(recs)} volumes in "
+          f"{time.perf_counter() - t0:.3f} s, metrics {results.summary()}")
+    check(len(recs) == N_EVAL and all(np.isfinite(v) for v in results.summary().values()), "bad bmgan generation")
+    for path in recs:
+        rec = nifti.read_array(path)
+        check(rec.shape == CROP and np.isfinite(rec).all() and np.abs(rec).max() <= 1 and rec.std() > 0,
+              f"{path}: bad bmgan output")
+
+    models = bmgan_task.build_models(dtype=torch.bfloat16, device="cuda", seed=3)
+    state = bmgan_task.init_state(*models)
+    step_fn = bmgan_task.make_train_step()
+    batch = synthetic_batch(CROP, BMGAN_BATCH, "cuda", seed=13)
+    g = torch.Generator("cuda").manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    step_ms = cuda_ms(lambda: timed.append(step_fn(state, batch, g)), BMGAN_STEPS_TIMED, warmup=2)
+    timed = timed[2:]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"bmgan train step: {step_ms:.3f} ms at batch {BMGAN_BATCH} bf16 = {1e3 / step_ms:.3f} steps/s = "
+          f"{BMGAN_BATCH * 1e3 / step_ms:.3f} vol/s (CUDA events over {BMGAN_STEPS_TIMED} steps after 2 warm-up, one "
+          f"fixed batch, G + E + D steps, LPIPS alex at weight 8); peak memory {peak:.2f} GiB of 80, no remat; last "
+          f"metrics { {k: round(float(v), 6) for k, v in timed[-1].items()} }; {card}")
+    check(all(np.isfinite(float(v)) for m in timed for v in m.values()), "non-finite bmgan train-step metrics")
+    profile_window(lambda: step_fn(state, batch, g), "bmgan train step")
+    del models, state, timed, batch
+
+    # One step from the same weights, batch and latent in four runs. The fp32 step is too coarse
+    # to pin the function (TOL_BMGAN_F32_GRAD_NORM), so the card's fp64 step is held to the CPU's
+    # fp64 step tensor by tensor at TOL_GRAD_MODEL_REL, each network's fp32 gradient on the card
+    # to the CPU's fp64 one in the 2-norm at its TOL_BMGAN_F32_GRAD_NORM, and, before the fp32
+    # steps, G's forward and D's gradients on one fixed input ([t1; pet]) card against CPU.
+    built = bmgan_task.build_models(dtype=torch.float32, input_shape=BMGAN_PARITY_CROP, device="cpu", seed=4)
+    weights = [random_state_dict(model, seed=40 + i) for i, model in enumerate(built[:3])] + [built[3].state_dict()]
+    del built
+    small = synthetic_batch(BMGAN_PARITY_CROP, 1, "cpu", seed=14)
+    got, alone = {}, {}
+    with cpu_latents():
+        for run_name, dev, dtype in (("card", "cuda", torch.float32), ("card f64", "cuda", torch.float64),
+                                     ("cpu", "cpu", torch.float32), ("cpu f64", "cpu", torch.float64)):
+            models = bmgan_task.build_models(dtype=dtype, input_shape=BMGAN_PARITY_CROP, device=dev)
+            for model, state_dict in zip(models, weights):
+                model.load_state_dict(state_dict)
+            if dtype == torch.float32:
+                with torch.no_grad():
+                    z = bmgan_task.sample_latent((1, bmgan.LATENT_DIM), dtype, dev, torch.Generator().manual_seed(5))
+                    fake = models[0](small["t1"].to(dev), z).cpu()
+                logits_fake, logits_real = models[2](torch.cat([small["t1"], small["pet"]]).to(dev)).chunk(2, dim=0)
+                lsgan_discriminator_loss(logits_fake, logits_real).backward()
+                alone[run_name] = (fake, {k: p.grad.cpu() for k, p in models[2].named_parameters()})
+                models[2].zero_grad(set_to_none=True)
+            state = bmgan_task.init_state(*models)
+            t0 = time.perf_counter()
+            metrics = step_fn(state, {k: v.to(dev) for k, v in small.items()}, torch.Generator().manual_seed(5))
+            got[run_name] = ({k: float(v) for k, v in metrics.items()},
+                             {f"{part}.{k}": p.grad.cpu() for part in ("g", "e", "d")
+                              for k, p in getattr(state, part).named_parameters()})
+            print(f"bmgan grads: {run_name} step at {BMGAN_PARITY_CROP} in {time.perf_counter() - t0:.1f} s, "
+                  f"metrics {got[run_name][0]}")
+            del models, state
+    for card_run, cpu_run in (("card", "cpu"), ("card f64", "cpu f64")):
+        for key, want in got[cpu_run][0].items():
+            rel = abs(got[card_run][0][key] - want) / max(abs(want), 1e-12)
+            check(rel <= TOL_STEP_METRIC_REL, f"bmgan {card_run} step {key} vs CPU: {rel:.3e} > {TOL_STEP_METRIC_REL:g}")
+    fake_card, fake_cpu = alone["card"][0], alone["cpu"][0]
+    rel = (fake_card - fake_cpu).abs().max().item() / fake_cpu.abs().max().item()
+    print(f"bmgan generator fp32 forward, card vs CPU: {rel:.3e} of max|out| (tol {TOL_MODEL_REL:g})")
+    check(rel <= TOL_MODEL_REL, f"bmgan generator fp32 forward disagrees between card and CPU: {rel:.3e}")
+    compare_grads("bmgan discriminator fp32 on [t1; pet], card vs CPU", alone["card"][1], alone["cpu"][1])
+    ref = got["cpu f64"][1]
+    for part, label in (("g", "generator"), ("e", "encoder"), ("d", "discriminator")):
+        keys = [k for k in ref if k.startswith(part + ".")]
+        compare_grads(f"bmgan {label} fp64, card vs CPU", *({k: got[run][1][k] for k in keys}
+                                                           for run in ("card f64", "cpu f64")))
+        want = torch.cat([ref[k].double().flatten() for k in keys])
+        dist = {run: ((torch.cat([got[run][1][k].double().flatten() for k in keys]) - want).norm() / want.norm()).item()
+                for run in ("card", "cpu")}
+        print(f"grads bmgan {label} fp32: the whole gradient's 2-norm distance to the CPU's fp64 step: card "
+              f"{dist['card']:.3e}, CPU {dist['cpu']:.3e} (tol {TOL_BMGAN_F32_GRAD_NORM[part]:g})")
+        check(dist["card"] <= TOL_BMGAN_F32_GRAD_NORM[part],
+              f"bmgan {label}: the card's fp32 gradient is {dist['card']:.3e} from fp64")
+    return {"step_ms": step_ms, "peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1406,6 +1746,7 @@ def main() -> int:
     from cips_tpu_torch.training import causal_task, unet_synthesis
     from cips_tpu_torch.training.common import CheckpointManager
 
+    started = time.perf_counter()
     phase("1 device")
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1428,6 +1769,7 @@ def main() -> int:
         bwd_err = bwd_kernel_checks(fa)
         flash_at = {"x".join(map(str, TRAIN_ATTN)): flash_timing(fa, TRAIN_ATTN, plain=True),
                     "x".join(map(str, CAUSAL_ATTN)): flash_timing(fa, CAUSAL_ATTN, plain=False),
+                    "x".join(map(str, CLASSIFIER_ATTN)): flash_timing(fa, CLASSIFIER_ATTN, plain=True),
                     # the fp32 kernels, on the train and serving paths under --dtype f32
                     "x".join(map(str, TRAIN_ATTN)) + " f32": flash_timing(fa, TRAIN_ATTN, plain=True,
                                                                           dtype=torch.float32)}
@@ -1674,7 +2016,16 @@ def main() -> int:
         print(f"causal: generator forward {causal_fwd_ms:.3f} ms, train step {causal_step_ms:.3f} ms, at batch "
               f"{SERVING_BATCH} and {CAUSAL_TRAIN_BATCH}, bf16, full volume; {card}")
 
-    phase("11 phase conv")
+        phase("11 classifier")
+        classifier = classifier_phase(fa, tree, eval_csv, pred_dir, tmp, card)
+
+        phase("12 BMGAN")
+        bmgan_run = bmgan_phase(fa, tree, eval_csv, tmp, card)
+        print(f"classifier: forward {classifier['forward_ms']:.3f} ms, train step {classifier['step_ms']:.3f} ms; "
+              f"BMGAN: train step {bmgan_run['step_ms']:.3f} ms, peak {bmgan_run['peak_gib']:.2f} GiB; batch 2, bf16, "
+              f"full volume; {card}")
+
+    phase("13 phase conv")
     with uncounted(fa):
         t0 = time.perf_counter()
         phase_err = phase_conv_checks(pc)
@@ -1685,7 +2036,7 @@ def main() -> int:
         print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
         entry_launches = phase_conv_entry(pc)
 
-    phase("12 summary")
+    phase("14 summary")
     kernels = []
     for name, kind, replaces, launches, err in (
         ("flash_attention_fwd", "fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err),
@@ -1702,6 +2053,9 @@ def main() -> int:
                         # the causal generator's paths (phases 9 and 10), each counted from 0
                         "launches_causal_serving": causal_serving_counts[i],
                         "launches_causal_training": causal_train_counts[i],
+                        # the classifier's paths (phase 11): train_classifier, test_mci on real and synthesized PET
+                        "launches_classifier_training": classifier["training"][i],
+                        "launches_classifier_test": {k: v[i] for k, v in classifier["test"].items()},
                         **flash_at["x".join(map(str, TRAIN_ATTN))][kind],
                         "at": {label: {k: round(t, 6) if isinstance(t, float) else t for k, t in rows[kind].items()}
                                for label, rows in flash_at.items()}})
@@ -1729,6 +2083,7 @@ def main() -> int:
                          for v in variants},
         })
     print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "event_timed": len(EVENT_TIMED)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

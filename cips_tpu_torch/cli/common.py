@@ -59,8 +59,7 @@ def add_common_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--crop_size", type=int, nargs=3, default=[96, 128, 96],
                    help="working volume shape (train_unet.py:111)")
     p.add_argument("--random_crop_size", type=int, nargs=3, default=None,
-                   help="training-time joint random crop of the packed volumes, re-max-normalised "
-                        "(the packed loader only); eval stays center-cropped")
+                   help="training-time joint random crop, re-max-normalised; eval stays center-cropped")
     p.add_argument("--streaming", action="store_true",
                    help="decode NIfTIs on the fly in fp32 instead of packing them to a float16 store")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -85,18 +84,19 @@ def make_loaders(args, need_values) -> tuple:
     ``--eval_packed_dir`` are reused when they hold a store, else the pairs are
     packed there, or into ``{exp_dir}/packed_{train,eval}`` when not given.
     ``--random_crop_size`` crops the training batches. ``--streaming`` decodes
-    the NIfTIs in fp32 as it goes (`StreamingLoader`) instead, without a crop."""
+    the NIfTIs in fp32 as it goes (`StreamingLoader`) instead; its training
+    dataset crops each sample, corners drawn from a generator seeded with
+    ``--seed``."""
 
-    def dataset(info_csv: str) -> PairedVolumeDataset:
+    def dataset(info_csv: str, **crop) -> PairedVolumeDataset:
         return PairedVolumeDataset(
             info_csv, pet_dir=args.PET_dir, t1_dir=args.T1_dir, crop_size=tuple(args.crop_size),
-            need_values=need_values, min_and_max=load_stats(args.min_and_max),
+            need_values=need_values, min_and_max=load_stats(args.min_and_max), **crop,
         )
 
     if args.streaming:
-        if args.random_crop_size is not None:
-            raise NotImplementedError("--random_crop_size with --streaming: the streaming crop is not ported yet")
-        train = StreamingLoader(dataset(args.training_info_csv), args.batch_size, seed=args.seed)
+        train = StreamingLoader(dataset(args.training_info_csv, random_crop_size=args.random_crop_size, seed=args.seed),
+                                args.batch_size, seed=args.seed)
         evaluate = StreamingLoader(dataset(args.eval_info_csv), 1, shuffle=False, drop_last=False)
         return train, evaluate
 

@@ -4,8 +4,9 @@ The JAX CLI's experiment semantics: the covariate set by --pet_kind, the
 {exp_dir}/(un)conditional/{pet_kind} layout, a per-epoch eval with sample
 NIfTI dumps (visual/epoch{e}_{rec,ori,t1}.nii.gz), checkpoints every
 --save_every epochs ranked by the eval loss, and --resume, which restores G,
-D, both optimisers and the step count and begins at the epoch after the last
-one saved. The batches come from the packed float16 store unless
+D, both optimisers, the step count and the perceptual network (when its weight
+is above 0; --perceptual_weights loads the JAX package's LPIPS .npz) and
+begins at the epoch after the last one saved. The batches come from the packed float16 store unless
 ``--streaming`` (`common.make_loaders`). Runs on the card unless ``--device cpu``.
 
   python -m cips_tpu_torch.cli.train_unet --exp_dir /tmp/exp \\
@@ -24,10 +25,9 @@ import torch
 from cips_tpu_torch import default_device
 from cips_tpu_torch.cli import common
 from cips_tpu_torch.data import nifti
+from cips_tpu_torch.models.perceptual import params_from_npz
 from cips_tpu_torch.training import unet_synthesis
 from cips_tpu_torch.training.common import CheckpointManager, MetricWriter, StepTimer
-
-UNPORTED = ("perceptual_weights",)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -45,7 +45,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_steps", type=int, default=0, help="debug: stop after N steps")
     p.add_argument("--profile_dir", default=None, help="write a torch.profiler trace of steps 10-15 there")
     p.add_argument("--perceptual_weights", default=None,
-                   help="LPIPS weights (the flagship's perceptual term is not wired yet: raises)")
+                   help=".npz of converted pretrained LPIPS weights (used when perceptual_weight > 0)")
     p.add_argument("--nan_guard", action="store_true",
                    help="skip both optimiser steps on a non-finite G loss (failure detection)")
     p.add_argument("--exact_d_fake", action="store_true",
@@ -59,9 +59,12 @@ def _to_device(batch, device: torch.device) -> dict:
 
 
 def _checkpoint(state: unet_synthesis.GANState, epoch: int) -> dict:
-    return {"unet": state.g.state_dict(), "discriminator": state.d.state_dict(),
-            "optimizer_g": state.opt_g.state_dict(), "optimizer_d": state.opt_d.state_dict(),
-            "step": state.step, "epoch": epoch}
+    payload = {"unet": state.g.state_dict(), "discriminator": state.d.state_dict(),
+               "optimizer_g": state.opt_g.state_dict(), "optimizer_d": state.opt_d.state_dict(),
+               "step": state.step, "epoch": epoch}
+    if state.perceptual is not None:
+        payload["perceptual"] = state.perceptual.state_dict()
+    return payload
 
 
 def _profiler(device: torch.device):
@@ -75,21 +78,20 @@ def _profiler(device: torch.device):
 
 def main(argv=None) -> unet_synthesis.GANState:
     args = build_argparser().parse_args(argv)
-    given = [f"--{name}" for name in UNPORTED if getattr(args, name) is not None]
     if args.n_space != 1:
-        given.append("--n_space")
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: not ported yet")
+        raise NotImplementedError("--n_space: not ported yet")
     device = default_device(args.device)
     cfg = common.load_config(args.config, "training.json")
     train_cfg = cfg["training"]
     need_values = common.covariates_for(args.pet_kind, args.use_condition)
     dirs = common.experiment_dirs(args.exp_dir, args.use_condition, args.pet_kind)
 
-    generator, discriminator, _ = unet_synthesis.build_models(
+    generator, discriminator, perceptual = unet_synthesis.build_models(
         cfg, n_covariates=len(need_values), dtype=common.dtype_arg(args.dtype), device=device, seed=args.seed
     )
-    state = unet_synthesis.init_state(generator, discriminator, train_cfg)
+    state = unet_synthesis.init_state(generator, discriminator, train_cfg, perceptual)
+    if args.perceptual_weights and state.perceptual is not None:
+        state.perceptual.load_state_dict(params_from_npz(args.perceptual_weights))
     ckpt = CheckpointManager(dirs["ckpt"])
     begin_epoch = 0
     if args.resume and ckpt.latest_epoch() is not None:
@@ -98,6 +100,8 @@ def main(argv=None) -> unet_synthesis.GANState:
         state.d.load_state_dict(payload["discriminator"])
         state.opt_g.load_state_dict(payload["optimizer_g"])
         state.opt_d.load_state_dict(payload["optimizer_d"])
+        if state.perceptual is not None:
+            state.perceptual.load_state_dict(payload["perceptual"])
         state.step = payload["step"]
         begin_epoch = ckpt.latest_epoch() + 1
 

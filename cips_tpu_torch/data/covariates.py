@@ -1,5 +1,5 @@
 """Tabular covariates: encoding and min-max normalisation (the port's copy of
-the parts of cips_tpu/data/covariates.py that inference needs).
+the parts of cips_tpu/data/covariates.py that the port's datasets need).
 
 Covariate sets per tracer (reference `unet/scripts/train_unet.py:64`):
   AV1451 -> TAU, PTAU, Age, Sex, APOE4, PTEDUCAT
@@ -63,8 +63,10 @@ def covariate_vector(
     row: PairRow,
     keys: Sequence[str],
     min_and_max: Mapping[str, Tuple[float, float]],
+    invert_abeta: bool = False,
 ) -> np.ndarray:
-    """Encode + min-max normalise a row's covariates."""
+    """Encode + min-max normalise a row's covariates. ``invert_abeta``: the
+    classifier's datasets flip ABETA after normalisation, ``v = 1 - v``."""
     vec = []
     for k in keys:
         v = encode_value(k, row.values.get(k, ""))
@@ -73,5 +75,7 @@ def covariate_vector(
         if k in min_and_max:
             lo, hi = min_and_max[k]
             v = (v - lo) / (hi - lo)
+        if invert_abeta and k == "ABETA":
+            v = 1.0 - v
         vec.append(v)
     return np.asarray(vec, dtype=np.float32)

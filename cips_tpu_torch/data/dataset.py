@@ -1,19 +1,25 @@
 """Paired T1/PET volume dataset, the packed-array store and the two batch
-loaders (port of the NIfTI-backed dataset, `pack_pairs`, `PackedDataset`,
-`BatchLoader` and `StreamingLoader` in cips_tpu/data/dataset.py).
+loaders, and the MCI classifier's dataset, store and loader (port of the
+NIfTI-backed datasets, `pack_pairs`, `PackedDataset`, `BatchLoader`,
+`StreamingLoader`, `MCIClassificationDataset`, `pack_mci`, `PackedMCIDataset`
+and `MCIBatchLoader` in cips_tpu/data/dataset.py).
 
 The trainers' default path decodes every pair once: `pack_pairs` writes a
 memory-mapped float16 store (N, 2, D, H, W) and `BatchLoader` serves shuffled
 batches from it, so training sees the fp16-rounded volumes, as the JAX
 package's does. The store's files are the JAX package's, so a store packed by
-either package loads in the other. `StreamingLoader` (``--streaming``) decodes
-the NIfTIs as it goes. Decoding is the pure-numpy NIfTI reader; the JAX
-package's C++ decode runtime and its prefetch pool are not ported yet, and
-there is no fallback between the two.
+either package loads in the other (the classifier's `pack_mci` store too).
+`StreamingLoader` (``--streaming``) decodes the NIfTIs as it goes. Decoding is
+the pure-numpy NIfTI reader; the JAX package's C++ decode runtime and its
+prefetch pool are not ported yet, and there is no fallback between the two:
+the port's streaming path is the JAX package's synchronous one, random crop
+included (JAX's native prefetch pool decodes at ``crop_size`` and skips the
+crop).
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 from dataclasses import dataclass
@@ -56,6 +62,12 @@ def _first_file(folder: str) -> Optional[str]:
     return None
 
 
+def _load(path: str, crop_size: Sequence[int], normalize: bool = True) -> np.ndarray:
+    """Decode, pad/center-crop to ``crop_size`` and (``normalize``) max-normalise."""
+    vol = pad_crop_np(nifti.read_array(path).astype(np.float32), crop_size)
+    return max_normalize_np(vol) if normalize else vol
+
+
 @dataclass
 class Sample:
     t1: np.ndarray  # (D, H, W) float32, max-normalised
@@ -71,7 +83,10 @@ class PairedVolumeDataset:
 
     Scans {dir}/{Subject}/{date}/ and takes the first file of each; skips
     rows whose directories are missing. Volumes are padded/center-cropped to
-    ``crop_size`` and max-normalised.
+    ``crop_size`` and max-normalised. With ``random_crop_size``, the training
+    augmentation (RandSpatialCrop, random centre): T1 and PET are cut at one
+    corner drawn per axis from ``np.random.default_rng(seed)``, in the order
+    the samples are read, then each is max-normalised.
     """
 
     def __init__(
@@ -83,10 +98,14 @@ class PairedVolumeDataset:
         need_values: Sequence[str] = (),
         min_and_max: Optional[Mapping[str, Tuple[float, float]]] = None,
         resize_size: Optional[Sequence[int]] = None,
+        random_crop_size: Optional[Sequence[int]] = None,
+        seed: int = 0,
     ):
         if resize_size:
             raise NotImplementedError("resize_size needs ops/resample.py, which is not ported yet")
         self.crop_size = tuple(crop_size)
+        self.random_crop_size = tuple(random_crop_size) if random_crop_size else None
+        self._crop_rng = np.random.default_rng(seed)
         self.need_values = list(need_values)
         self.min_and_max = dict(min_and_max or {})
         self.rows: List[PairRow] = []
@@ -102,17 +121,18 @@ class PairedVolumeDataset:
     def __len__(self) -> int:
         return len(self.rows)
 
-    def _load(self, path: str) -> np.ndarray:
-        return max_normalize_np(pad_crop_np(nifti.read_array(path).astype(np.float32), self.crop_size))
-
     def __getitem__(self, index: int) -> Sample:
         row = self.rows[index]
-        t1_path, pet_path = self.paths[index]
+        t1, pet = (_load(path, self.crop_size, normalize=self.random_crop_size is None) for path in self.paths[index])
+        if self.random_crop_size is not None:
+            corner = [int(self._crop_rng.integers(0, c - r + 1)) for c, r in zip(t1.shape, self.random_crop_size)]
+            window = tuple(slice(o, o + r) for o, r in zip(corner, self.random_crop_size))
+            t1, pet = (max_normalize_np(np.ascontiguousarray(v[window])) for v in (t1, pet))
         if self.need_values:
             info = covariate_vector(row, self.need_values, self.min_and_max)
         else:
             info = np.zeros((0,), np.float32)
-        return Sample(self._load(t1_path), self._load(pet_path), info, row.subject, row.t1_date, row.pet_date)
+        return Sample(t1, pet, info, row.subject, row.t1_date, row.pet_date)
 
 
 class StreamingLoader:
@@ -265,4 +285,162 @@ class BatchLoader:
 
     def steps_per_epoch(self) -> int:
         n = len(self.packed) // self.process_count
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+
+class MCIClassificationDataset:
+    """PET and/or T1 channels, covariates and the binary MCI_converter label of
+    each session (the reference's pair_MRI_dataset_only_mci contract).
+
+    Sessions of subjects missing from ``converter_csv`` are dropped, and so are
+    a converter's scans on or after its conversion date. ``pet_name``
+    ("rec.nii.gz") reads synthesized PET instead of the first file of each PET
+    folder. ABETA is inverted after its min-max normalisation. Each sample is
+    (imgs (D, H, W, C) channels-last float32, PET first; info (K,); label;
+    subject; pet_date; t1_date).
+    """
+
+    def __init__(
+        self,
+        info_csv: str,
+        converter_csv: str,
+        pet_dir: str,
+        t1_dir: str,
+        crop_size: Sequence[int] = CROP_SIZE,
+        need_values: Sequence[str] = (),
+        min_and_max: Optional[Mapping[str, Tuple[float, float]]] = None,
+        use_pet: bool = True,
+        use_t1: bool = True,
+        pet_name: Optional[str] = None,
+    ):
+        self.crop_size = tuple(crop_size)
+        self.need_values = list(need_values)
+        self.min_and_max = dict(min_and_max or {})
+        self.use_pet = use_pet
+        self.use_t1 = use_t1
+        self.pet_name = pet_name
+        with open(converter_csv, newline="", encoding="utf-8") as f:
+            reader = csv.DictReader(f)
+            key = reader.fieldnames[0]
+            converters = {rec[key]: rec for rec in reader}
+        self.rows: List[PairRow] = []
+        self.paths: List[Tuple[Optional[str], Optional[str]]] = []
+        self.labels: List[int] = []
+        for row in read_manifest(info_csv):
+            conv = converters.get(row.subject)
+            if conv is None:
+                continue
+            label = int(float(conv.get("MCI_converter", 0) or 0))
+            if label == 1 and row.pet_date >= conv.get("Converter_date", "9999"):
+                continue  # a converter's scans from its conversion on
+            pet_folder = os.path.join(pet_dir, row.subject, row.pet_date)
+            pet_path = os.path.join(pet_folder, pet_name) if pet_name else _first_file(pet_folder)
+            t1_path = _first_file(os.path.join(t1_dir, row.subject, row.t1_date))
+            if use_pet and (pet_path is None or not os.path.isfile(pet_path)):
+                continue
+            if use_t1 and t1_path is None:
+                continue
+            self.rows.append(row)
+            self.paths.append((pet_path, t1_path))
+            self.labels.append(label)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, index: int):
+        row = self.rows[index]
+        pet_path, t1_path = self.paths[index]
+        channels = [_load(path, self.crop_size) for path, used in ((pet_path, self.use_pet), (t1_path, self.use_t1))
+                    if used]
+        if self.need_values:
+            info = covariate_vector(row, self.need_values, self.min_and_max, invert_abeta=True)
+        else:
+            info = np.zeros((0,), np.float32)
+        return np.stack(channels, axis=-1), info, self.labels[index], row.subject, row.pet_date, row.t1_date
+
+
+def pack_mci(dataset: MCIClassificationDataset, out_dir: str, dtype=np.float16) -> str:
+    """Decode and preprocess every classification session once into memory-mapped
+    arrays: volumes.npy (N, D, H, W, C) in ``dtype``, covariates.npy (N, K)
+    float32, labels.npy (N,) int32 and index.json (the covariate names, the
+    rows, and ``pet_source``, "fake" for synthesized PET else "real", so that a
+    run never evaluates a store of the other kind). Returns ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(dataset)
+    c = int(dataset.use_pet) + int(dataset.use_t1)
+    k = len(dataset.need_values)
+    vols = np.lib.format.open_memmap(
+        os.path.join(out_dir, "volumes.npy"), mode="w+", dtype=dtype, shape=(n, *dataset.crop_size, c)
+    )
+    covs = np.zeros((n, k), np.float32)
+    labels = np.zeros((n,), np.int32)
+    index = []
+    for i in range(n):
+        imgs, info, label, subject, pet_date, t1_date = dataset[i]
+        vols[i] = imgs.astype(dtype)
+        if k:
+            covs[i] = info
+        labels[i] = label
+        index.append({"subject": subject, "pet_date": pet_date, "t1_date": t1_date})
+    vols.flush()
+    np.save(os.path.join(out_dir, "covariates.npy"), covs)
+    np.save(os.path.join(out_dir, "labels.npy"), labels)
+    with open(os.path.join(out_dir, "index.json"), "w", encoding="utf-8") as f:
+        json.dump({"need_values": dataset.need_values, "pet_source": "fake" if dataset.pet_name else "real",
+                   "rows": index}, f)
+    return out_dir
+
+
+class PackedMCIDataset:
+    """The memory-mapped sessions that `pack_mci` wrote; ``pet_source`` is None
+    for a store written before the field existed."""
+
+    def __init__(self, path: str):
+        self.volumes = np.load(os.path.join(path, "volumes.npy"), mmap_mode="r")
+        self.covariates = np.load(os.path.join(path, "covariates.npy"))
+        self.labels = np.load(os.path.join(path, "labels.npy"))
+        with open(os.path.join(path, "index.json"), encoding="utf-8") as f:
+            meta = json.load(f)
+        self.need_values = meta["need_values"]
+        self.pet_source = meta.get("pet_source")
+        self.index = meta["rows"]
+
+    def __len__(self) -> int:
+        return self.volumes.shape[0]
+
+
+class MCIBatchLoader:
+    """Shuffled epoch iterator over a `PackedMCIDataset` in the JAX package's order
+    (as `BatchLoader`, one host). Yields numpy batches
+    {"imgs": (B, D, H, W, C) float32, "info": (B, 1, K), "labels": (B,) int32}."""
+
+    def __init__(
+        self,
+        packed: PackedMCIDataset,
+        batch_size: int,
+        *,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        seed: int = 0,
+    ):
+        self.packed = packed
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.packed))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        num_batches = len(order) // self.batch_size
+        if not self.drop_last and len(order) % self.batch_size:
+            num_batches += 1
+        for b in range(num_batches):
+            idx = np.sort(order[b * self.batch_size : (b + 1) * self.batch_size])
+            yield {"imgs": self.packed.volumes[idx].astype(np.float32), "info": self.packed.covariates[idx][:, None, :],
+                   "labels": self.packed.labels[idx]}
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.packed)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)

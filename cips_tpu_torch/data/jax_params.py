@@ -10,7 +10,13 @@ spatial head, which that importer does not read, keeps its flax names
 ``out_norm`` and ``conv_out``), `vae_decoder_from_jax_params` inverts
 `import_vae_decoder` and `diffusion_decoder_from_jax_params` inverts
 `import_diffusion_decoder`. `perceptual_from_jax_params` maps the LPIPS
-network's tree, whose names the port keeps. Nothing here imports JAX.
+network's tree, whose names the port keeps. BMGAN's:
+`bmgan_generator_from_jax_params` and `bmgan_encoder_from_jax_params` invert
+`import_bmgan_generator` and `import_bmgan_encoder` (whose instance norms are
+affine-free: the port keeps the JAX norms' scale and bias under names of its
+own, so only identity norms survive the trip through those importers), and
+`bmgan_discriminator_from_jax_params` maps its PatchDiscriminator under
+``patch_d``. Nothing here imports JAX.
 
   flax                                      torch
   ----------------------------------------  ------------------------------------------
@@ -225,4 +231,115 @@ def perceptual_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torc
             state[".".join(module + ["weight"])] = _conv_kernel(arr)
         else:
             state[".".join(path)] = arr
+    return _tensors(state)
+
+
+def _transposed_kernel(arr: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose(k4, s2, 'SAME') kernel (*k, in, out) -> torch
+    ConvTranspose(k4, s2, p1) weight (in, out, *k): the same map with the
+    spatial axes flipped (the inverse of torch_import's ``transposed`` mapping)."""
+    nd = arr.ndim - 2
+    w = arr.transpose((nd, nd + 1) + tuple(range(nd)))
+    return np.ascontiguousarray(w[(slice(None), slice(None)) + (slice(None, None, -1),) * nd])
+
+
+def _bmgan_leaves(state: Dict[str, np.ndarray], prefix: str, leaves: Mapping[str, Any], transposed=False) -> None:
+    """One flax module's leaves into ``state`` under the torch module ``prefix``:
+    a conv (kernel, bias), a norm (scale, bias) or a PReLU slope (as given)."""
+    for leaf, arr in leaves.items():
+        arr = np.asarray(arr)
+        if leaf == "kernel":
+            state[f"{prefix}.weight"] = _transposed_kernel(arr) if transposed else _conv_kernel(arr)
+        else:
+            state[f"{prefix}.{'weight' if leaf == 'scale' else leaf}"] = arr
+
+
+def _bmgan_dense_block(state: Dict[str, np.ndarray], prefix: str, tree: Mapping[str, Any]) -> None:
+    """A flax dense block (unit_j, fuse_j, norm_j) onto the reference slots
+    {prefix}.{4j}.layers0 (the unit), {4j+1} (fuse conv) and {4j+2} (norm)."""
+    for j in range(2):
+        unit = f"{prefix}.{4 * j}.layers0"
+        _bmgan_leaves(state, f"{unit}.conv.unit0.conv", tree[f"unit_{j}"]["conv"])
+        _bmgan_leaves(state, f"{unit}.conv.unit0.adn.N", tree[f"unit_{j}"]["norm"])
+        if "skip" in tree[f"unit_{j}"]:
+            _bmgan_leaves(state, f"{unit}.residual", tree[f"unit_{j}"]["skip"])
+        _bmgan_leaves(state, f"{prefix}.{4 * j + 1}", tree[f"fuse_{j}"])
+        _bmgan_leaves(state, f"{prefix}.{4 * j + 2}", tree[f"norm_{j}"])
+
+
+def bmgan_generator_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax DenseUNetGenerator params (packed or not: one tree) -> the port's
+    ``state_dict``: stem_0/1/down and their norms -> input_layer.{0,1,3,4,6,7};
+    down_dense_I and down_conv_I / down_norm_I -> down_layers.I.{0-7} and .{8,9};
+    middle -> middle_layers; up_dense_I, up_tconv_I (flipped), up_norm_I ->
+    up_layers.I.{0-7}, .8, .9; head_0/1/out and their norms -> output_layer.{0,1,3,4,6}."""
+    tree = flax_params.get("params", flax_params)
+    state: Dict[str, np.ndarray] = {}
+    for name, slot in (("stem_0", 0), ("stem_norm_0", 1), ("stem_1", 3), ("stem_norm_1", 4), ("stem_down", 6),
+                       ("stem_down_norm", 7)):
+        _bmgan_leaves(state, f"input_layer.{slot}", tree[name])
+    i = 0
+    while f"down_dense_{i}" in tree:
+        _bmgan_dense_block(state, f"down_layers.{i}", tree[f"down_dense_{i}"])
+        _bmgan_leaves(state, f"down_layers.{i}.8", tree[f"down_conv_{i}"])
+        _bmgan_leaves(state, f"down_layers.{i}.9", tree[f"down_norm_{i}"])
+        i += 1
+    _bmgan_dense_block(state, "middle_layers", tree["middle"])
+    i = 0
+    while f"up_dense_{i}" in tree:
+        _bmgan_dense_block(state, f"up_layers.{i}", tree[f"up_dense_{i}"])
+        _bmgan_leaves(state, f"up_layers.{i}.8", tree[f"up_tconv_{i}"], transposed=True)
+        _bmgan_leaves(state, f"up_layers.{i}.9", tree[f"up_norm_{i}"])
+        i += 1
+    for name, slot in (("head_0", 0), ("head_norm_0", 1), ("head_1", 3), ("head_norm_1", 4), ("head_out", 6)):
+        _bmgan_leaves(state, f"output_layer.{slot}", tree[name])
+    return _tensors(state)
+
+
+def bmgan_encoder_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ResNetEncoder params (packed or not: one tree) -> the port's
+    ``state_dict``: stem / stem_norm -> input_layer.{0,1}; res_I's conv, norm,
+    prelu_0, conv_1, norm_1, prelu_1 and skip -> resblocks.I.conv.unit{0,1}.{conv,
+    adn.N, adn.A} and resblocks.I.residual; mu and log_var -> linear1 and linear2,
+    their rows taken from flax's channels-last flatten (S, C) to the reference's (C, S)."""
+    tree = flax_params.get("params", flax_params)
+    state: Dict[str, np.ndarray] = {}
+    _bmgan_leaves(state, "input_layer.0", tree["stem"])
+    _bmgan_leaves(state, "input_layer.1", tree["stem_norm"])
+    i = 0
+    while f"res_{i}" in tree:
+        res, pre = tree[f"res_{i}"], f"resblocks.{i}"
+        for sub, (conv, norm, slope) in enumerate((("conv", "norm", "prelu_0"), ("conv_1", "norm_1", "prelu_1"))):
+            _bmgan_leaves(state, f"{pre}.conv.unit{sub}.conv", res[conv])
+            _bmgan_leaves(state, f"{pre}.conv.unit{sub}.adn.N", res[norm])
+            state[f"{pre}.conv.unit{sub}.adn.A.weight"] = np.asarray(res[slope]).reshape(1)
+        if "skip" in res:
+            _bmgan_leaves(state, f"{pre}.residual", res["skip"])
+        last = np.shape(res["conv_1"]["kernel"])[-1]
+        i += 1
+    for flax_name, torch_name in (("mu", "linear1"), ("log_var", "linear2")):
+        w = np.asarray(tree[flax_name]["kernel"]).T  # (latent, S * C), channels-last order
+        state[f"{torch_name}.weight"] = w.reshape(w.shape[0], -1, last).transpose(0, 2, 1).reshape(w.shape[0], -1)
+        state[f"{torch_name}.bias"] = tree[flax_name]["bias"]
+    return _tensors(state)
+
+
+def bmgan_discriminator_from_jax_params(
+    flax_params: Mapping[str, Any], num_layers_d: int = 4
+) -> Dict[str, torch.Tensor]:
+    """flax BMGANDiscriminator params -> the port's ``state_dict``: its
+    PatchDiscriminator subtree ``patch_d`` under ``patch_d.``."""
+    tree = flax_params.get("params", flax_params)
+    return {f"patch_d.{k}": v for k, v in discriminator_from_jax_params(tree["patch_d"], num_layers_d).items()}
+
+
+def unet3d_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax UnetGenerator3d params -> the port's ``state_dict``, whose names are
+    the flax paths joined by dots: conv kernels -> ``weight``, norm ``scale`` -> ``weight``."""
+    tree = flax_params.get("params", flax_params)
+    state = {}
+    for path, arr in _flatten(tree).items():
+        *module, leaf = path
+        state[".".join(module + ["weight" if leaf in ("kernel", "scale") else leaf])] = (
+            _conv_kernel(arr) if leaf == "kernel" else arr)
     return _tensors(state)

@@ -55,7 +55,7 @@ class GroupNorm(nn.GroupNorm):
 
     The per-(sample, channel) scale and offset are formed in fp32 and rounded
     to the activation dtype before the one multiply-add, as the JAX package's
-    GroupNorm does.
+    GroupNorm does. An fp64 input (a reference run) keeps fp64 statistics.
     """
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
@@ -64,13 +64,14 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c = x.shape[:2]
         g = self.num_groups
-        x32 = x.float().reshape(n, g, -1)
+        stats = torch.promote_types(x.dtype, torch.float32)
+        x32 = x.to(stats).reshape(n, g, -1)
         mean = x32.mean(dim=-1)
         meansq = (x32 * x32).mean(dim=-1)
         inv = torch.rsqrt((meansq - mean * mean).clamp_min(0.0) + self.eps)  # (N, G)
-        w = self.weight.float().reshape(1, g, c // g)
+        w = self.weight.to(stats).reshape(1, g, c // g)
         scale = (inv[:, :, None] * w).reshape(n, c)
-        offset = (self.bias.float().reshape(1, g, c // g) - (mean * inv)[:, :, None] * w).reshape(n, c)
+        offset = (self.bias.to(stats).reshape(1, g, c // g) - (mean * inv)[:, :, None] * w).reshape(n, c)
         shape = (n, c) + (1,) * (x.ndim - 2)
         return x * scale.reshape(shape).to(x.dtype) + offset.reshape(shape).to(x.dtype)
 

@@ -27,14 +27,12 @@ devices that do not change the result, and are not ported.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from cips_tpu_torch import default_device
 from cips_tpu_torch.losses import kl_divergence, l1_loss, lsgan_discriminator_loss, patch_adversarial_loss
 from cips_tpu_torch.models import perceptual as lpips
 from cips_tpu_torch.models.atten_unet import init_params
@@ -42,7 +40,7 @@ from cips_tpu_torch.models.autoencoder_kl import Decoder
 from cips_tpu_torch.models.decoder import DiffusionModelDecoder
 from cips_tpu_torch.models.discriminator import PatchDiscriminator
 from cips_tpu_torch.models.encoder import DiffusionModelEncoder
-from cips_tpu_torch.training.common import adam, guard_nonfinite
+from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
 
 GENERATOR_PARTS = ("encoder", "t1_decoder", "pet_decoder")
 
@@ -84,12 +82,7 @@ def build_models(
             PatchDiscriminator(dtype=dtype, **model_cfg.get("discriminator", {})),
             lpips.PerceptualLoss(dtype=dtype, **model_cfg.get("perceptual_network", {})),
         )
-    rng = torch.Generator().manual_seed(seed)
-    device = default_device(device)
-    for model in models:
-        model.to_empty(device="cpu")
-        (lpips.init_params if isinstance(model, lpips.PerceptualLoss) else init_params)(model, rng)
-    return tuple(model.to(device) for model in models)
+    return init_models(models, init_params, device, seed)
 
 
 def init_state(
@@ -130,16 +123,6 @@ def _noise_like(z: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return sample_noise(z.shape, z.dtype, z.device, generator)
 
 
-@contextlib.contextmanager
-def _frozen(model: nn.Module):
-    """The model's parameters take no gradient inside the block."""
-    model.requires_grad_(False)
-    try:
-        yield
-    finally:
-        model.requires_grad_(True)
-
-
 def make_train_step(
     train_cfg: Mapping[str, Any], exact_d_fake: Optional[bool] = None, nan_guard: bool = False
 ) -> Callable[[CausalState, Mapping[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]:
@@ -162,7 +145,7 @@ def make_train_step(
         gen = state.gen
 
         state.opt_g.zero_grad(set_to_none=True)
-        with _frozen(state.d):
+        with frozen(state.d):
             z_mu, z_sigma = _encode(gen, t1)
             eps_t1 = _noise_like(z_sigma, generator)
             t1_rec = gen["t1_decoder"](z_mu + eps_t1 * z_sigma)

@@ -6,9 +6,12 @@ Checkpoints keep the JAX package's directory contract: ``{ckpt_dir}/epoch_{n}``,
 ``best_epoch`` and ``best_metric``. Each checkpoint is one ``torch.save``
 file of a dict in the reference's layout, extended for resuming:
 ``{"unet", "discriminator", "optimizer_g", "optimizer_d", "step", "epoch"}``
-(state dicts; a serving checkpoint may hold ``unet`` alone); the causal
-generator's holds ``encoder``, ``t1_decoder``, ``pet_decoder`` and
-``perceptual`` in place of ``unet``. Orbax
+(state dicts; a serving checkpoint may hold ``unet`` alone; ``perceptual``
+when the flagship trains with LPIPS); the causal generator's holds
+``encoder``, ``t1_decoder``, ``pet_decoder`` and ``perceptual`` in place of
+``unet``; the classifier's ``model`` and ``optimizer``; BMGAN's
+``generator``, ``encoder``, ``discriminator``, ``perceptual`` and an
+``optimizer_{g,e,d}`` each. Orbax
 checkpoints of the JAX package are not read.
 
 Metrics are written as ``metrics.jsonl`` records in the JAX package's format;
@@ -17,18 +20,50 @@ there is no TensorBoard writer.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Any, Dict, Iterable, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Sequence, Union
 
 import torch
+from torch import nn
+
+from cips_tpu_torch import default_device
+from cips_tpu_torch.models import perceptual as lpips
 
 
 def adam(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.Adam:
     """Adam with betas (0.9, 0.999) and eps 1e-8, the reference's torch defaults.
     Its update m_hat / (sqrt(v_hat) + eps) is optax.adam's."""
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def init_models(
+    models: Sequence[nn.Module],
+    init_params: Callable[[nn.Module, torch.Generator], None],
+    device: Optional[Union[str, torch.device]] = None,
+    seed: int = 0,
+) -> tuple:
+    """Materialise meta-built models on the CPU, draw their weights in order from
+    one generator seeded with ``seed`` (``init_params``, or `lpips.init_params`
+    for the perceptual network), and move them to ``device``."""
+    rng = torch.Generator().manual_seed(seed)
+    device = default_device(device)
+    for model in models:
+        model.to_empty(device="cpu")
+        (lpips.init_params if isinstance(model, lpips.PerceptualLoss) else init_params)(model, rng)
+    return tuple(model.to(device) for model in models)
+
+
+@contextlib.contextmanager
+def frozen(model: nn.Module):
+    """The model's parameters take no gradient inside the block."""
+    model.requires_grad_(False)
+    try:
+        yield
+    finally:
+        model.requires_grad_(True)
 
 
 def strip_ddp_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
@@ -82,7 +117,8 @@ class CheckpointManager:
                 raise FileNotFoundError(f"no checkpoints in {self.ckpt_dir}")
             path = os.path.join(self.ckpt_dir, f"epoch_{epoch}")
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        for key in ("unet", "discriminator", "encoder", "t1_decoder", "pet_decoder", "perceptual"):
+        for key in ("unet", "discriminator", "encoder", "t1_decoder", "pet_decoder", "perceptual", "model",
+                    "generator"):
             if key in payload:
                 payload[key] = strip_ddp_prefix(payload[key])
         return payload

@@ -1,7 +1,9 @@
 """Conditional AttenUNet T1->PET synthesis, the flagship workload (port of
 cips_tpu/training/unet_synthesis.py).
 
-  * G loss = L1 + adv_weight * LSGAN, computed with the pre-update D;
+  * G loss = L1 + perceptual_weight * LPIPS + adv_weight * LSGAN, computed
+    with the pre-update D and the frozen perceptual network (built only when
+    its weight is above 0);
   * D loss = 0.5 * (MSE(fake -> 0) + MSE(real -> 1)) on cat([fake, pet]), or
     in two passes with ``split_d`` (the same math: PatchGAN is per-sample);
   * the JAX package's two gradient computations become the reference's
@@ -13,37 +15,37 @@ cips_tpu/training/unet_synthesis.py).
   * the condition is the covariate row as (B, 1, K), or zeros when unconditional.
 
 The train step updates G, D and their Adam optimisers in place and returns the
-JAX package's metrics. ``perceptual_weight > 0`` raises: the LPIPS network is
-not ported yet. The JAX package's remat policies and ``d_remat`` are HBM
+JAX package's metrics. The JAX package's remat policies and ``d_remat`` are HBM
 devices that do not change the result; they are not ported.
 """
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-from cips_tpu_torch import default_device
 from cips_tpu_torch.losses import l1_loss, lsgan_discriminator_loss, patch_adversarial_loss
+from cips_tpu_torch.models import perceptual as lpips
 from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.models.discriminator import PatchDiscriminator
-from cips_tpu_torch.training.common import adam, guard_nonfinite
+from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
 
 VOLUME_SHAPE = (96, 128, 96)
 
 
 @dataclass
 class GANState:
-    """The two networks, their Adam optimisers and the count of applied steps."""
+    """The two networks, their Adam optimisers, the count of applied steps and
+    the frozen perceptual network (None when its weight is 0)."""
 
     g: AttenUNet
     d: PatchDiscriminator
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
     step: int = 0
+    perceptual: Optional[lpips.PerceptualLoss] = None
 
 
 def build_models(
@@ -52,33 +54,44 @@ def build_models(
     dtype: torch.dtype = torch.bfloat16,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
-) -> Tuple[AttenUNet, PatchDiscriminator, None]:
+) -> Tuple[AttenUNet, PatchDiscriminator, Optional[lpips.PerceptualLoss]]:
     """(generator, discriminator, perceptual) from a reference-schema config dict,
-    with cross_attention_dim := max(number of covariates, 1). Weights are drawn
-    from one generator seeded with ``seed``, G's first. The perceptual network
-    is not ported yet and is returned as None."""
+    with cross_attention_dim := max(number of covariates, 1). The perceptual
+    network (``perceptual_network``: LPIPS squeeze in the bundled config) is
+    built only when ``training.perceptual_weight`` is above 0, else None.
+    Weights are drawn from one generator seeded with ``seed``: G's, D's, then
+    the perceptual network's fallback (load real LPIPS weights with
+    `lpips.params_from_npz`)."""
     unet_def = dict(model_cfg["atten_unet_def"])
     unet_def["cross_attention_dim"] = max(n_covariates, 1)
     unet_def["with_conditioning"] = True
+    with_perceptual = float(model_cfg.get("training", {}).get("perceptual_weight", 0.0)) > 0
     with torch.device("meta"):
-        generator = AttenUNet(dtype=dtype, **unet_def)
-        discriminator = PatchDiscriminator(dtype=dtype, **model_cfg.get("discriminator", {}))
-    rng = torch.Generator().manual_seed(seed)
-    device = default_device(device)
-    for model in (generator, discriminator):
-        model.to_empty(device="cpu")
-        init_params(model, rng)
-    return generator.to(device), discriminator.to(device), None
+        models = [AttenUNet(dtype=dtype, **unet_def),
+                  PatchDiscriminator(dtype=dtype, **model_cfg.get("discriminator", {}))]
+        if with_perceptual:
+            models.append(lpips.PerceptualLoss(dtype=dtype, **model_cfg.get("perceptual_network", {})))
+    generator, discriminator, *perceptual = init_models(models, init_params, device, seed)
+    return generator, discriminator, (perceptual[0] if perceptual else None)
 
 
 def init_state(
-    generator: AttenUNet, discriminator: PatchDiscriminator, train_cfg: Mapping[str, Any]
+    generator: AttenUNet,
+    discriminator: PatchDiscriminator,
+    train_cfg: Mapping[str, Any],
+    perceptual: Optional[lpips.PerceptualLoss] = None,
 ) -> GANState:
+    """The state; ``perceptual`` is kept only when ``perceptual_weight`` is above 0,
+    and is then required (a ValueError without it)."""
+    with_perceptual = _weights(train_cfg)[0] > 0
+    if with_perceptual and perceptual is None:
+        raise ValueError("perceptual_weight is above 0 but no perceptual network was given")
     return GANState(
         g=generator,
         d=discriminator,
         opt_g=adam(generator.parameters(), train_cfg.get("base_lr", 5e-4)),
         opt_d=adam(discriminator.parameters(), train_cfg.get("disc_lr", 1e-4)),
+        perceptual=perceptual if with_perceptual else None,
     )
 
 
@@ -89,21 +102,16 @@ def _condition(batch: Mapping[str, torch.Tensor], use_condition: bool) -> torch.
     return info if use_condition else torch.zeros_like(info)
 
 
-def _weights(train_cfg: Mapping[str, Any]) -> float:
-    """adv_weight; raises for a perceptual weight, whose network is not ported."""
-    if float(train_cfg.get("perceptual_weight", 0.0)) > 0:
-        raise NotImplementedError("perceptual_weight > 0 needs the LPIPS network, which is not ported yet")
-    return float(train_cfg.get("adv_weight", 0.1))
+def _weights(train_cfg: Mapping[str, Any]) -> Tuple[float, float]:
+    """(perceptual_weight, adv_weight), the JAX package's defaults 0 and 0.1."""
+    return float(train_cfg.get("perceptual_weight", 0.0)), float(train_cfg.get("adv_weight", 0.1))
 
 
-@contextlib.contextmanager
-def _frozen(model: torch.nn.Module):
-    """The model's parameters take no gradient inside the block."""
-    model.requires_grad_(False)
-    try:
-        yield
-    finally:
-        model.requires_grad_(True)
+def _perceptual(state: GANState, pw: float, fake: torch.Tensor, pet: torch.Tensor) -> torch.Tensor:
+    """The LPIPS term (unweighted), or 0 without a weight."""
+    if pw > 0:
+        return state.perceptual(fake, pet)
+    return torch.zeros((), device=fake.device)
 
 
 def make_train_step(
@@ -114,11 +122,11 @@ def make_train_step(
     nan_guard: bool = False,
 ) -> Callable[[GANState, Mapping[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """One G step then one D step on a batch {"t1", "pet", "info"} of device
-    tensors. Metrics (0-d tensors): g_loss, rec_loss, p_loss, adv_loss and
-    d_loss, the last two times adv_weight. With ``nan_guard``, a non-finite
-    g_loss skips both optimiser steps (the step count stays) and the metrics
-    gain ``skipped_nonfinite``."""
-    aw = _weights(train_cfg)
+    tensors. Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
+    JAX reports it), adv_loss and d_loss, the last two times adv_weight. With
+    ``nan_guard``, a non-finite g_loss skips both optimiser steps (the step
+    count stays) and the metrics gain ``skipped_nonfinite``."""
+    pw, aw = _weights(train_cfg)
     if exact_d_fake is None:
         exact_d_fake = bool(train_cfg.get("exact_d_fake", False))
     if split_d is None:
@@ -130,13 +138,16 @@ def make_train_step(
         zero = torch.zeros((), device=t1.device)
 
         state.opt_g.zero_grad(set_to_none=True)
-        with _frozen(state.d):
+        with frozen(state.d):
             fake = state.g(t1, cond)
             rec = l1_loss(fake, pet)
-            adv = patch_adversarial_loss(state.d(fake)[-1], target_is_real=True, for_discriminator=False) if aw > 0 else zero
-            g_loss = rec + aw * adv
+            p = _perceptual(state, pw, fake, pet)
+            adv = (patch_adversarial_loss(state.d(fake)[-1], target_is_real=True, for_discriminator=False)
+                   if aw > 0 else zero)
+            g_loss = rec + pw * p + aw * adv
             g_loss.backward()
-        metrics = {"g_loss": g_loss.detach(), "rec_loss": rec.detach(), "p_loss": zero, "adv_loss": adv.detach() * aw}
+        metrics = {"g_loss": g_loss.detach(), "rec_loss": rec.detach(), "p_loss": p.detach(),
+                   "adv_loss": adv.detach() * aw}
         if nan_guard:
             ok = guard_nonfinite(g_loss)
             metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
@@ -171,16 +182,17 @@ def make_eval_step(
     train_cfg: Mapping[str, Any], use_condition: bool = True
 ) -> Callable[[GANState, Mapping[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Per-epoch eval losses and the synthesized volume (``fake``); no updates."""
-    aw = _weights(train_cfg)
+    pw, aw = _weights(train_cfg)
 
     def eval_step(state: GANState, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
             fake = state.g(batch["t1"], _condition(batch, use_condition))
             rec = l1_loss(fake, batch["pet"])
+            p = _perceptual(state, pw, fake, batch["pet"])
             adv = (patch_adversarial_loss(state.d(fake)[-1], target_is_real=True, for_discriminator=False)
                    if aw > 0 else torch.zeros((), device=fake.device))
-            return {"rec_loss": rec, "p_loss": torch.zeros_like(rec), "adv_loss": adv * aw,
-                    "g_loss": rec + aw * adv, "fake": fake}
+            return {"rec_loss": rec, "p_loss": p, "adv_loss": adv * aw, "g_loss": rec + pw * p + aw * adv,
+                    "fake": fake}
 
     return eval_step
 

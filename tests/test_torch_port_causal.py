@@ -55,6 +55,20 @@ LATENT = (4, 8, 4, 3)  # z_mu / z_sigma of one sample: the last level keeps its 
 TRAIN_CFG = {**TINY_CAUSAL_CFG["training"], "perceptual_weight": 0.02}
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread for this module: its tensors are tiny, and a full
+    intra-op pool in each of the suite's parallel workers oversubscribes the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _unpacked(cfg):
     cfg = copy.deepcopy(cfg)
     for d in (cfg["t1_autoencoder_def"]["atten_encoder"], cfg["t1_autoencoder_def"]["decoder"], cfg["pet_decoder_def"]):

@@ -45,7 +45,8 @@ def test_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "flash_attention.py", "output_predict.py", "atten_unet.py", "train_unet.py",
             "discriminator.py", "losses.py", "unet_synthesis.py", "s2d.py", "phase_conv.py", "cuda_library.py",
-            "probe_phase_conv.py"} <= names
+            "probe_phase_conv.py", "classifier_task.py", "train_classifier.py", "test_mci.py", "classification.py",
+            "bmgan.py", "bmgan_task.py", "train_bmgan.py", "gen_test_bmgan.py", "unet3d.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -144,8 +144,11 @@ def test_packed_dirs_are_reused_and_streaming_selects_the_streaming_loader(tree,
     train, evaluate = common.make_loaders(_args(tree, tmp_path / "s", "--streaming"), AV45)
     assert isinstance(train, StreamingLoader) and isinstance(evaluate, StreamingLoader)
     assert not (tmp_path / "s").exists()
-    with pytest.raises(NotImplementedError, match="random_crop_size"):
-        common.make_loaders(_args(tree, tmp_path / "s", "--streaming", "--random_crop_size", "8", "8", "8"), AV45)
+    # the streaming crop (tests/test_torch_port_classifier.py holds its batches to JAX's): training only
+    train, evaluate = common.make_loaders(_args(tree, tmp_path / "s", "--streaming", "--random_crop_size", "8", "8",
+                                                "8"), AV45)
+    assert train.dataset.random_crop_size == (8, 8, 8) and evaluate.dataset.random_crop_size is None
+    assert next(iter(train.epoch(0)))["t1"].shape[1:4] == (8, 8, 8)
 
 
 def test_train_unet_takes_the_packed_flags(tree, tmp_path):

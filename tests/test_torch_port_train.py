@@ -52,6 +52,20 @@ TRAIN_CFG = CFG["training"]
 AW = TRAIN_CFG["adv_weight"]
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread for this module: its tensors are tiny, and a full
+    intra-op pool in each of the suite's parallel workers oversubscribes the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _random_tree(shapes, rng):
     """LeCun-scaled kernels, norm scales near 1, small biases, for a flax tree of shapes."""
 
@@ -262,8 +276,15 @@ def test_eval_step_and_unported_weights(models):
         np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-5, atol=1e-7, err_msg=key)
     np.testing.assert_allclose(got["fake"].numpy(), np.asarray(want["fake"]),
                                atol=1e-5 * np.abs(np.asarray(want["fake"])).max(), rtol=0)
-    with pytest.raises(NotImplementedError):
-        unet_synthesis.make_train_step({**TRAIN_CFG, "perceptual_weight": 1.0})
+    # the perceptual term is ported (tests/test_torch_port_classifier.py holds it to JAX):
+    # a perceptual weight builds the LPIPS network and a step that uses it
+    cfg = {**CFG, "perceptual_network": {"spatial_dims": 3}, "training": {**TRAIN_CFG, "perceptual_weight": 1.0}}
+    generator, discriminator, perceptual = unet_synthesis.build_models(cfg, K, dtype=torch.float32, device="cpu")
+    assert perceptual is not None
+    assert callable(unet_synthesis.make_train_step(cfg["training"]))
+    # and a state without the network is refused, not trained without the term
+    with pytest.raises(ValueError, match="perceptual"):
+        unet_synthesis.init_state(generator, discriminator, cfg["training"])
 
 
 AV45 = ["ABETA", "Age", "Sex", "APOE4", "PTEDUCAT"]
@@ -359,9 +380,9 @@ def test_train_cli_needs_cuda_unless_asked_and_refuses_unported_flags(tree, tmp_
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_unet.main(_train_args(tree, str(tmp_path / "a"), "--epochs", "1"))
-    for extra in (["--perceptual_weights", "w.npz"], ["--n_space", "2"]):
-        with pytest.raises(NotImplementedError, match=extra[0]):
-            train_unet.main(_train_args(tree, str(tmp_path / "b"), "--device", "cpu", *extra))
+    # --perceptual_weights is ported (tests/test_torch_port_classifier.py); --n_space is not
+    with pytest.raises(NotImplementedError, match="--n_space"):
+        train_unet.main(_train_args(tree, str(tmp_path / "b"), "--device", "cpu", "--n_space", "2"))
 
 
 def test_train_cli_profile_dir_writes_a_trace_of_steps_10_to_15(tree, tmp_path):

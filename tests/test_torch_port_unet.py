@@ -109,7 +109,7 @@ def test_weight_bridge_round_trips_exactly(jax_model):
 def test_build_models_and_condition():
     cfg = {"atten_unet_def": {k: v for k, v in CFG.items() if k not in ("with_conditioning", "cross_attention_dim")}}
     generator, disc, perceptual = unet_synthesis.build_models(cfg, 0, dtype=torch.float32, device="cpu")
-    assert isinstance(disc, PatchDiscriminator) and perceptual is None  # LPIPS is not ported
+    assert isinstance(disc, PatchDiscriminator) and perceptual is None  # no perceptual weight, no LPIPS network
     assert disc.num_layers_d == 3 and disc.conv_0.conv.weight.shape == (64, 1, 4, 4, 4)  # the JAX defaults
     assert generator.down_blocks[2].attentions[0].transformer_blocks[0].attn2.to_k.weight.shape == (16, 1)
     assert generator.out[2].conv.weight.abs().max() == 0  # zero-initialised output conv
