@@ -93,13 +93,24 @@ Phases (any failure raises and the script exits non-zero):
                 3xTF32 rate with the FMA figure beside it; then the slice's main
                 paths: each subcommand of
                 `cips_tpu_torch.scripts.probe_phase_conv`, its launches counted;
- 14. summary  — a JSON line of kernels, the card line, and the result line.
+ 14. tool-chain — the offline tool-chain's CLIs at ADNI's sizes on a synthetic raw tree (4
+                subjects: T1 (170, 256, 256) at 1.2 x 1.0 x 1.0 mm, AV45 PET (96, 160, 160) at
+                1.5 mm; 2 with oblique headers and a true motion, 2 on identity headers): every
+                `cli.preprocess` subcommand (reg in ncc, and mi on one pair; downsample with N4
+                to 1.5 mm and (96, 128, 96)), each motion recovered, the packed store loaded, a
+                registration 4x coarser on the card against the CPU; `cli.postprocess suvr
+                --conform` into 256^3 on phase 4's real and synthesized PET against the CPU,
+                suvr-error, analyse, summary; `cli.metrics` on phase 4's tree at (192, 224,
+                192), one tree and two, against the CPU; each subcommand's wall time and each
+                registration's. No kernel of this port is on this path;
+ 15. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import csv
 import functools
@@ -165,6 +176,26 @@ BMGAN_BATCH = 2
 BMGAN_EPOCHS = 2
 BMGAN_STEPS_TIMED = 4  # after 2 warm-up steps, on one fixed batch
 BMGAN_PARITY_CROP = (64, 64, 64)
+# The offline tool-chain (phase 14) at ADNI's sizes: a T1 (z, y, x) (170, 256, 256) at 1.2 x 1.0 x
+# 1.0 mm and the AV45 "uniform resolution" PET (96, 160, 160) at 1.5 mm. Subjects 0-1 carry oblique
+# scanner headers and a true rigid motion (the physical path); subjects 2-3 identity headers with
+# their PET on the T1's grid, moved by a small rigid motion (the voxel path). A head-sized phantom
+# (tests/test_registration_geometry.py's, 3x larger), a bias field on the T1, noise inside the head.
+TOOLCHAIN_T1 = (170, 256, 256)
+TOOLCHAIN_T1_MM = (1.0, 1.0, 1.2)  # x, y, z
+TOOLCHAIN_PET = (96, 160, 160)
+TOOLCHAIN_PET_MM = (1.5, 1.5, 1.5)
+# Subject 1's motion is one that 100 Adam steps a level (the defaults) do not reach at 1/4 size, for
+# the JAX package's registration and the port's alike (tests/test_torch_port_registration_physical.py).
+TOOLCHAIN_MOTION = (((6.0, -3.0, 4.0), (5.0, -3.0, 2.0)),  # degrees about x, y, z; mm: the physical path
+                    ((-6.0, -3.0, 4.0), (-5.0, -3.0, 2.0)),
+                    ((3.0, -2.0, 2.0), (2.0, -2.0, 1.5)),  # the voxel path: PET on the T1 grid
+                    ((-2.5, 2.0, -3.0), (-2.5, 1.0, 2.0)))
+TOOLCHAIN_MIN_CORR = 0.93  # tests/test_registration_geometry.py's recovery limit
+TOOLCHAIN_REDUCED = 4  # the card-vs-CPU registration: every grid 4x coarser
+TOOLCHAIN_LR = 0.05  # register_rigid_physical's default; its params are held within one last-level step, lr / 3
+TOL_TOOLCHAIN_REL = 1e-5  # SUVRs and metric JSONs, card vs CPU (a std relative to its mean)
+SEG_SHAPE = (256, 256, 256)  # FastSurfer's conformed space
 # Phase conv shapes, packed (B, Z, Y, X, 8C): the TPU probes' level-0 shape (C = 16), their
 # 32-channel case, and the flagship's own level 0 at batch 2.
 PHASE_SHAPES = ((8, 48, 64, 48, 128), (8, 48, 64, 48, 256), (2, 48, 64, 48, 128))
@@ -1731,6 +1762,342 @@ def bmgan_phase(fa, tree: dict, eval_csv: str, tmp: str, card: str) -> dict:
     return {"step_ms": step_ms, "peak_gib": peak}
 
 
+def head_phantom(zyx_mm: torch.Tensor) -> torch.Tensor:
+    """tests/test_registration_geometry.py's brain-like phantom (an ellipsoid shell, its interior and
+    three blobs) made 3x larger, a head of about 130 x 170 x 145 mm; ``zyx_mm`` is (..., 3) in mm."""
+    z, y, x = (zyx_mm[..., i] / 3.0 for i in range(3))
+    r2 = (z / 22.0) ** 2 + (y / 28.0) ** 2 + (x / 24.0) ** 2
+    val = 0.6 * torch.exp(-torch.clamp_min(r2 - 0.75, 0.0) / 0.05)
+    for (cz, cy, cx), s, a in (((0.0, 8.0, -6.0), 7.0, 0.9), ((5.0, -10.0, 4.0), 5.0, 0.7),
+                               ((-8.0, 2.0, 9.0), 4.0, 1.0)):
+        val = val + a * torch.exp(-((z - cz) ** 2 + (y - cy) ** 2 + (x - cx) ** 2) / (2 * s * s))
+    return (val + 0.8 * torch.exp(-((r2 - 0.75) ** 2) / 0.02)).float()
+
+
+def rot_xyz(degrees) -> np.ndarray:
+    """Rotation about x, then y, then z (degrees), in NIfTI's xyz order."""
+    rx, ry, rz = np.deg2rad(degrees)
+    mx = np.array([[1, 0, 0], [0, np.cos(rx), -np.sin(rx)], [0, np.sin(rx), np.cos(rx)]])
+    my = np.array([[np.cos(ry), 0, np.sin(ry)], [0, 1, 0], [-np.sin(ry), 0, np.cos(ry)]])
+    mz = np.array([[np.cos(rz), -np.sin(rz), 0], [np.sin(rz), np.cos(rz), 0], [0, 0, 1]])
+    return mz @ my @ mx
+
+
+def centered_affine(shape_zyx, spacing_xyz, degrees=(0.0, 0.0, 0.0), shift_mm=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """A voxel -> mm NIfTI affine whose center voxel lands at ``shift_mm``."""
+    a = np.eye(4)
+    a[:3, :3] = rot_xyz(degrees) @ np.diag(spacing_xyz)
+    a[:3, 3] = np.asarray(shift_mm) - a[:3, :3] @ ((np.asarray(shape_zyx[::-1], np.float64) - 1) / 2)
+    return a
+
+
+def sample_head(shape_zyx, affine_xyz, device, motion=np.eye(4)) -> torch.Tensor:
+    """The phantom at every voxel of a (z, y, x) grid: voxel -> mm by ``affine_xyz``, then ``motion``."""
+    m = torch.tensor(motion @ affine_xyz, dtype=torch.float64, device=device)
+    zz, yy, xx = torch.meshgrid(*(torch.arange(s, dtype=torch.float64, device=device) for s in shape_zyx),
+                                indexing="ij")
+    xyz = xx[..., None] * m[:3, 0] + yy[..., None] * m[:3, 1] + zz[..., None] * m[:3, 2] + m[:3, 3]
+    return head_phantom(xyz.flip(-1))
+
+
+def toolchain_case(i: int, device, scale: int = 1, seed: int = 0) -> dict:
+    """Subject ``i`` of the raw tree, every grid ``scale`` times coarser: T1 and PET (numpy, (z, y, x)),
+    their true affines and the ones written in their headers, and the true motion."""
+    g = torch.Generator(device=device).manual_seed(seed + i)
+    t1_shape = tuple(s // scale for s in TOOLCHAIN_T1)
+    degrees, mm = TOOLCHAIN_MOTION[i]
+    motion = np.eye(4)
+    motion[:3, :3], motion[:3, 3] = rot_xyz(degrees), mm
+    if i < 2:  # oblique scanner headers, PET on its own grid with its field of view shifted: the physical path
+        t1_aff = centered_affine(t1_shape, [s * scale for s in TOOLCHAIN_T1_MM], (2.0, -1.5, 1.0))
+        pet_shape = tuple(s // scale for s in TOOLCHAIN_PET)
+        pet_aff = centered_affine(pet_shape, [s * scale for s in TOOLCHAIN_PET_MM], (-1.0, 2.0, -2.5), (3.0, -4.0, 2.0))
+        headers = (t1_aff, pet_aff)
+    else:  # identity headers, the PET on the T1's (isotropic) grid: the voxel path
+        t1_aff = centered_affine(t1_shape, (float(scale),) * 3)
+        pet_shape, pet_aff = t1_shape, t1_aff
+        headers = (np.eye(4), np.eye(4))
+
+    def noisy(vol):
+        inside = vol > 0.05
+        return torch.where(inside, vol + 0.01 * torch.randn(vol.shape, generator=g, device=device), 0.0)
+
+    t1 = sample_head(t1_shape, t1_aff, device)
+    zz, yy, xx = torch.meshgrid(*(torch.linspace(-1, 1, s, device=device) for s in t1_shape), indexing="ij")
+    t1 = noisy(t1 * torch.exp(0.25 * (0.8 * xx + 0.5 * yy - 0.4 * zz)))  # the bias field N4 exists for
+    pet = noisy(sample_head(pet_shape, pet_aff, device, motion))
+    return {"t1": t1.cpu().numpy(), "pet": pet.cpu().numpy(), "t1_aff": t1_aff, "pet_aff": pet_aff,
+            "headers": headers, "motion": (degrees, mm)}
+
+
+def write_raw_tree(root: str) -> dict:
+    """{root}/{t1,pet}/adni{i}/{date}/img.nii (uncompressed) for the 4 subjects, and an ADNIMERGE-style CSV
+    (covariates and diagnoses of these subjects and of write_tree's)."""
+    from cips_tpu_torch.data import nifti
+
+    cases = []
+    for i in range(len(TOOLCHAIN_MOTION)):
+        case = toolchain_case(i, "cuda")
+        for kind, date, header in (("t1", "2015-01-01", case["headers"][0]), ("pet", "2015-01-20", case["headers"][1])):
+            spacing = np.sqrt((header[:3, :3] ** 2).sum(axis=0)) if i < 2 else (1.0,) * 3
+            nifti.write(os.path.join(root, kind, f"adni{i}", date, "img.nii"),
+                        nifti.NiftiImage(data=case[kind], affine=header, spacing=tuple(map(float, spacing))))
+        cases.append(case)
+    rows = ["PTID,EXAMDATE,ABETA,Age,Sex,APOE4,PTEDUCAT,DX,PTGENDER,AGE"]
+    for i, subj in enumerate([f"adni{i}" for i in range(len(cases))] + [f"sub{i:03d}" for i in range(N_SUBJECTS)]):
+        sex = "Female" if i % 2 else "Male"
+        rows.append(f"{subj},2014-12-15,{600 + 90 * i},{70 + i},{sex},{i % 3},{12 + i % 8},{('CN', 'MCI')[i % 2]},"
+                    f"{sex},{70 + i}")
+        rows.append(f"{subj},2016-06-01,{'<200' if i % 3 == 0 else 700},{71 + i},{sex},{i % 3},{12 + i % 8},"
+                    f"{('MCI', 'AD', 'CN')[i % 3]},{sex},{71 + i}")
+    with open(os.path.join(root, "adnimerge.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+    return {"t1": os.path.join(root, "t1"), "pet": os.path.join(root, "pet"),
+            "adnimerge": os.path.join(root, "adnimerge.csv"), "cases": cases}
+
+
+def masked_corr(a: np.ndarray, b: np.ndarray, mask: np.ndarray) -> float:
+    a, b = a[mask].astype(np.float64), b[mask].astype(np.float64)
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum() + 1e-9))
+
+
+def write_seg_tree(root: str, pred_dir: str) -> str:
+    """A FastSurfer-style aseg in conformed space (256^3, uint8) for every session of ``pred_dir``:
+    cortex (3, 42) over the middle of the conformed PET, cerebellum (8, 47) below it. One file,
+    linked into every session."""
+    from cips_tpu_torch.data import nifti
+
+    seg = np.zeros(SEG_SHAPE, np.uint8)
+    seg[80:176, 80:176, 80:128] = 3
+    seg[80:176, 80:176, 128:176] = 42
+    seg[176:208, 90:170, 80:128] = 8
+    seg[176:208, 90:170, 128:176] = 47
+    first = None
+    for subject in sorted(os.listdir(pred_dir)):
+        for date in sorted(os.listdir(os.path.join(pred_dir, subject))):
+            path = os.path.join(root, subject, date, "aseg.nii.gz")
+            if first is None:
+                nifti.write(path, seg)
+                first = path
+            else:
+                os.makedirs(os.path.dirname(path))
+                os.symlink(first, path)
+    return root
+
+
+def rescaled_tree(pred_dir: str, root: str) -> str:
+    """{root}/{subject}/{date}/rec.nii.gz: each synthesized PET of ``pred_dir`` mapped linearly onto its
+    real PET's range (min to max). A generator with random weights gives a PET whose reference region
+    may average at or under 0; its SUVR would then be the ROI mean over compute_suvr's 1e-12 floor."""
+    from cips_tpu_torch.data import nifti
+
+    for subject in sorted(os.listdir(pred_dir)):
+        for date in sorted(os.listdir(os.path.join(pred_dir, subject))):
+            rec, ori = (nifti.read_array(os.path.join(pred_dir, subject, date, n)).astype(np.float64)
+                        for n in ("rec.nii.gz", "ori.nii.gz"))
+            rec = ori.min() + (rec - rec.min()) / (rec.max() - rec.min()) * (ori.max() - ori.min())
+            nifti.write(os.path.join(root, subject, date, "rec.nii.gz"), rec.astype(np.float32))
+    return root
+
+
+def link_tree(src: str, dst: str, name: str) -> str:
+    """{dst}/{subject}/{date}/{name} linked to the same file of ``src`` (a one-file-a-session tree)."""
+    for subject in sorted(os.listdir(src)):
+        for date in sorted(os.listdir(os.path.join(src, subject))):
+            os.makedirs(os.path.join(dst, subject, date))
+            os.symlink(os.path.join(src, subject, date, name), os.path.join(dst, subject, date, name))
+    return dst
+
+
+def suvr_rows(path: str) -> dict:
+    with open(path, newline="", encoding="utf-8") as f:
+        return {(r["Subject"], r["date"]): float(r["suvr"]) for r in csv.DictReader(f)}
+
+
+def close_json(got: dict, want: dict, label: str) -> float:
+    """The metric tool's JSON against another run's: each value within TOL_TOOLCHAIN_REL of its mean's
+    magnitude (a std's error is its values' error); returns the largest such distance."""
+    check(list(got) == list(want) and got["count"] == want["count"] > 0, f"{label}: {got} vs {want}")
+    worst = max(abs(got[k] - want[k]) / abs(want[k.replace("_std", "_mean")]) for k in want)
+    check(worst <= TOL_TOOLCHAIN_REL, f"{label}: {got} vs {want}, {worst:.3e} > {TOL_TOOLCHAIN_REL:g}")
+    return worst
+
+
+@contextlib.contextmanager
+def registration_clock(records: list):
+    """Each registration the `reg` subcommand runs: (which, seconds, result), the card synchronised."""
+    from cips_tpu_torch.data import preprocess
+
+    saved = {name: getattr(preprocess, name) for name in ("register_rigid", "register_rigid_physical")}
+
+    def timed(name):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = saved[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            records.append((name, time.perf_counter() - t0, result))
+            return result
+        return wrapper
+
+    try:
+        for name in saved:
+            setattr(preprocess, name, timed(name))
+        yield records
+    finally:
+        for name, fn in saved.items():
+            setattr(preprocess, name, fn)
+
+
+def toolchain_phase(pred_dir: str, tree_csv: str, tmp: str, card: str) -> dict:
+    """The offline tool-chain through its CLIs on the card, each held to its CPU run where it computes
+    on the device. Returns each subcommand's wall time (s)."""
+    from cips_tpu_torch.cli import metrics as metrics_cli
+    from cips_tpu_torch.cli import postprocess, preprocess
+    from cips_tpu_torch.data import nifti
+    from cips_tpu_torch.data.dataset import PackedDataset
+    from cips_tpu_torch.eval.pair_metrics import METRIC_SHAPE
+    from cips_tpu_torch.ops.registration import apply_transform, register_rigid_physical
+
+    times = {}
+    t0 = time.perf_counter()
+    raw = write_raw_tree(os.path.join(tmp, "raw"))
+    times["raw tree (phantoms on the device, .nii writes)"] = time.perf_counter() - t0
+    work = os.path.join(tmp, "work")
+    def run(label, main, argv):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = main(argv)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - start
+        text = out.getvalue()
+        print(f"toolchain {label}: {times[label]:.3f} s; " + " | ".join(text.strip().splitlines()[-3:]), flush=True)
+        return result, text
+
+    w = functools.partial(os.path.join, work)
+    trees = ["--PET_dir", raw["pet"], "--T1_dir", raw["t1"]]
+    _, text = run("preprocess pair", preprocess.main, ["pair"] + trees + ["--out_dir", w("pairs")])
+    check(text.startswith("4 pairs"), f"pair: {text}")
+    _, text = run("preprocess audit", preprocess.main, ["audit"] + trees)
+    check("0 unpaired" in text, f"audit: {text}")
+    _, text = run("preprocess merge-csf", preprocess.main, ["merge-csf", "--manifest", w("pairs", "pair_all.csv"),
+                                                            "--adnimerge_csv", raw["adnimerge"],
+                                                            "--out_csv", w("pairs", "pair_all_csf.csv")])
+    check(text.startswith("4/4 rows"), f"merge-csf: {text}")
+    run("preprocess stats", preprocess.main, ["stats", "--manifest", w("pairs", "pair_all_csf.csv"),
+                                              "--out_json", w("stats.json")])
+    registrations = []
+    with registration_clock(registrations):
+        run("preprocess reg (ncc, 4 pairs)", preprocess.main, ["reg"] + trees + ["--out_dir", w("reg")])
+        os.makedirs(os.path.join(tmp, "raw", "pet_mi"))
+        os.symlink(os.path.join(raw["pet"], "adni0"), os.path.join(tmp, "raw", "pet_mi", "adni0"))
+        run("preprocess reg --metric mi (1 pair)", preprocess.main,
+            ["reg", "--PET_dir", os.path.join(tmp, "raw", "pet_mi"), "--T1_dir", raw["t1"], "--out_dir", w("reg_mi"),
+             "--metric", "mi"])
+    run("preprocess downsample (N4, 1.5 mm, crop (96, 128, 96))", preprocess.main,
+        ["downsample", "--T1_dir", raw["t1"], "--out_dir", w("ds")])
+    _, text = run("preprocess mask", preprocess.main, ["mask", "--PET_dir", w("reg"), "--T1_dir", raw["t1"],
+                                                      "--out_dir", w("masked")])
+    check(text.startswith("masked 4 PET"), f"mask: {text}")
+    _, text = run("preprocess simple-csv", preprocess.main, ["simple-csv", "--image_dir", raw["t1"],
+                                                             "--out_dir", w("simple")])
+    check(text.startswith("4 sessions"), f"simple-csv: {text}")
+    run("preprocess pack", preprocess.main, ["pack", "--manifest", w("pairs", "pair_all_csf.csv"), "--PET_dir", w("masked"),
+                                             "--T1_dir", w("ds"), "--out_dir", w("packed"), "--with_covariates",
+                                             "--min_and_max", w("stats.json")])
+
+    # each motion recovered: the warped PET's masked correlation with the T1 above the header-only one and 0.93
+    check(len(registrations) == 5, f"expected 5 registrations, got {len(registrations)}")
+    for (name, seconds, result), (i, metric) in zip(registrations, [(i, "ncc") for i in range(4)] + [(0, "mi")]):
+        case = raw["cases"][i]
+        out = nifti.read_array(w("reg_mi" if metric == "mi" else "reg", f"adni{i}", "2015-01-20", "pet_reg.nii.gz"))
+        mask = case["t1"] > 0.2
+        if i < 2:
+            pet, t1 = (torch.from_numpy(case[k]).cuda() for k in ("pet", "t1"))
+            header = register_rigid_physical(pet, t1, *case["headers"][::-1], pyramid=(2,), iters_per_level=0)
+            base_vol = apply_transform(pet, header.matrix, out_shape=case["t1"].shape).cpu().numpy()
+        else:
+            base_vol = case["pet"]
+        base, corr = masked_corr(base_vol, case["t1"], mask), masked_corr(out, case["t1"], mask)
+        print(f"toolchain registration adni{i} ({metric}, {name}): {seconds:.3f} s, loss {result.loss:.5f}, "
+              f"params {[round(float(p), 5) for p in result.params]} (true motion {case['motion']}), masked "
+              f"correlation {corr:.5f} (header only {base:.5f}); {card}")
+        check(corr > base + 0.01 and corr > TOOLCHAIN_MIN_CORR,
+              f"adni{i} {metric}: the motion was not recovered ({corr:.5f}, header only {base:.5f})")
+    ds = [nifti.read_array(w("ds", f"adni{i}", "2015-01-01", "t1_ds.nii.gz")) for i in range(4)]
+    check(all(v.shape == CROP and np.isfinite(v).all() and v.max() > 0 for v in ds), "bad downsampled T1s")
+    packed = PackedDataset(w("packed"))
+    check(len(packed) == 4 and packed.volumes.shape == (4, 2, *CROP) and np.isfinite(packed.volumes).all(),
+          f"the packed store: {len(packed)} pairs, {packed.volumes.shape}")
+
+    # the registration on the card against the CPU, every grid TOOLCHAIN_REDUCED times coarser
+    small = toolchain_case(0, "cpu", TOOLCHAIN_REDUCED)
+    regs = {}
+    for d in ("cuda", "cpu"):
+        args = [torch.from_numpy(small["pet"]).to(d), torch.from_numpy(small["t1"]).to(d), *small["headers"][::-1]]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        regs[d] = (register_rigid_physical(*args, pyramid=(2,), iters_per_level=0), register_rigid_physical(*args))
+        torch.cuda.synchronize()
+        times[f"reduced registration {small['t1'].shape} on {d}"] = time.perf_counter() - start
+    header_err = float((regs["cuda"][0].matrix.cpu() - regs["cpu"][0].matrix).abs().max()
+                       / regs["cpu"][0].matrix.abs().max())
+    param_err = float((regs["cuda"][1].params.cpu() - regs["cpu"][1].params).abs().max())
+    print(f"toolchain registration {small['t1'].shape} <- {small['pet'].shape}, card vs CPU: header-only pull-back "
+          f"{header_err:.3e} of max (tol {TOL_TOOLCHAIN_REL:g}), params {param_err:.3e} apart (tol one Adam step, "
+          f"{TOOLCHAIN_LR / 3:g}); losses {regs["cuda"][1].loss:.6f} / {regs['cpu'][1].loss:.6f}")
+    check(header_err <= TOL_TOOLCHAIN_REL and param_err <= TOOLCHAIN_LR / 3, "card and CPU registrations disagree")
+
+    # post-processing: SUVR in conformed space on real and synthesized PET (phase 4's, mapped onto the
+    # real PET's range so that its reference region averages above 0), card and CPU
+    seg_dir = write_seg_tree(os.path.join(tmp, "seg"), pred_dir)
+    pet_dirs = {"ori.nii.gz": pred_dir, "rec.nii.gz": rescaled_tree(pred_dir, os.path.join(tmp, "syn_tree"))}
+    suvr = {}
+    for d in ("cuda", "cpu"):
+        for name, pet_dir in pet_dirs.items():
+            out_csv = w(f"suvr_{name[:3]}_{d}.csv")
+            run(f"postprocess suvr --conform {name} on {d}", postprocess.main,
+                ["suvr", "--pet_dir", pet_dir, "--seg_dir", seg_dir, "--pet_name", name, "--conform",
+                 "--out_csv", out_csv, "--device", d])
+            suvr[d, name] = suvr_rows(out_csv)
+    for name in pet_dirs:
+        got, want = suvr["cuda", name], suvr["cpu", name]
+        check(len(want) == N_SUBJECTS and got.keys() == want.keys(), f"SUVR sessions {list(got)} vs {list(want)}")
+        rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+        print(f"toolchain SUVR {name}, card vs CPU: {rel:.3e} relative at most (tol {TOL_TOOLCHAIN_REL:g}); "
+              f"{[round(v, 5) for v in got.values()]}")
+        check(all(np.isfinite(v) and v > 0 for v in got.values()) and rel <= TOL_TOOLCHAIN_REL, "SUVR card vs CPU")
+    run("postprocess suvr-error", postprocess.main, ["suvr-error", "--gt_csv", w("suvr_ori_cuda.csv"),
+                                                     "--synth_csv", w("suvr_rec_cuda.csv")])
+    fig = w("suvr_groups.jpg")
+    _, text = run("postprocess analyse", postprocess.main, ["analyse", "--suvr_csv", w("suvr_rec_cuda.csv"),
+                                                            "--dx_csv", raw["adnimerge"], "--out_fig", fig])
+    kept = sum(ast.literal_eval(text.rsplit(" -> ", 1)[0]).values())
+    want_kept = sum(v <= 2.0 for v in suvr["cuda", "rec.nii.gz"].values())  # analyse's default --max_suvr
+    print(f"toolchain analyse: {kept} of {N_SUBJECTS} synthesized sessions grouped (SUVR <= 2: {want_kept}); "
+          f"figure {'written' if os.path.exists(fig) else 'not written (no matplotlib)'}")
+    check(kept == want_kept > 0, f"analyse grouped {kept} sessions, {want_kept} have SUVR <= 2")
+    run("postprocess summary", postprocess.main, ["summary", "--manifest", tree_csv, "--adnimerge_csv", raw["adnimerge"]])
+
+    # the folder metric tool at the metric shape, one tree and two
+    one, _ = run("metrics one tree on cuda", metrics_cli.main, ["--root", pred_dir])
+    one_cpu, _ = run("metrics one tree on cpu", metrics_cli.main, ["--root", pred_dir, "--device", "cpu"])
+    sys_dir = link_tree(pred_dir, os.path.join(tmp, "sys_tree"), "rec.nii.gz")
+    real_dir = link_tree(pred_dir, os.path.join(tmp, "real_tree"), "ori.nii.gz")
+    two, _ = run("metrics two trees on cuda", metrics_cli.main, ["--root", sys_dir, "--real_root", real_dir])
+    # the two-tree run pairs the same volumes, so it is held to the same CPU run
+    errs = [close_json(one, one_cpu, "metrics one tree"), close_json(two, one_cpu, "metrics two trees")]
+    print(f"toolchain metrics {METRIC_SHAPE}: {one}; card vs CPU {errs[0]:.3e}, two trees vs CPU {errs[1]:.3e} "
+          f"of the mean at most (tol {TOL_TOOLCHAIN_REL:g})")
+    for label, seconds in times.items():
+        print(f"toolchain time: {seconds:9.3f} s  {label}; {card}")
+    print(f"toolchain: {sum(times.values()):.1f} s in all; {card}")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2025,18 +2392,26 @@ def main() -> int:
               f"BMGAN: train step {bmgan_run['step_ms']:.3f} ms, peak {bmgan_run['peak_gib']:.2f} GiB; batch 2, bf16, "
               f"full volume; {card}")
 
-    phase("13 phase conv")
-    with uncounted(fa):
-        t0 = time.perf_counter()
-        phase_err = phase_conv_checks(pc)
-        phase_err["full"] = max(phase_err["full"], phase_conv_flagship(cfg, state))
-        phase_timing = {shape: phase_conv_timing(pc, shape) for shape in PHASE_SHAPES}
-        phase_timing_f32 = {shape: phase_conv_timing(pc, shape, torch.float32, PHASE_F32_VARIANTS)
-                            for shape in PHASE_F32_SHAPES}
-        print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
-        entry_launches = phase_conv_entry(pc)
+        phase("13 phase conv")
+        with uncounted(fa):
+            t0 = time.perf_counter()
+            phase_err = phase_conv_checks(pc)
+            phase_err["full"] = max(phase_err["full"], phase_conv_flagship(cfg, state))
+            phase_timing = {shape: phase_conv_timing(pc, shape) for shape in PHASE_SHAPES}
+            phase_timing_f32 = {shape: phase_conv_timing(pc, shape, torch.float32, PHASE_F32_VARIANTS)
+                                for shape in PHASE_F32_SHAPES}
+            print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
+            entry_launches = phase_conv_entry(pc)
 
-    phase("14 summary")
+        phase("14 tool-chain")
+        t0 = time.perf_counter()
+        with uncounted(fa):
+            set_counts(fa, (0, 0, 0))
+            toolchain_phase(pred_dir, tree["csv"], tmp, card)
+            check(counts(fa) == (0, 0, 0), f"the tool-chain launched flash kernels: {counts(fa)}")
+        print(f"tool-chain phase in {time.perf_counter() - t0:.1f} s (no kernel of this port on its path); {card}")
+
+    phase("15 summary")
     kernels = []
     for name, kind, replaces, launches, err in (
         ("flash_attention_fwd", "fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err),
@@ -2083,7 +2458,7 @@ def main() -> int:
                          for v in variants},
         })
     print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "event_timed": len(EVENT_TIMED)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,10 @@ def add_common_data_args(p: argparse.ArgumentParser) -> None:
                    help="training-time joint random crop, re-max-normalised; eval stays center-cropped")
     p.add_argument("--streaming", action="store_true",
                    help="decode NIfTIs on the fly in fp32 instead of packing them to a float16 store")
+    add_device_arg(p)
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run; cuda is required unless cpu is asked for")
 

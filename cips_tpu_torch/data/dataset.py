@@ -26,10 +26,12 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from cips_tpu_torch.data import nifti
 from cips_tpu_torch.data.covariates import covariate_vector
 from cips_tpu_torch.data.manifest import PairRow, read_manifest
+from cips_tpu_torch.ops.resample import resize_trilinear
 
 CROP_SIZE = (96, 128, 96)  # the working volume (reference train_unet.py:111)
 
@@ -62,9 +64,15 @@ def _first_file(folder: str) -> Optional[str]:
     return None
 
 
-def _load(path: str, crop_size: Sequence[int], normalize: bool = True) -> np.ndarray:
-    """Decode, pad/center-crop to ``crop_size`` and (``normalize``) max-normalise."""
+def _load(
+    path: str, crop_size: Sequence[int], normalize: bool = True, resize_size: Optional[Sequence[int]] = None
+) -> np.ndarray:
+    """Decode, pad/center-crop to ``crop_size``, linearly resize to ``resize_size``
+    (the reference's optional MONAI Resize, dataset.py:88-90; on the host, as
+    `ops.resample.resize_trilinear` computes it) and (``normalize``) max-normalise."""
     vol = pad_crop_np(nifti.read_array(path).astype(np.float32), crop_size)
+    if resize_size is not None:
+        vol = resize_trilinear(torch.from_numpy(np.ascontiguousarray(vol)), resize_size).numpy()
     return max_normalize_np(vol) if normalize else vol
 
 
@@ -83,7 +91,7 @@ class PairedVolumeDataset:
 
     Scans {dir}/{Subject}/{date}/ and takes the first file of each; skips
     rows whose directories are missing. Volumes are padded/center-cropped to
-    ``crop_size`` and max-normalised. With ``random_crop_size``, the training
+    ``crop_size``, resized to ``resize_size`` when given, and max-normalised. With ``random_crop_size``, the training
     augmentation (RandSpatialCrop, random centre): T1 and PET are cut at one
     corner drawn per axis from ``np.random.default_rng(seed)``, in the order
     the samples are read, then each is max-normalised.
@@ -101,9 +109,8 @@ class PairedVolumeDataset:
         random_crop_size: Optional[Sequence[int]] = None,
         seed: int = 0,
     ):
-        if resize_size:
-            raise NotImplementedError("resize_size needs ops/resample.py, which is not ported yet")
         self.crop_size = tuple(crop_size)
+        self.resize_size = tuple(resize_size) if resize_size else None
         self.random_crop_size = tuple(random_crop_size) if random_crop_size else None
         self._crop_rng = np.random.default_rng(seed)
         self.need_values = list(need_values)
@@ -123,7 +130,8 @@ class PairedVolumeDataset:
 
     def __getitem__(self, index: int) -> Sample:
         row = self.rows[index]
-        t1, pet = (_load(path, self.crop_size, normalize=self.random_crop_size is None) for path in self.paths[index])
+        t1, pet = (_load(path, self.crop_size, normalize=self.random_crop_size is None, resize_size=self.resize_size)
+                   for path in self.paths[index])
         if self.random_crop_size is not None:
             corner = [int(self._crop_rng.integers(0, c - r + 1)) for c, r in zip(t1.shape, self.random_crop_size)]
             window = tuple(slice(o, o + r) for o, r in zip(corner, self.random_crop_size))

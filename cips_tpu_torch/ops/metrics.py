@@ -1,11 +1,11 @@
-"""Image-quality metrics: MAE, MSE, PSNR, SSIM, MS-SSIM (3-D), port of
-cips_tpu/ops/metrics.py.
+"""Image-quality metrics: MAE, MSE, PSNR, SSIM, MS-SSIM (3-D and the folder
+tool's slice-wise 2-D form), port of cips_tpu/ops/metrics.py.
 
 PSNR = 10 log10(1 / MSE) with data range 1. MS-SSIM follows torchmetrics'
 MultiScaleStructuralSimilarityIndexMeasure with data_range 1: a gaussian
 window (inference uses kernel 5, sigma 0.5), 5 scales with the standard
 weights, 2x2x2 VALID average pooling between scales, and a relu before the
-weighted product. Computation is fp32. The separable VALID filter is written
+weighted product. Computation is fp32. The separable VALID filters are written
 as weighted sums of shifted slices, so it is plain fp32 arithmetic on any
 device (no TF32 convolution on the card).
 
@@ -41,10 +41,10 @@ def _gaussian_kernel1d(size: int, sigma: float, device=None) -> torch.Tensor:
     return g / g.sum()
 
 
-def _filter3d(x: torch.Tensor, kernel1d: torch.Tensor) -> torch.Tensor:
-    """Separable 'valid' filtering of (N, D, H, W) along D, H and W."""
+def _filter(x: torch.Tensor, kernel1d: torch.Tensor) -> torch.Tensor:
+    """Separable 'valid' filtering of (N, *spatial) along every spatial axis."""
     k = kernel1d.shape[0]
-    for axis in (1, 2, 3):
+    for axis in range(1, x.ndim):
         n = x.shape[axis] - k + 1
         x = sum(kernel1d[t] * x.narrow(axis, t, n) for t in range(k))
     return x
@@ -56,11 +56,11 @@ def _ssim_and_cs(
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
     kern = _gaussian_kernel1d(kernel_size, sigma, a.device)
-    mu_a = _filter3d(a, kern)
-    mu_b = _filter3d(b, kern)
-    mu_aa = _filter3d(a * a, kern)
-    mu_bb = _filter3d(b * b, kern)
-    mu_ab = _filter3d(a * b, kern)
+    mu_a = _filter(a, kern)
+    mu_b = _filter(b, kern)
+    mu_aa = _filter(a * a, kern)
+    mu_bb = _filter(b * b, kern)
+    mu_ab = _filter(a * b, kern)
     var_a = mu_aa - mu_a * mu_a
     var_b = mu_bb - mu_b * mu_b
     cov = mu_ab - mu_a * mu_b
@@ -80,19 +80,15 @@ def ssim(
     return _ssim_and_cs(_as_batched(a), _as_batched(b), kernel_size, sigma, data_range)[0]
 
 
-def ms_ssim(
-    a: torch.Tensor,
-    b: torch.Tensor,
-    kernel_size: int = 11,
-    sigma: float = 1.5,
-    data_range: float = 1.0,
-    weights: Sequence[float] = MS_SSIM_WEIGHTS,
+def _ms_ssim(
+    a: torch.Tensor, b: torch.Tensor, kernel_size: int, sigma: float, data_range: float, weights: Sequence[float]
 ) -> torch.Tensor:
-    a = _as_batched(a)
-    b = _as_batched(b)
+    """MS-SSIM of (N, *spatial) fp32 batches, 2 or 3 spatial axes, each halved
+    by average pooling between scales."""
+    pool = F.avg_pool3d if a.ndim == 4 else F.avg_pool2d
     # Clamp the scale count so the window always fits, and renormalise the
     # weights over the scales used (torchmetrics raises on such inputs).
-    min_dim = min(a.shape[1:4])
+    min_dim = min(a.shape[1:])
     n_scales = len(weights)
     while n_scales > 1 and min_dim // (2 ** (n_scales - 1)) < kernel_size:
         n_scales -= 1
@@ -103,7 +99,43 @@ def ms_ssim(
         s, cs = _ssim_and_cs(a, b, kernel_size, sigma, data_range)
         values.append(s if i == n_scales - 1 else cs)
         if i != n_scales - 1:
-            a = F.avg_pool3d(a[:, None], 2)[:, 0]
-            b = F.avg_pool3d(b[:, None], 2)[:, 0]
+            a = pool(a[:, None], 2)[:, 0]
+            b = pool(b[:, None], 2)[:, 0]
     stacked = torch.stack(values).clamp_min(0.0)  # torchmetrics' relu
     return torch.prod(stacked**w)
+
+
+def ms_ssim(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    kernel_size: int = 11,
+    sigma: float = 1.5,
+    data_range: float = 1.0,
+    weights: Sequence[float] = MS_SSIM_WEIGHTS,
+) -> torch.Tensor:
+    return _ms_ssim(_as_batched(a), _as_batched(b), kernel_size, sigma, data_range, weights)
+
+
+def ms_ssim_2d_slicewise(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    kernel_size: int = 11,
+    sigma: float = 1.5,
+    data_range: float = 1.0,
+    weights: Sequence[float] = MS_SSIM_WEIGHTS,
+) -> torch.Tensor:
+    """MS-SSIM of a (D, H, W) volume as torchmetrics computes it on the 4-D
+    (1, D, H, W) input that the reference's folder-metric tool feeds it
+    (unet/scripts/metrics.py:53-66): its 2-D path with D as the channel axis,
+    a 2-D gaussian window per slice, means over (D, H, W), and 2x2 average
+    pooling of H and W only between scales. That is `ms_ssim`'s body with D
+    as the batch axis."""
+    if a.ndim != 3:
+        raise ValueError(f"expected a (D, H, W) volume, got {tuple(a.shape)}")
+    return _ms_ssim(a.float(), b.float(), kernel_size, sigma, data_range, weights)
+
+
+def mean_intensity_match(sys: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    """Scale a synthesized volume to the real volume's mean intensity
+    (unet/scripts/metrics.py:51-52: ``sys / mean(sys) * mean(real)``)."""
+    return sys / torch.clamp_min(sys.mean(), 1e-12) * real.mean()

@@ -7,7 +7,9 @@ import pytest
 import torch
 
 import cips_tpu_torch
-from cips_tpu_torch.cli import output_predict
+from cips_tpu_torch.cli import metrics, output_predict, postprocess, preprocess
+from cips_tpu_torch.data import preprocess as data_preprocess
+from cips_tpu_torch.eval import pair_metrics
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cips_tpu")
@@ -46,7 +48,9 @@ def test_port_has_files_to_scan():
     assert {"chip_smoke.py", "flash_attention.py", "output_predict.py", "atten_unet.py", "train_unet.py",
             "discriminator.py", "losses.py", "unet_synthesis.py", "s2d.py", "phase_conv.py", "cuda_library.py",
             "probe_phase_conv.py", "classifier_task.py", "train_classifier.py", "test_mci.py", "classification.py",
-            "bmgan.py", "bmgan_task.py", "train_bmgan.py", "gen_test_bmgan.py", "unet3d.py"} <= names
+            "bmgan.py", "bmgan_task.py", "train_bmgan.py", "gen_test_bmgan.py", "unet3d.py", "volume.py",
+            "resample.py", "registration.py", "suvr.py", "mgz.py", "segmentation.py", "preprocess.py",
+            "pair_metrics.py", "cohort.py", "metrics.py", "postprocess.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -58,9 +62,26 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert cips_tpu_torch.default_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         cips_tpu_torch.default_device("mps")
+    # the tool-chain's device-bearing entry points
+    for fn, args in ((data_preprocess.register_pet_to_t1, ("p", "t", "o")),
+                     (data_preprocess.create_t1_downsample, ("t", "o")),
+                     (data_preprocess.joint_register, (None, None, None)),
+                     (pair_metrics.folder_pair_metrics, ("r",))):
+        with pytest.raises(RuntimeError):
+            fn(*args)
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         output_predict.main(["--exp_dir", str(tmp_path)])
+    d = str(tmp_path)
+    for main, argv in (
+        (metrics.main, ["--root", d]),
+        (postprocess.main, ["suvr", "--pet_dir", d, "--seg_dir", d, "--out_csv", d + "/s.csv"]),
+        (preprocess.main, ["reg", "--PET_dir", d, "--T1_dir", d, "--out_dir", d]),
+        (preprocess.main, ["downsample", "--T1_dir", d, "--out_dir", d]),
+    ):
+        with pytest.raises(RuntimeError):
+            main(argv)
+        main(argv + ["--device", "cpu"])  # asked for by name, the CPU runs (an empty tree: nothing to do)

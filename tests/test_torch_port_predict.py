@@ -147,8 +147,13 @@ def test_dataset_matches_jax(tree):
         np.testing.assert_allclose(a.pet, b.pet, rtol=1e-6)
         np.testing.assert_array_equal(a.info, b.info)
         assert (a.subject, a.t1_date, a.pet_date) == (b.subject, b.t1_date, b.pet_date)
-    with pytest.raises(NotImplementedError):
-        PairedVolumeDataset(**_dataset_args(tree), resize_size=(4, 8, 4))
+    # resize_size resizes as JAX's (jax.image.resize, linear), no longer raising
+    port, ref = (cls(**_dataset_args(tree), resize_size=(4, 8, 4)) for cls in (PairedVolumeDataset, JaxDataset))
+    for i in range(len(port)):
+        for field in ("t1", "pet"):
+            a, b = getattr(port[i], field), getattr(ref[i], field)
+            assert a.shape == b.shape == (4, 8, 4)
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * np.abs(b).max())
 
 
 @pytest.mark.parametrize("key,raw", [("Sex", "Female"), ("Sex", "M"), ("ABETA", "<200"), ("ABETA", ">1700"),
