@@ -103,7 +103,19 @@ Phases (any failure raises and the script exits non-zero):
                 suvr-error, analyse, summary; `cli.metrics` on phase 4's tree at (192, 224,
                 192), one tree and two, against the CPU; each subcommand's wall time and each
                 registration's. No kernel of this port is on this path;
- 15. summary  — a JSON line of kernels, the card line, and the result line.
+ 15. data parallel — cips_tpu_torch.cli.train_unet under torchrun (python -m
+                torch.distributed.run; the rank side is this script's --dp-rank
+                mode) at full width and volume in bf16, global batch 2, one epoch
+                of 4 steps with eval and a checkpoint: 1 rank over NCCL, then one
+                rank a card over NCCL (a machine with one card: 2 ranks sharing it
+                over gloo); each rank's replicas identical, 6/6/6 flash launches a
+                step, the all-reduced bytes a step equal to the gradient bytes, one
+                writer of meta.json; step time a rank (CUDA events), peak memory a
+                rank, the speed-up where there are 2 cards or more; the checkpoint
+                resumed at 1 rank; the dry run (cips_tpu_torch.parallel.dryrun) of
+                two fp32 flagship steps at the reduced crop at W ranks held to one
+                process on the same global batch;
+ 16. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
 """
@@ -2098,6 +2110,188 @@ def toolchain_phase(pred_dir: str, tree_csv: str, tmp: str, card: str) -> dict:
     return times
 
 
+DP_STEPS = 4  # one epoch of 8 subjects at global batch 2
+DP_EPOCH_TIMEOUT = 600  # seconds a torchrun run may take, start-up included
+DP_CROP = PARITY_CROP  # the fp32 comparison of W ranks with one process (the dry run)
+
+
+def dp_rank_main(out_pattern: str, argv: list) -> int:
+    """One rank of phase 15, under torchrun: joins the process group, runs
+    cips_tpu_torch.cli.train_unet.main(argv) with each train step's flash launches,
+    time (CUDA events) and all-reduced bytes recorded, then writes what it saw to
+    ``out_pattern.format(rank=...)``: those records, its peak memory
+    (`device_memory_report`), its checkpoint-metadata writes, its trained networks'
+    gradient bytes and their largest difference from rank 0's, all-reduced."""
+    from cips_tpu_torch.cli import train_unet
+    from cips_tpu_torch.ops import flash_attention as fa
+    from cips_tpu_torch.parallel import mesh as pm
+    from cips_tpu_torch.parallel.dryrun import max_rank_difference
+    from cips_tpu_torch.training import profiling, unet_synthesis
+    from cips_tpu_torch.training.common import CheckpointManager
+
+    mesh = pm.make_mesh("cuda")
+    steps, meta_writes = [], []
+    make_train_step, write_meta = unet_synthesis.make_train_step, CheckpointManager._write_meta
+
+    def recorded_make(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def recorded(*step_args):
+            pm.data_parallel.reduced_bytes = 0
+            before = counts(fa)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*step_args)
+            end.record()
+            end.synchronize()
+            steps.append({"launches": [a - b for a, b in zip(counts(fa), before)], "ms": start.elapsed_time(end),
+                          "reduced_bytes": pm.data_parallel.reduced_bytes})
+            return out
+
+        return recorded
+
+    def recorded_meta(self, meta):
+        meta_writes.append(dict(meta))
+        write_meta(self, meta)
+
+    unet_synthesis.make_train_step, CheckpointManager._write_meta = recorded_make, recorded_meta
+    try:
+        set_counts(fa, (0, 0, 0))
+        torch.cuda.reset_peak_memory_stats()
+        state = train_unet.main(argv)
+        torch.cuda.synchronize()
+        params = {f"{net}.{k}": v.float() for net, m in (("g", state.g), ("d", state.d))
+                  for k, v in m.state_dict().items()}
+        record = {
+            "rank": mesh.rank, "world": mesh.world_size, "device": str(mesh.device), "steps": steps,
+            "launches": list(counts(fa)), "meta_writes": len(meta_writes),
+            "grad_bytes": sum(p.numel() * p.element_size() for m in (state.g, state.d) for p in m.parameters()),
+            "max_rank_diff": max_rank_difference(mesh, params) if mesh.distributed else 0.0,
+            "memory": profiling.device_memory_report()[mesh.device.index],
+        }
+        with open(out_pattern.format(rank=mesh.rank), "w", encoding="utf-8") as f:
+            json.dump(record, f)
+    finally:
+        unet_synthesis.make_train_step, CheckpointManager._write_meta = make_train_step, write_meta
+        mesh.close()
+    return 0
+
+
+def dp_run(n: int, backend: str, args: list, out_dir: str) -> list:
+    """train_unet under torchrun at ``n`` ranks (over ``backend``, which
+    `parallel.mesh.backend_for` picks), each rank in `dp_rank_main`; returns the
+    ranks' records, in rank order."""
+    os.makedirs(out_dir, exist_ok=True)
+    pattern = os.path.join(out_dir, "rank{rank}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n),
+           os.path.abspath(__file__), "--dp-rank", pattern, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_EPOCH_TIMEOUT,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
+    wall = time.perf_counter() - t0
+    print(f"data parallel: torchrun {n} rank(s) over {backend} in {wall:.1f} s (start-up included), exit "
+          f"{proc.returncode}")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-8000:])
+    check(proc.returncode == 0, f"torchrun at {n} ranks over {backend} failed")
+    print("\n".join(f"data parallel | {line}" for line in proc.stdout.strip().splitlines()[-4:]))
+    return [json.load(open(pattern.format(rank=r), encoding="utf-8")) for r in range(n)]
+
+
+def data_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str, card: str) -> dict:
+    """Phase 15: cips_tpu_torch.cli.train_unet under torchrun. One rank a card
+    over NCCL (the world is torch.cuda.device_count() ranks); on a machine with one
+    card, 2 ranks share it over gloo as well, so that a cross-rank reduction runs
+    the card's kernels. The multi-rank run is checked (identical replicas, 6/6/6
+    flash launches a step on each rank, the all-reduced bytes a step equal to G's
+    and D's gradient bytes, one writer of meta.json), its checkpoint resumed at 1
+    rank, and the dry run (`cips_tpu_torch.parallel.dryrun`) holds two fp32 steps
+    at the reduced crop at W ranks to one process on the same global batch."""
+    from cips_tpu_torch.cli import train_unet
+    from cips_tpu_torch.training.common import CheckpointManager
+
+    cards = torch.cuda.device_count()
+    multi = (cards, "nccl") if cards >= 2 else (2, "gloo")
+    print(f"data parallel: {cards} card(s); runs: 1 rank over nccl, then {multi[0]} ranks over {multi[1]}"
+          + ("" if cards >= 2 else " sharing the one card (no scaling figure: the ranks share one card)"))
+
+    def args(exp: str) -> list:
+        return ["--PET_dir", tree["pet"], "--T1_dir", tree["t1"], "--min_and_max", tree["stats"], "--use_condition",
+                "--crop_size", *map(str, CROP), "--device", "cuda", "--exp_dir", exp,
+                "--training_info_csv", tree["csv"], "--eval_info_csv", eval_csv, "--packed_dir", packed[0],
+                "--eval_packed_dir", packed[1], "--dtype", "bf16", "--batch_size", str(TRAIN_BATCH),
+                "--save_every", "1", "--epochs", "1"]
+
+    records = {}
+    for n, backend in ((1, "nccl"), multi):
+        exp = os.path.join(tmp, f"dp_{n}_{backend}")
+        recs = dp_run(n, backend, args(exp), os.path.join(tmp, f"dp_{n}_{backend}_records"))
+        for r in recs:
+            ms = [s["ms"] for s in r["steps"]]
+            print(f"data parallel: {n} rank(s) {backend}, rank {r['rank']} on {r['device']}: step ms "
+                  f"{[round(x, 3) for x in ms]} (mean of steps 2-{len(ms)} {np.mean(ms[1:]):.3f}), all-reduced bytes "
+                  f"a step {[s['reduced_bytes'] for s in r['steps']]}, launches a step "
+                  f"{sorted({tuple(s['launches']) for s in r['steps']})}, peak memory "
+                  f"{r['memory']['peak_bytes_in_use'] / 2**30:.2f} GiB, meta.json writes {r['meta_writes']}, "
+                  f"max difference from rank 0 {r['max_rank_diff']}; {card}")
+            check(len(r["steps"]) == DP_STEPS and all(s["launches"] == [6, 6, 6] for s in r["steps"]),
+                  f"rank {r['rank']} of {n}: every step must launch 6 forward, 6 dQ and 6 dK/dV kernels")
+            check(r["max_rank_diff"] == 0.0, f"rank {r['rank']} of {n} differs from rank 0 by {r['max_rank_diff']}")
+            check(r["meta_writes"] == (1 if r["rank"] == 0 else 0), f"rank {r['rank']} wrote meta.json "
+                  f"{r['meta_writes']} times")
+            if n > 1:
+                check(all(s["reduced_bytes"] == r["grad_bytes"] for s in r["steps"]),
+                      f"all-reduced bytes a step {[s['reduced_bytes'] for s in r['steps']]}, gradients "
+                      f"{r['grad_bytes']}")
+        records[n] = recs
+        check(os.path.exists(os.path.join(exp, "conditional", "AV45", "ckpt", "meta.json")), "no meta.json")
+    n = multi[0]
+    step_ms = {k: float(np.mean([np.mean([s["ms"] for s in r["steps"]][1:]) for r in v])) for k, v in records.items()}
+    peak = max(r["memory"]["peak_bytes_in_use"] for r in records[n]) / 2**30
+    line = (f"data parallel: step {step_ms[n]:.3f} ms a rank at {n} ranks over {multi[1]} (1 rank: {step_ms[1]:.3f} "
+            f"ms), global batch {TRAIN_BATCH}; all-reduced {records[n][0]['steps'][0]['reduced_bytes']} bytes a step; "
+            f"peak {peak:.2f} GiB a rank")
+    if cards >= 2:
+        line += f"; speed-up over 1 rank {step_ms[1] / step_ms[n]:.3f}x at the same global batch"
+    else:
+        line += "; no scaling figure (the ranks shared one card)"
+    print(f"{line}; {card}")
+
+    exp = os.path.join(tmp, f"dp_{n}_{multi[1]}")
+    with uncounted(fa):
+        resumed = train_unet.main(args(exp)[:-2] + ["--epochs", "2", "--resume"])
+    check(resumed.step == 2 * DP_STEPS and CheckpointManager(
+        os.path.join(exp, "conditional", "AV45", "ckpt")).latest_epoch() == 1,
+          f"the {n}-rank checkpoint resumed at 1 rank to step {resumed.step}")
+    print(f"data parallel: the {n}-rank checkpoint resumed at 1 rank, step {resumed.step}")
+    del resumed
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cips_tpu_torch.parallel.dryrun", str(n), "--steps", "2",
+                           "--crop", *map(str, DP_CROP), "--dtype", "f32"],
+                          capture_output=True, text=True, timeout=DP_EPOCH_TIMEOUT,
+                          env={**os.environ, "CIPS_DRYRUN_FULL": "1", "OMP_NUM_THREADS": "1"})
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-8000:])
+    check(proc.returncode == 0, "the dry run failed")
+    payload = json.loads([line for line in proc.stdout.splitlines() if line.startswith("{")][-1])
+    print(f"data parallel: dry run at {n} ranks over {multi[1]} in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(payload)}")
+    verdict = payload["one_process"]
+    print(f"data parallel: dry run, flagship config fp32 at {DP_CROP} (cuDNN off), {n} ranks vs one process: the "
+          f"first step's gradients {verdict['grads_max_rel']:.3e} of each tensor's max|grad| (limit 1e-4), its "
+          f"parameters {verdict['max_rel']:.3e} of max|value| (limit 1e-5; {verdict['noise_elements']} elements moved "
+          f"by Adam on rounding noise, {verdict['max_noise_lr']:.3f} lr at most); after step 2 {verdict['last_max_rel']:.3e} "
+          f"of max|value|, {verdict['last_max_lr']:.3f} lr at most (limit 4); all-reduced "
+          f"{payload['reduced_bytes_per_step']} bytes a step = gradient bytes {payload['grad_bytes']}; replicas apart "
+          f"by {payload['max_rank_diff']}; {card}")
+    return {"ranks": n, "backend": multi[1], "step_ms": step_ms, "peak_gib": peak,
+            "launches_per_rank": [r["launches"] for r in records[n]],
+            "reduced_bytes": records[n][0]["steps"][0]["reduced_bytes"], "dryrun": payload}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2411,7 +2605,13 @@ def main() -> int:
             check(counts(fa) == (0, 0, 0), f"the tool-chain launched flash kernels: {counts(fa)}")
         print(f"tool-chain phase in {time.perf_counter() - t0:.1f} s (no kernel of this port on its path); {card}")
 
-    phase("15 summary")
+        phase("15 data parallel")
+        t0 = time.perf_counter()
+        packed = tuple(os.path.join(train_exp, f"packed_{tag}") for tag in ("train", "eval"))
+        data_parallel = data_parallel_phase(fa, tree, eval_csv, packed, tmp, card)
+        print(f"data parallel phase in {time.perf_counter() - t0:.1f} s; {card}")
+
+    phase("16 summary")
     kernels = []
     for name, kind, replaces, launches, err in (
         ("flash_attention_fwd", "fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err),
@@ -2431,6 +2631,10 @@ def main() -> int:
                         # the classifier's paths (phase 11): train_classifier, test_mci on real and synthesized PET
                         "launches_classifier_training": classifier["training"][i],
                         "launches_classifier_test": {k: v[i] for k, v in classifier["test"].items()},
+                        # phase 15: train_unet under torchrun, each rank's launches
+                        "launches_data_parallel": {"ranks": data_parallel["ranks"],
+                                                   "backend": data_parallel["backend"],
+                                                   "per_rank": [r[i] for r in data_parallel["launches_per_rank"]]},
                         **flash_at["x".join(map(str, TRAIN_ATTN))][kind],
                         "at": {label: {k: round(t, 6) if isinstance(t, float) else t for k, t in rows[kind].items()}
                                for label, rows in flash_at.items()}})
@@ -2458,7 +2662,7 @@ def main() -> int:
                          for v in variants},
         })
     print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "event_timed": len(EVENT_TIMED)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2467,4 +2671,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--dp-rank":  # a rank of phase 15, started by torchrun
+        sys.exit(dp_rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -16,6 +16,7 @@ import torch
 
 from cips_tpu_torch.data.covariates import COVARIATES_BY_TRACER, load_min_and_max
 from cips_tpu_torch.data.dataset import BatchLoader, PackedDataset, PairedVolumeDataset, StreamingLoader, pack_pairs
+from cips_tpu_torch.parallel.mesh import Mesh, barrier
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
@@ -78,7 +79,7 @@ def dtype_arg(name: str) -> torch.dtype:
     return {"bf16": torch.bfloat16, "f32": torch.float32}[name]
 
 
-def make_loaders(args, need_values) -> tuple:
+def make_loaders(args, need_values, mesh: Optional[Mesh] = None, split_eval: bool = True) -> tuple:
     """(train, eval) loaders: the training manifest shuffled at ``--batch_size``,
     dropping a short last batch; the eval manifest at batch 1, in order, keeping
     every subject.
@@ -90,7 +91,18 @@ def make_loaders(args, need_values) -> tuple:
     ``--random_crop_size`` crops the training batches. ``--streaming`` decodes
     the NIfTIs in fp32 as it goes (`StreamingLoader`) instead; its training
     dataset crops each sample, corners drawn from a generator seeded with
-    ``--seed``."""
+    ``--seed``.
+
+    Across ranks (``mesh``) the training loader yields node ``mesh.node_index``'s
+    batches, as JAX's loader of that process index and count, and this rank's
+    rows of them; the eval subjects are dealt out over all ranks
+    (``split_eval``: each rank's mean is then summed with the others') or all
+    go to every rank. Rank 0 packs while the others wait, so across nodes the
+    stores' directory must be shared (or packed beforehand: ``--packed_dir``)."""
+    mesh = mesh or Mesh()
+    shard = dict(shard_index=mesh.local_rank, shard_count=mesh.local_world_size)
+    train_place = dict(process_index=mesh.node_index, process_count=mesh.node_count, **shard)
+    eval_place = dict(process_index=mesh.rank, process_count=mesh.world_size) if split_eval else {}
 
     def dataset(info_csv: str, **crop) -> PairedVolumeDataset:
         return PairedVolumeDataset(
@@ -100,17 +112,21 @@ def make_loaders(args, need_values) -> tuple:
 
     if args.streaming:
         train = StreamingLoader(dataset(args.training_info_csv, random_crop_size=args.random_crop_size, seed=args.seed),
-                                args.batch_size, seed=args.seed)
-        evaluate = StreamingLoader(dataset(args.eval_info_csv), 1, shuffle=False, drop_last=False)
+                                args.batch_size, seed=args.seed, **train_place)
+        evaluate = StreamingLoader(dataset(args.eval_info_csv), 1, shuffle=False, drop_last=False, **eval_place)
         return train, evaluate
 
     def ensure_packed(info_csv: str, packed_dir: Optional[str], tag: str) -> PackedDataset:
-        if packed_dir and os.path.exists(os.path.join(packed_dir, "volumes.npy")):
-            return PackedDataset(packed_dir)
-        return PackedDataset(pack_pairs(dataset(info_csv), packed_dir or os.path.join(args.exp_dir, f"packed_{tag}")))
+        reuse = bool(packed_dir) and os.path.exists(os.path.join(packed_dir, "volumes.npy"))
+        out = packed_dir or os.path.join(args.exp_dir, f"packed_{tag}")
+        barrier(mesh)  # every rank has looked before rank 0 writes
+        if not reuse and mesh.is_lead:
+            pack_pairs(dataset(info_csv), out)
+        barrier(mesh)
+        return PackedDataset(out)
 
     train = BatchLoader(ensure_packed(args.training_info_csv, args.packed_dir, "train"), args.batch_size,
-                        seed=args.seed, random_crop_size=args.random_crop_size)
+                        seed=args.seed, random_crop_size=args.random_crop_size, **train_place)
     evaluate = BatchLoader(ensure_packed(args.eval_info_csv, args.eval_packed_dir, "eval"), 1, shuffle=False,
-                           drop_last=False)
+                           drop_last=False, **eval_place)
     return train, evaluate

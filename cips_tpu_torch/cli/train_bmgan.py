@@ -7,11 +7,18 @@ epochs ranks the checkpoints saved every --save_every epochs; --resume
 restores G, E, D, the perceptual net, the three optimisers and the step, and
 begins at the epoch after the last one saved. --perceptual_weights loads
 converted LPIPS (alex) weights, the JAX package's .npz. The latents come from
-one generator on the device, seeded with --seed + 1. One device: the JAX
-CLI's data-parallel mesh is not ported. Runs on the card unless ``--device cpu``.
+one generator on the device, seeded with --seed + 1. Runs on the card unless
+``--device cpu``.
+
+Data-parallel across cards under torchrun, as train_unet: ``--batch_size`` is a
+node's batch, split over its ranks; G, E and D train under DDP and each step's
+latent is drawn for the global batch and cut to the rank's rows. The eval runs
+on every rank (its latents come from the same generator); only rank 0 logs
+and writes checkpoints.
 
   python -m cips_tpu_torch.cli.train_bmgan --exp_dir /tmp/bmgan \\
       --training_info_csv train.csv --eval_info_csv test.csv --PET_dir ... --T1_dir ...
+  python -m torch.distributed.run --nproc_per_node 8 -m cips_tpu_torch.cli.train_bmgan ...
 """
 
 from __future__ import annotations
@@ -22,11 +29,11 @@ import os
 import numpy as np
 import torch
 
-from cips_tpu_torch import default_device
 from cips_tpu_torch.cli import common
 from cips_tpu_torch.models.perceptual import params_from_npz
+from cips_tpu_torch.parallel.mesh import device_prefetch, make_mesh, replicate
 from cips_tpu_torch.training import bmgan_task
-from cips_tpu_torch.training.common import CheckpointManager, MetricWriter
+from cips_tpu_torch.training.common import CheckpointManager, MetricWriter, mean_over_ranks
 
 MODELS = {"generator": "g", "encoder": "e", "discriminator": "d", "perceptual": "perceptual"}
 
@@ -61,12 +68,13 @@ def main(argv=None) -> bmgan_task.BMGANState:
     p.add_argument("--perceptual_weights", default=None, help=".npz of converted pretrained LPIPS (alex) weights")
     args = p.parse_args(argv)
 
-    device = default_device(args.device)
+    mesh = make_mesh(args.device)
+    device = mesh.device
     for d in ("log", "ckpt", "visual"):
         os.makedirs(os.path.join(args.exp_dir, d), exist_ok=True)
     models = bmgan_task.build_models(dtype=common.dtype_arg(args.dtype), input_shape=args.crop_size, device=device,
                                      seed=args.seed)
-    state = bmgan_task.init_state(*models, lr=args.lr, perceptual_weight=args.lamda_perceptual)
+    state = bmgan_task.init_state(*models, lr=args.lr, perceptual_weight=args.lamda_perceptual, mesh=mesh)
     if args.perceptual_weights and state.perceptual is not None:
         state.perceptual.load_state_dict(params_from_npz(args.perceptual_weights))
     ckpt = CheckpointManager(os.path.join(args.exp_dir, "ckpt"))
@@ -80,10 +88,15 @@ def main(argv=None) -> bmgan_task.BMGANState:
             getattr(state, f"opt_{k}").load_state_dict(payload[f"optimizer_{k}"])
         state.step = payload["step"]
         begin_epoch = ckpt.latest_epoch() + 1
+        for k in "ged":
+            replicate(mesh, getattr(state, f"opt_{k}"))
+    if state.perceptual is not None:
+        replicate(mesh, state.perceptual)
 
-    train_loader, eval_loader = common.make_loaders(args, need_values=[])
-    writer = MetricWriter(os.path.join(args.exp_dir, "log"))
-    step_fn = bmgan_task.make_train_step(args.lamda_l1, args.lamda_perceptual, exact_d_fake=args.exact_d_fake)
+    train_loader, eval_loader = common.make_loaders(args, need_values=[], mesh=mesh, split_eval=False)
+    writer = MetricWriter(os.path.join(args.exp_dir, "log"), enabled=mesh.is_lead)
+    step_fn = bmgan_task.make_train_step(args.lamda_l1, args.lamda_perceptual, exact_d_fake=args.exact_d_fake,
+                                         mesh=mesh, batch_size=args.batch_size)
     eval_fn = bmgan_task.make_eval_step()
     rng = torch.Generator(device).manual_seed(args.seed + 1)
 
@@ -91,14 +104,15 @@ def main(argv=None) -> bmgan_task.BMGANState:
     try:
         for epoch in range(begin_epoch, args.epochs):
             eval_l1 = None  # only a metric computed this epoch may rank the best checkpoint
-            for batch in train_loader.epoch(epoch):
-                metrics = step_fn(state, _to_device(batch, device), rng)
+            for batch in device_prefetch(train_loader.epoch(epoch), mesh):
+                metrics = step_fn(state, batch, rng)
                 global_step += 1
                 if global_step % 20 == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
+                    m = mean_over_ranks(metrics, mesh)
                     writer.scalars("training", m, global_step)
-                    print(f"epoch {epoch} step {global_step} l1 {m['l1_loss']:.5f} g {m['g_loss']:.5f} "
-                          f"e {m['e_loss']:.5f} d {m['d_loss']:.5f}")
+                    if mesh.is_lead:
+                        print(f"epoch {epoch} step {global_step} l1 {m['l1_loss']:.5f} g {m['g_loss']:.5f} "
+                              f"e {m['e_loss']:.5f} d {m['d_loss']:.5f}")
                 if args.max_steps and global_step >= args.max_steps:
                     break
             if epoch % args.eval_every == 0:
@@ -106,13 +120,15 @@ def main(argv=None) -> bmgan_task.BMGANState:
                        for batch in eval_loader.epoch(0)]
                 eval_l1 = float(np.mean(l1s)) if l1s else float("nan")
                 writer.scalars("eval", {"l1_loss": eval_l1}, global_step)
-                print(f"epoch {epoch} eval l1 {eval_l1:.5f}")
-            if epoch % args.save_every == 0:
+                if mesh.is_lead:
+                    print(f"epoch {epoch} eval l1 {eval_l1:.5f}")
+            if epoch % args.save_every == 0 and mesh.is_lead:
                 ckpt.save(_checkpoint(state, epoch), epoch, eval_metric=eval_l1)
             if args.max_steps and global_step >= args.max_steps:
                 break
     finally:
         writer.close()
+        mesh.close()
     return state
 
 

@@ -9,25 +9,34 @@ is above 0; --perceptual_weights loads the JAX package's LPIPS .npz) and
 begins at the epoch after the last one saved. The batches come from the packed float16 store unless
 ``--streaming`` (`common.make_loaders`). Runs on the card unless ``--device cpu``.
 
+Data-parallel across cards: one process a card under torchrun, which trains
+what the JAX CLI trains with that many local devices (`parallel.mesh`).
+``--batch_size`` is the batch of one node, split over its ranks; G and D train
+under DDP; the eval subjects are dealt out over the ranks and their mean taken
+over all; only rank 0 logs, dumps and writes checkpoints, which hold the plain
+networks' names, so that a run resumes at any number of ranks.
+
   python -m cips_tpu_torch.cli.train_unet --exp_dir /tmp/exp \\
       --training_info_csv train.csv --eval_info_csv test.csv \\
       --PET_dir ... --T1_dir ... --pet_kind AV45 --use_condition
+  python -m torch.distributed.run --nproc_per_node 8 -m cips_tpu_torch.cli.train_unet ...
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
 import torch
 
-from cips_tpu_torch import default_device
 from cips_tpu_torch.cli import common
 from cips_tpu_torch.data import nifti
 from cips_tpu_torch.models.perceptual import params_from_npz
-from cips_tpu_torch.training import unet_synthesis
-from cips_tpu_torch.training.common import CheckpointManager, MetricWriter, StepTimer
+from cips_tpu_torch.parallel.mesh import device_prefetch, make_mesh, replicate
+from cips_tpu_torch.training import profiling, unet_synthesis
+from cips_tpu_torch.training.common import CheckpointManager, MetricWriter, StepTimer, global_mean, mean_over_ranks
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -67,20 +76,12 @@ def _checkpoint(state: unet_synthesis.GANState, epoch: int) -> dict:
     return payload
 
 
-def _profiler(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
-
-
 def main(argv=None) -> unet_synthesis.GANState:
     args = build_argparser().parse_args(argv)
     if args.n_space != 1:
         raise NotImplementedError("--n_space: not ported yet")
-    device = default_device(args.device)
+    mesh = make_mesh(args.device)
+    device = mesh.device
     cfg = common.load_config(args.config, "training.json")
     train_cfg = cfg["training"]
     need_values = common.covariates_for(args.pet_kind, args.use_condition)
@@ -89,7 +90,7 @@ def main(argv=None) -> unet_synthesis.GANState:
     generator, discriminator, perceptual = unet_synthesis.build_models(
         cfg, n_covariates=len(need_values), dtype=common.dtype_arg(args.dtype), device=device, seed=args.seed
     )
-    state = unet_synthesis.init_state(generator, discriminator, train_cfg, perceptual)
+    state = unet_synthesis.init_state(generator, discriminator, train_cfg, perceptual, mesh=mesh)
     if args.perceptual_weights and state.perceptual is not None:
         state.perceptual.load_state_dict(params_from_npz(args.perceptual_weights))
     ckpt = CheckpointManager(dirs["ckpt"])
@@ -104,65 +105,68 @@ def main(argv=None) -> unet_synthesis.GANState:
             state.perceptual.load_state_dict(payload["perceptual"])
         state.step = payload["step"]
         begin_epoch = ckpt.latest_epoch() + 1
+        for opt in (state.opt_g, state.opt_d):
+            replicate(mesh, opt)
+    if state.perceptual is not None:
+        replicate(mesh, state.perceptual)
 
-    train_loader, eval_loader = common.make_loaders(args, need_values)
-    writer = MetricWriter(dirs["log"])
+    train_loader, eval_loader = common.make_loaders(args, need_values, mesh)
+    writer = MetricWriter(dirs["log"], enabled=mesh.is_lead)
     timer = StepTimer()
     step_fn = unet_synthesis.make_train_step(
         train_cfg, use_condition=args.use_condition, exact_d_fake=(True if args.exact_d_fake else None),
-        nan_guard=args.nan_guard,
+        nan_guard=args.nan_guard, mesh=mesh,
     )
     eval_fn = unet_synthesis.make_eval_step(train_cfg, use_condition=args.use_condition)
 
     global_step = 0
-    prof = None
+    tracing = contextlib.ExitStack()
     try:
         for epoch in range(begin_epoch, args.epochs):
-            for batch in train_loader.epoch(epoch):
-                if args.profile_dir and global_step == 10:
-                    prof = _profiler(device)
-                metrics = step_fn(state, _to_device(batch, device))
-                if prof is not None and global_step == 15:
-                    prof.stop()
-                    os.makedirs(args.profile_dir, exist_ok=True)
-                    prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
-                    prof = None
+            for batch in device_prefetch(train_loader.epoch(epoch), mesh):
+                if args.profile_dir and mesh.is_lead and global_step == 10:
+                    tracing.enter_context(profiling.trace(args.profile_dir))
+                metrics = step_fn(state, batch)
+                if global_step == 15:
+                    tracing.close()
                 global_step += 1
                 if global_step % 10 == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
+                    m = mean_over_ranks(metrics, mesh)
                     writer.scalars("training", m, global_step)
-                    print(
-                        f"epoch {epoch}/{args.epochs} step {global_step} "
-                        f"rec {m['rec_loss']:.5f} adv {m['adv_loss']:.5f} "
-                        f"g {m['g_loss']:.5f} d {m['d_loss']:.5f} "
-                        f"({timer.lap():.3f}s/10steps)"
-                    )
+                    if mesh.is_lead:
+                        print(
+                            f"epoch {epoch}/{args.epochs} step {global_step} "
+                            f"rec {m['rec_loss']:.5f} adv {m['adv_loss']:.5f} "
+                            f"g {m['g_loss']:.5f} d {m['d_loss']:.5f} "
+                            f"({timer.lap():.3f}s/10steps)"
+                        )
                 if args.max_steps and global_step >= args.max_steps:
                     break
 
             eval_loss = None  # only a metric computed this epoch may rank the best checkpoint
             if epoch % args.eval_every == 0:
-                eval_losses = []
+                eval_losses = []  # this rank's share of the eval subjects (rank 0's first is subject 0)
                 for i, batch in enumerate(eval_loader.epoch(0)):
                     out = eval_fn(state, _to_device(batch, device))
                     eval_losses.append(float(out["g_loss"]))
-                    if i == 0:  # sample NIfTI dump for visual inspection
+                    if i == 0 and mesh.is_lead:  # sample NIfTI dump for visual inspection
                         for name, vol in (("rec", out["fake"][0, ..., 0].float().cpu().numpy()),
                                           ("ori", batch["pet"][0, ..., 0]), ("t1", batch["t1"][0, ..., 0])):
                             nifti.write(os.path.join(dirs["visual"], f"epoch{epoch}_{name}.nii.gz"),
                                         np.asarray(vol, np.float32))
-                eval_loss = float(np.mean(eval_losses)) if eval_losses else float("nan")
+                eval_loss = global_mean(eval_losses, mesh)
                 writer.scalars("eval", {"g_loss": eval_loss}, global_step)
-                print(f"epoch {epoch} eval g_loss {eval_loss:.5f}")
+                if mesh.is_lead:
+                    print(f"epoch {epoch} eval g_loss {eval_loss:.5f}")
 
-            if epoch % args.save_every == 0:
+            if epoch % args.save_every == 0 and mesh.is_lead:
                 ckpt.save(_checkpoint(state, epoch), epoch, eval_metric=eval_loss)
             if args.max_steps and global_step >= args.max_steps:
                 break
     finally:
-        if prof is not None:
-            prof.stop()
+        tracing.close()
         writer.close()
+        mesh.close()
     return state
 
 

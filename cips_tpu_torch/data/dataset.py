@@ -15,6 +15,12 @@ prefetch pool are not ported yet, and there is no fallback between the two:
 the port's streaming path is the JAX package's synchronous one, random crop
 included (JAX's native prefetch pool decodes at ``crop_size`` and skips the
 crop).
+
+Across ranks (`cips_tpu_torch.parallel.mesh`) each loader takes JAX's
+``process_index`` and ``process_count``, the node's place, and serves only this
+rank's share of each node batch (``shard_index`` of ``shard_count``,
+`parallel.mesh.shard_rows`), while it makes the random draws of the whole node
+batch: every rank's rows are those of JAX's one-process loader.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from cips_tpu_torch.data import nifti
 from cips_tpu_torch.data.covariates import covariate_vector
 from cips_tpu_torch.data.manifest import PairRow, read_manifest
 from cips_tpu_torch.ops.resample import resize_trilinear
+from cips_tpu_torch.parallel.mesh import shard_rows
 
 CROP_SIZE = (96, 128, 96)  # the working volume (reference train_unet.py:111)
 
@@ -128,12 +135,24 @@ class PairedVolumeDataset:
     def __len__(self) -> int:
         return len(self.rows)
 
+    def draw_corner(self) -> Optional[List[int]]:
+        """The next random crop's corner from the dataset's generator (None
+        without ``random_crop_size``): the draw that reading a sample makes."""
+        if self.random_crop_size is None:
+            return None
+        shape = self.resize_size or self.crop_size
+        return [int(self._crop_rng.integers(0, c - r + 1)) for c, r in zip(shape, self.random_crop_size)]
+
     def __getitem__(self, index: int) -> Sample:
+        return self.load(index, self.draw_corner())
+
+    def load(self, index: int, corner: Optional[Sequence[int]] = None) -> Sample:
+        """Sample ``index``, cut at ``corner`` when the dataset crops at random
+        (a corner from `draw_corner`)."""
         row = self.rows[index]
         t1, pet = (_load(path, self.crop_size, normalize=self.random_crop_size is None, resize_size=self.resize_size)
                    for path in self.paths[index])
         if self.random_crop_size is not None:
-            corner = [int(self._crop_rng.integers(0, c - r + 1)) for c, r in zip(t1.shape, self.random_crop_size)]
             window = tuple(slice(o, o + r) for o, r in zip(corner, self.random_crop_size))
             t1, pet = (max_normalize_np(np.ascontiguousarray(v[window])) for v in (t1, pet))
         if self.need_values:
@@ -147,9 +166,12 @@ class StreamingLoader:
     """Epoch iterator that decodes the dataset's NIfTIs as it goes.
 
     The order is the JAX package's: ``np.random.default_rng(seed + epoch)``
-    shuffles the indices (when ``shuffle``), ``drop_last`` drops a short last
-    batch. Yields numpy batches {"t1": (B, D, H, W, 1), "pet": (B, D, H, W, 1),
-    "info": (B, 1, K)}.
+    shuffles the indices (when ``shuffle``), node ``process_index`` of
+    ``process_count`` takes every ``process_count``-th of them, ``drop_last``
+    drops a short last batch. A random-cropping dataset draws the corners of
+    the whole node batch in order; this rank decodes only its share of the rows
+    (``shard_index`` of ``shard_count``). Yields numpy batches {"t1": (B, D, H,
+    W, 1), "pet": (B, D, H, W, 1), "info": (B, 1, K)}.
     """
 
     def __init__(
@@ -160,22 +182,33 @@ class StreamingLoader:
         shuffle: bool = True,
         drop_last: bool = True,
         seed: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
+        self.shard_index = shard_index
+        self.shard_count = shard_count
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
+        order = order[self.process_index :: self.process_count]
         for b in range(0, len(order), self.batch_size):
             idx = order[b : b + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 break
-            samples = [self.dataset[int(i)] for i in idx]
+            corners = [self.dataset.draw_corner() for _ in idx]
+            rows = shard_rows(len(idx), self.shard_index, self.shard_count)
+            samples = [self.dataset.load(int(i), c) for i, c in zip(idx[rows], corners[rows])]
             yield {
                 "t1": np.stack([s.t1 for s in samples])[..., None],
                 "pet": np.stack([s.pet for s in samples])[..., None],
@@ -229,16 +262,18 @@ class PackedDataset:
 
 
 class BatchLoader:
-    """Shuffled epoch iterator over a `PackedDataset`, sliced per host.
+    """Shuffled epoch iterator over a `PackedDataset`, sliced per node.
 
     The JAX package's order and values: ``np.random.default_rng(seed + epoch)``
-    shuffles the indices (when ``shuffle``), host ``process_index`` of
+    shuffles the indices (when ``shuffle``), node ``process_index`` of
     ``process_count`` takes every ``process_count``-th of them, ``drop_last``
     drops a short last batch, and each batch is read from the store in sorted
     index order (covariates sorted the same way) and widened to float32. With
     ``random_crop_size``, each sample is cut at a random offset drawn from the
-    same generator, T1 and PET jointly, and each modality is re-max-normalised.
-    Yields numpy batches {"t1": (B, D, H, W, 1), "pet": (B, D, H, W, 1),
+    same generator, T1 and PET jointly, and each modality is re-max-normalised;
+    the offsets of the whole node batch are drawn. This rank reads only its
+    share of each batch's rows (``shard_index`` of ``shard_count``). Yields
+    numpy batches {"t1": (B, D, H, W, 1), "pet": (B, D, H, W, 1),
     "info": (B, 1, K)}.
     """
 
@@ -253,6 +288,8 @@ class BatchLoader:
         process_index: int = 0,
         process_count: int = 1,
         random_crop_size: Optional[Sequence[int]] = None,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         self.packed = packed
         self.batch_size = batch_size
@@ -262,13 +299,19 @@ class BatchLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.random_crop_size = tuple(random_crop_size) if random_crop_size else None
+        self.shard_index = shard_index
+        self.shard_count = shard_count
 
-    def _crop(self, vols: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    def _offsets(self, n: int, rng: np.random.Generator) -> List[List[int]]:
+        """The crop offsets of ``n`` samples, drawn sample by sample, axis by axis."""
+        return [[int(rng.integers(0, c - r + 1)) for c, r in zip(self.packed.volumes.shape[2:], self.random_crop_size)]
+                for _ in range(n)]
+
+    def _crop(self, vols: np.ndarray, offsets: Sequence[Sequence[int]]) -> np.ndarray:
         rcs = self.random_crop_size
         out = np.empty((vols.shape[0], 2, *rcs), np.float32)
         for i in range(vols.shape[0]):
-            offsets = [int(rng.integers(0, c - r + 1)) for c, r in zip(vols.shape[2:], rcs)]
-            crop = vols[(i, slice(None)) + tuple(slice(o, o + r) for o, r in zip(offsets, rcs))]
+            crop = vols[(i, slice(None)) + tuple(slice(o, o + r) for o, r in zip(offsets[i], rcs))]
             for m in range(2):
                 peak = crop[m].max()
                 out[i, m] = crop[m] / peak if peak > 0 else crop[m]
@@ -285,9 +328,12 @@ class BatchLoader:
             num_batches += 1
         for b in range(num_batches):
             idx = np.sort(order[b * self.batch_size : (b + 1) * self.batch_size])
+            rows = shard_rows(len(idx), self.shard_index, self.shard_count)
+            offsets = self._offsets(len(idx), rng) if self.random_crop_size is not None else None
+            idx = idx[rows]
             vols = self.packed.volumes[idx].astype(np.float32)
-            if self.random_crop_size is not None:
-                vols = self._crop(vols, rng)
+            if offsets is not None:
+                vols = self._crop(vols, offsets[rows])
             yield {"t1": vols[:, 0][..., None], "pet": vols[:, 1][..., None],
                    "info": self.packed.covariates[idx][:, None, :]}
 
@@ -419,8 +465,9 @@ class PackedMCIDataset:
 
 class MCIBatchLoader:
     """Shuffled epoch iterator over a `PackedMCIDataset` in the JAX package's order
-    (as `BatchLoader`, one host). Yields numpy batches
-    {"imgs": (B, D, H, W, C) float32, "info": (B, 1, K), "labels": (B,) int32}."""
+    (as `BatchLoader`: node ``process_index`` of ``process_count``, this rank's
+    share of each batch ``shard_index`` of ``shard_count``). Yields numpy
+    batches {"imgs": (B, D, H, W, C) float32, "info": (B, 1, K), "labels": (B,) int32}."""
 
     def __init__(
         self,
@@ -430,25 +477,35 @@ class MCIBatchLoader:
         shuffle: bool = True,
         drop_last: bool = True,
         seed: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         self.packed = packed
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
+        self.shard_index = shard_index
+        self.shard_count = shard_count
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.packed))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
+        order = order[self.process_index :: self.process_count]
         num_batches = len(order) // self.batch_size
         if not self.drop_last and len(order) % self.batch_size:
             num_batches += 1
         for b in range(num_batches):
             idx = np.sort(order[b * self.batch_size : (b + 1) * self.batch_size])
+            idx = idx[shard_rows(len(idx), self.shard_index, self.shard_count)]
             yield {"imgs": self.packed.volumes[idx].astype(np.float32), "info": self.packed.covariates[idx][:, None, :],
                    "labels": self.packed.labels[idx]}
 
     def steps_per_epoch(self) -> int:
-        n = len(self.packed)
+        n = len(self.packed) // self.process_count
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)

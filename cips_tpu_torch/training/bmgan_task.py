@@ -13,27 +13,34 @@ reference does. No covariates.
 
 The latent z ~ N(0, 1) of shape (B, latent_dim) is drawn by `sample_latent`
 from the caller's ``torch.Generator``; tests replace it to feed the latent
-that the JAX package draws. The JAX package's ``d_remat`` is an HBM device
+that the JAX package draws. Across ranks (``mesh``) G, E and D train under DDP,
+each through its wrapper in its own step only (the frozen critic in the G
+step and the ``exact_d_fake`` regeneration go to the networks themselves),
+and z is drawn for the global batch and cut to this rank's rows. The JAX package's ``d_remat`` is an HBM device
 that does not change the result, and is not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+from torch import nn
 
 from cips_tpu_torch.losses import kl_divergence, l1_loss, lsgan_discriminator_loss, patch_adversarial_loss
 from cips_tpu_torch.models import bmgan
 from cips_tpu_torch.models import perceptual as lpips
+from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam, frozen, init_models
 
 
 @dataclass
 class BMGANState:
     """G, E, D, the frozen perceptual network (None when its weight is 0), their
-    three Adams and the count of applied steps."""
+    three Adams and the count of applied steps. ``g_dp``, ``e_dp`` and ``d_dp``
+    are the networks as their steps train them: DDP wrappers across ranks,
+    else the networks themselves."""
 
     g: bmgan.DenseUNetGenerator
     e: bmgan.ResNetEncoder
@@ -43,6 +50,14 @@ class BMGANState:
     opt_e: torch.optim.Adam
     opt_d: torch.optim.Adam
     step: int = 0
+    g_dp: Optional[nn.Module] = field(default=None, repr=False)
+    e_dp: Optional[nn.Module] = field(default=None, repr=False)
+    d_dp: Optional[nn.Module] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        for name in "ged":
+            if getattr(self, f"{name}_dp") is None:
+                setattr(self, f"{name}_dp", getattr(self, name))
 
 
 def build_models(
@@ -71,11 +86,13 @@ def init_state(
     perceptual: Optional[lpips.PerceptualLoss],
     lr: float = 2e-4,
     perceptual_weight: float = 8.0,
+    mesh: Optional[Mesh] = None,
 ) -> BMGANState:
     return BMGANState(
         g=generator, e=encoder, d=discriminator, perceptual=perceptual if perceptual_weight > 0 else None,
         opt_g=adam(generator.parameters(), lr), opt_e=adam(encoder.parameters(), lr),
         opt_d=adam(discriminator.parameters(), lr),
+        g_dp=data_parallel(generator, mesh), e_dp=data_parallel(encoder, mesh), d_dp=data_parallel(discriminator, mesh),
     )
 
 
@@ -86,8 +103,13 @@ def sample_latent(
     return torch.randn(shape, generator=generator, device=device).to(dtype)
 
 
-def _latent(t1: torch.Tensor, latent_dim: int, generator: torch.Generator) -> torch.Tensor:
-    return sample_latent((t1.shape[0], latent_dim), t1.dtype, t1.device, generator)
+def _latent(t1: torch.Tensor, latent_dim: int, generator: torch.Generator,
+            rows: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
+    """One latent a row of ``t1``; with ``rows`` = (n, s), drawn for n rows and cut to rows s."""
+    if rows is None:
+        return sample_latent((t1.shape[0], latent_dim), t1.dtype, t1.device, generator)
+    n, s = rows
+    return sample_latent((n, latent_dim), t1.dtype, t1.device, generator)[s]
 
 
 def make_train_step(
@@ -95,19 +117,24 @@ def make_train_step(
     lamda_perceptual: float = 8.0,
     latent_dim: int = bmgan.LATENT_DIM,
     exact_d_fake: bool = False,
+    mesh: Optional[Mesh] = None,
+    batch_size: Optional[int] = None,
 ) -> Callable[[BMGANState, Mapping[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]:
     """One G, one E and one D step on a batch {"t1", "pet"} of device tensors,
-    z drawn from the given generator. Updates the state in place and returns
+    z drawn from the given generator (across ranks, ``mesh`` and ``batch_size``
+    the batch of one node: this rank's rows, z the global batch's cut to them). Updates the state in place and returns
     the JAX package's metrics (0-d tensors): g_loss, l1_loss, adv_loss, p_loss
     (the last three unweighted), e_loss and d_loss."""
 
+    rows = mesh.global_rows(batch_size) if mesh is not None and mesh.distributed and batch_size else None
+
     def train_step(state: BMGANState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
         t1, pet = batch["t1"], batch["pet"]
-        z = _latent(t1, latent_dim, generator)
+        z = _latent(t1, latent_dim, generator, rows)
 
         state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
-            fake = state.g(t1, z)
+            fake = state.g_dp(t1, z)
             adv = patch_adversarial_loss(state.d(fake), target_is_real=True, for_discriminator=False)
             rec = l1_loss(fake, pet)
             p = (state.perceptual(fake, pet) if lamda_perceptual > 0 and state.perceptual is not None
@@ -121,14 +148,14 @@ def make_train_step(
         fake = fake.detach()
 
         state.opt_e.zero_grad(set_to_none=True)
-        mu, logvar = state.e(torch.cat([pet, fake], dim=0))
+        mu, logvar = state.e_dp(torch.cat([pet, fake], dim=0))
         (mu_r, mu_f), (lv_r, lv_f) = mu.chunk(2, dim=0), logvar.chunk(2, dim=0)
         e_loss = kl_divergence(mu_r, lv_r) + kl_divergence(mu_f, lv_f)
         e_loss.backward()
         state.opt_e.step()
 
         state.opt_d.zero_grad(set_to_none=True)
-        logits_fake, logits_real = state.d(torch.cat([fake, pet], dim=0)).chunk(2, dim=0)
+        logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0)).chunk(2, dim=0)
         d_loss = lsgan_discriminator_loss(logits_fake, logits_real)
         d_loss.backward()
         state.opt_d.step()

@@ -19,7 +19,12 @@ Losses (config training_causal.json):
   decoder under no_grad, with the PET step's noise, as JAX does.
 
 The noise eps is drawn by `sample_noise` from the caller's ``torch.Generator``:
-eps_t1 first, then eps_pet. Tests replace `sample_noise` to feed the noise
+eps_t1 first, then eps_pet. Across ranks (``mesh``) the trio and D train under
+DDP, the trio as one module (`CausalGenerator`); each noise is drawn for the
+global batch and sliced to this rank's rows, so W ranks draw what one
+process draws for the whole batch; the frozen critic and the
+``exact_d_fake`` regeneration go to the networks themselves, and the
+non-finite guard is decided over all ranks. Tests replace `sample_noise` to feed the noise
 that the JAX package draws. The unpacked, un-rematted function: the JAX
 package's space-to-depth packing and remat policies are TPU layout and memory
 devices that do not change the result, and are not ported.
@@ -27,7 +32,7 @@ devices that do not change the result, and are not ported.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -40,22 +45,46 @@ from cips_tpu_torch.models.autoencoder_kl import Decoder
 from cips_tpu_torch.models.decoder import DiffusionModelDecoder
 from cips_tpu_torch.models.discriminator import PatchDiscriminator
 from cips_tpu_torch.models.encoder import DiffusionModelEncoder
+from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
 
 GENERATOR_PARTS = ("encoder", "t1_decoder", "pet_decoder")
 
 
+class CausalGenerator(nn.ModuleDict):
+    """The trio (encoder, t1_decoder, pet_decoder) as one module, whose forward is
+    the generator step's: DDP wraps the three together."""
+
+    def forward(self, t1: torch.Tensor, info: torch.Tensor, noise: Callable[[torch.Tensor], torch.Tensor]):
+        """(z_mu, z_sigma, the T1 reconstruction, the PET synthesis, eps_pet):
+        ``noise(z_sigma)`` draws eps_t1, then eps_pet."""
+        z_mu, z_sigma = split_latent(self["encoder"](t1))
+        eps_t1 = noise(z_sigma)
+        t1_rec = self["t1_decoder"](z_mu + eps_t1 * z_sigma)
+        eps_pet = noise(z_sigma)
+        rec_pet = self["pet_decoder"](z_mu + eps_pet * z_sigma, info)
+        return z_mu, z_sigma, t1_rec, rec_pet, eps_pet
+
+
 @dataclass
 class CausalState:
     """The trio (``gen``: encoder, t1_decoder, pet_decoder), D, the frozen
-    perceptual net (None when its weight is 0), the two Adams and the step count."""
+    perceptual net (None when its weight is 0), the two Adams and the step count.
+    ``gen_dp`` and ``d_dp`` are the trio and D as the step trains them: their
+    DDP wrappers across ranks, else themselves."""
 
-    gen: nn.ModuleDict
+    gen: CausalGenerator
     d: PatchDiscriminator
     perceptual: Optional[lpips.PerceptualLoss]
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
     step: int = 0
+    gen_dp: Optional[nn.Module] = field(default=None, repr=False)
+    d_dp: Optional[nn.Module] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.gen_dp = self.gen if self.gen_dp is None else self.gen_dp
+        self.d_dp = self.d if self.d_dp is None else self.d_dp
 
 
 def build_models(
@@ -92,14 +121,18 @@ def init_state(
     discriminator: PatchDiscriminator,
     perceptual: lpips.PerceptualLoss,
     train_cfg: Mapping[str, Any],
+    mesh: Optional[Mesh] = None,
 ) -> CausalState:
-    gen = nn.ModuleDict(dict(zip(GENERATOR_PARTS, (encoder, t1_decoder, pet_decoder))))
+    """The state; across ranks the trio and D are wrapped for data-parallel training."""
+    gen = CausalGenerator(dict(zip(GENERATOR_PARTS, (encoder, t1_decoder, pet_decoder))))
     return CausalState(
         gen=gen,
         d=discriminator,
         perceptual=perceptual if float(train_cfg.get("perceptual_weight", 0.02)) > 0 else None,
         opt_g=adam(gen.parameters(), train_cfg.get("base_lr", 1e-4)),
         opt_d=adam(discriminator.parameters(), train_cfg.get("disc_lr", 1e-3)),
+        gen_dp=data_parallel(gen, mesh),
+        d_dp=data_parallel(discriminator, mesh),
     )
 
 
@@ -119,15 +152,23 @@ def _encode(gen: nn.ModuleDict, t1: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     return split_latent(gen["encoder"](t1))
 
 
-def _noise_like(z: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    return sample_noise(z.shape, z.dtype, z.device, generator)
+def _noise_like(z: torch.Tensor, generator: torch.Generator,
+                rows: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
+    """Noise shaped like ``z``; with ``rows`` = (n, s), drawn for n rows and cut to rows s."""
+    if rows is None:
+        return sample_noise(z.shape, z.dtype, z.device, generator)
+    n, s = rows
+    return sample_noise((n, *z.shape[1:]), z.dtype, z.device, generator)[s]
 
 
 def make_train_step(
-    train_cfg: Mapping[str, Any], exact_d_fake: Optional[bool] = None, nan_guard: bool = False
+    train_cfg: Mapping[str, Any], exact_d_fake: Optional[bool] = None, nan_guard: bool = False,
+    mesh: Optional[Mesh] = None, batch_size: Optional[int] = None,
 ) -> Callable[[CausalState, Mapping[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]:
     """One generator step then one D step on a batch {"t1", "pet", "info"} of
-    device tensors, the noise drawn from the given generator. Updates the
+    device tensors, the noise drawn from the given generator. Across ranks
+    (``mesh``, and ``batch_size`` the batch of one node) the batch is this
+    rank's rows and the noise is the global batch's, cut to them. Updates the
     state in place and returns the JAX package's metrics (0-d tensors):
     g_loss (g_loss + t1_loss), rec_pet_loss, rec_t1_loss, kl_loss, p_loss and
     adv_loss (each times its weight) and d_loss. With ``nan_guard``, a
@@ -138,6 +179,7 @@ def make_train_step(
     kw = float(train_cfg.get("kl_weight", 0.001))
     if exact_d_fake is None:
         exact_d_fake = bool(train_cfg.get("exact_d_fake", False))
+    rows = mesh.global_rows(batch_size) if mesh is not None and mesh.distributed and batch_size else None
 
     def train_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
         t1, pet, info = batch["t1"], batch["pet"], batch["info"]
@@ -146,11 +188,7 @@ def make_train_step(
 
         state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
-            z_mu, z_sigma = _encode(gen, t1)
-            eps_t1 = _noise_like(z_sigma, generator)
-            t1_rec = gen["t1_decoder"](z_mu + eps_t1 * z_sigma)
-            eps_pet = _noise_like(z_sigma, generator)
-            rec_pet = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info)
+            z_mu, z_sigma, t1_rec, rec_pet, eps_pet = state.gen_dp(t1, info, lambda z: _noise_like(z, generator, rows))
             rec_pet_loss = l1_loss(rec_pet, pet)
             rec_t1_loss = l1_loss(t1_rec, t1)
             kl = kl_divergence(z_mu, z_sigma)
@@ -163,7 +201,7 @@ def make_train_step(
                    "rec_t1_loss": rec_t1_loss.detach(), "kl_loss": kl.detach(), "p_loss": p.detach() * pw,
                    "adv_loss": adv.detach() * aw}
         if nan_guard:
-            ok = guard_nonfinite(total)
+            ok = guard_nonfinite(total, mesh)
             metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
             if not ok:
                 metrics["d_loss"] = torch.tensor(float("nan"))
@@ -178,7 +216,7 @@ def make_train_step(
                     fake = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info)
             fake = fake.detach()
             state.opt_d.zero_grad(set_to_none=True)
-            logits_fake, logits_real = state.d(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
+            logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
             d_loss = lsgan_discriminator_loss(logits_fake, logits_real)
             d_loss.backward()
             state.opt_d.step()

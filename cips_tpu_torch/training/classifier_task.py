@@ -10,19 +10,28 @@ space-to-depth by default; that is a TPU layout of the same function and is
 not ported. Dropout follows the JAX step's ``dropout`` flag: on, the head's
 dropout draws from torch's generator (JAX's draws from its key, so a step with
 dropout matches JAX only in distribution); off, the step is deterministic.
+
+Across ranks (``mesh``) the classifier trains under DDP, which averages the
+ranks' gradients. The weighted mean's denominator is then the mean over the
+ranks of their weight sums (one all-reduce), so that the average of the ranks'
+losses is the global batch's weighted mean: a rank's own denominator would
+weight its samples by its batch's mix of classes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
 
 from cips_tpu_torch import default_device
 from cips_tpu_torch.models.atten_unet import init_params
 from cips_tpu_torch.models.encoder import DiffusionModelEncoder
+from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam
 
 CLASS_WEIGHTS = (1.0, 4.0)  # sMCI, pMCI
@@ -30,11 +39,17 @@ CLASS_WEIGHTS = (1.0, 4.0)  # sMCI, pMCI
 
 @dataclass
 class ClassifierState:
-    """The classifier, its Adam optimiser and the count of applied steps."""
+    """The classifier, its Adam optimiser and the count of applied steps;
+    ``model_dp`` is the classifier as the step trains it: its DDP wrapper across
+    ranks, else itself."""
 
     model: DiffusionModelEncoder
     opt: torch.optim.Adam
     step: int = 0
+    model_dp: Optional[nn.Module] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.model_dp = self.model if self.model_dp is None else self.model_dp
 
 
 def build_model(
@@ -60,37 +75,44 @@ def build_model(
     return model.to(default_device(device))
 
 
-def init_state(model: DiffusionModelEncoder, lr: float = 1e-4) -> ClassifierState:
-    return ClassifierState(model=model, opt=adam(model.parameters(), lr))
+def init_state(model: DiffusionModelEncoder, lr: float = 1e-4, mesh: Optional[Mesh] = None) -> ClassifierState:
+    return ClassifierState(model=model, opt=adam(model.parameters(), lr), model_dp=data_parallel(model, mesh))
 
 
 def weighted_cross_entropy(
-    logits: torch.Tensor, labels: torch.Tensor, weights: Sequence[float] = CLASS_WEIGHTS
+    logits: torch.Tensor, labels: torch.Tensor, weights: Sequence[float] = CLASS_WEIGHTS,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Mean cross entropy with per-class weights, the weighted mean (sum of w_i
-    nll_i over sum of w_i), in fp32."""
+    nll_i over sum of w_i), in fp32. Across ranks the denominator is the mean
+    of the ranks' weight sums (see the module's docstring)."""
     logp = F.log_softmax(logits.float(), dim=-1)
     w = torch.tensor(weights, dtype=torch.float32, device=logits.device)[labels]
     nll = -logp.gather(-1, labels[:, None].long())[:, 0]
-    return (w * nll).sum() / w.sum().clamp_min(1e-12)
+    total = w.sum()
+    if mesh is not None and mesh.distributed:
+        dist.all_reduce(total)
+        total = total / mesh.world_size
+    return (w * nll).sum() / total.clamp_min(1e-12)
 
 
-def _forward(model: DiffusionModelEncoder, batch: Mapping[str, torch.Tensor], use_tabular: bool) -> torch.Tensor:
+def _forward(model: nn.Module, batch: Mapping[str, torch.Tensor], use_tabular: bool) -> torch.Tensor:
     return model(batch["imgs"], batch["info"] if use_tabular else None)
 
 
 def make_train_step(
-    use_tabular: bool, dropout: bool = True
+    use_tabular: bool, dropout: bool = True, mesh: Optional[Mesh] = None
 ) -> Callable[[ClassifierState, Mapping[str, torch.Tensor]], Dict[str, torch.Tensor]]:
-    """One Adam step on a batch {"imgs", "info", "labels"} of device tensors;
-    returns ce_loss, accuracy (0-d) and the step's logits (fp32)."""
+    """One Adam step on a batch {"imgs", "info", "labels"} of device tensors
+    (this rank's rows of it across ranks); returns ce_loss, accuracy (0-d) and
+    the step's logits (fp32)."""
 
     def train_step(state: ClassifierState, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         labels = batch["labels"].long()
-        state.model.train(dropout)
+        state.model_dp.train(dropout)
         state.opt.zero_grad(set_to_none=True)
-        logits = _forward(state.model, batch, use_tabular)
-        loss = weighted_cross_entropy(logits, labels)
+        logits = _forward(state.model_dp, batch, use_tabular)
+        loss = weighted_cross_entropy(logits, labels, mesh=mesh)
         loss.backward()
         state.opt.step()
         state.step += 1

@@ -15,7 +15,8 @@ when the flagship trains with LPIPS); the causal generator's holds
 checkpoints of the JAX package are not read.
 
 Metrics are written as ``metrics.jsonl`` records in the JAX package's format;
-there is no TensorBoard writer.
+there is no TensorBoard writer. Across ranks only rank 0 writes, and the
+metrics are means over the ranks (`mean_over_ranks`).
 """
 
 from __future__ import annotations
@@ -24,13 +25,16 @@ import contextlib
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from cips_tpu_torch import default_device
 from cips_tpu_torch.models import perceptual as lpips
+from cips_tpu_torch.parallel.mesh import Mesh
 
 
 def adam(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.Adam:
@@ -125,39 +129,83 @@ class CheckpointManager:
 
 
 class MetricWriter:
-    """Appends ``{"step", "prefix", **metrics}`` records to ``{log_dir}/metrics.jsonl``."""
+    """Appends ``{"step", "prefix", **metrics}`` records to ``{log_dir}/metrics.jsonl``;
+    writes nothing when not ``enabled`` (every rank but rank 0)."""
 
-    def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a", encoding="utf-8")
+    def __init__(self, log_dir: str, enabled: bool = True):
+        self.enabled = enabled
+        self._jsonl = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a", encoding="utf-8")
 
     def scalars(self, prefix: str, metrics: Mapping[str, float], step: int) -> None:
+        if self._jsonl is None:
+            return
         clean = {k: float(v) for k, v in metrics.items()}
         self._jsonl.write(json.dumps({"step": step, "prefix": prefix, **clean}) + "\n")
         self._jsonl.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
-def guard_nonfinite(loss: torch.Tensor) -> bool:
+def mean_over_ranks(metrics: Mapping[str, torch.Tensor], mesh: Optional[Mesh] = None) -> Dict[str, float]:
+    """Each 0-d metric as a float, averaged over the ranks: every rank's batch is
+    the same size, so this is the mean over the global batch that the JAX step
+    returns. Every rank must call it at the same step (one all-reduce)."""
+    if mesh is None or not mesh.distributed:
+        return {k: float(v) for k, v in metrics.items()}
+    stacked = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(mesh.device).reshape(())
+                           for v in metrics.values()])
+    dist.all_reduce(stacked)
+    return dict(zip(metrics, (stacked / mesh.world_size).tolist()))
+
+
+def global_mean(values: Sequence[float], mesh: Optional[Mesh] = None) -> float:
+    """The mean of every rank's ``values`` (sums and counts all-reduced); NaN when
+    there are none."""
+    if mesh is None or not mesh.distributed:
+        return float(np.mean(values)) if len(values) else float("nan")
+    sums = torch.tensor([sum(values), len(values)], dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(sums)
+    total, count = sums.tolist()
+    return total / count if count else float("nan")
+
+
+def guard_nonfinite(loss: torch.Tensor, mesh: Optional[Mesh] = None) -> bool:
     """Failure detection for a train step (the reference has none): True when
-    ``loss`` is finite. A guarded step asks before any optimiser step and, on
-    False, skips the generator's and the discriminator's updates together, as
-    the JAX package discards both. It costs one device-to-host read per step."""
-    return bool(torch.isfinite(loss).item())
+    ``loss`` is finite on every rank. A guarded step asks before any optimiser
+    step and, on False, skips the generator's and the discriminator's updates
+    together, as the JAX package discards both; across ranks the decision is
+    taken on the all-reduced count of non-finite losses, so every rank skips
+    together (JAX tests the global loss), and replicas never part. It costs one
+    device-to-host read per step, and one all-reduce across ranks."""
+    bad = (~torch.isfinite(loss.detach())).float().reshape(())
+    if mesh is not None and mesh.distributed:
+        bad = bad.to(mesh.device)
+        dist.all_reduce(bad)
+    return bad.item() == 0
 
 
 class StepTimer:
     """Per-step wall-clock laps (host clock; a lap that should include the
-    device's work must end in a synchronize or a host read)."""
+    device's work must end in a synchronize or a host read), kept in ``history``."""
 
     def __init__(self):
         self._last = time.perf_counter()
+        self.history: List[float] = []
 
     def lap(self) -> float:
         """Seconds since the previous lap (or since construction)."""
         now = time.perf_counter()
         dt = now - self._last
         self._last = now
+        self.history.append(dt)
         return dt
+
+    def mean(self, skip: int = 1) -> float:
+        """The mean lap after the first ``skip`` (all of them when there are no more)."""
+        laps = self.history[skip:] or self.history
+        return sum(laps) / max(len(laps), 1)

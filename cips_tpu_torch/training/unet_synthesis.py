@@ -15,21 +15,27 @@ cips_tpu/training/unet_synthesis.py).
   * the condition is the covariate row as (B, 1, K), or zeros when unconditional.
 
 The train step updates G, D and their Adam optimisers in place and returns the
-JAX package's metrics. The JAX package's remat policies and ``d_remat`` are HBM
+JAX package's metrics. Across ranks (``mesh``) G and D train under DDP
+(`GANState.g_dp`, `d_dp`); the critic's forward in the G step, frozen, and the
+``exact_d_fake`` regeneration go to the networks themselves, so that every
+forward through a wrapper is followed by the one backward that reaches all of
+its parameters; the non-finite guard is decided over all ranks. The JAX package's remat policies and ``d_remat`` are HBM
 devices that do not change the result; they are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
+from torch import nn
 
 from cips_tpu_torch.losses import l1_loss, lsgan_discriminator_loss, patch_adversarial_loss
 from cips_tpu_torch.models import perceptual as lpips
 from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.models.discriminator import PatchDiscriminator
+from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
 
 VOLUME_SHAPE = (96, 128, 96)
@@ -38,7 +44,9 @@ VOLUME_SHAPE = (96, 128, 96)
 @dataclass
 class GANState:
     """The two networks, their Adam optimisers, the count of applied steps and
-    the frozen perceptual network (None when its weight is 0)."""
+    the frozen perceptual network (None when its weight is 0). ``g_dp`` and
+    ``d_dp`` are the networks as the step trains them: their DDP wrappers
+    across ranks, else the networks themselves."""
 
     g: AttenUNet
     d: PatchDiscriminator
@@ -46,6 +54,12 @@ class GANState:
     opt_d: torch.optim.Adam
     step: int = 0
     perceptual: Optional[lpips.PerceptualLoss] = None
+    g_dp: Optional[nn.Module] = field(default=None, repr=False)
+    d_dp: Optional[nn.Module] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.g_dp = self.g if self.g_dp is None else self.g_dp
+        self.d_dp = self.d if self.d_dp is None else self.d_dp
 
 
 def build_models(
@@ -80,9 +94,11 @@ def init_state(
     discriminator: PatchDiscriminator,
     train_cfg: Mapping[str, Any],
     perceptual: Optional[lpips.PerceptualLoss] = None,
+    mesh: Optional[Mesh] = None,
 ) -> GANState:
     """The state; ``perceptual`` is kept only when ``perceptual_weight`` is above 0,
-    and is then required (a ValueError without it)."""
+    and is then required (a ValueError without it). Across ranks G and D are
+    wrapped for data-parallel training (rank 0's weights broadcast)."""
     with_perceptual = _weights(train_cfg)[0] > 0
     if with_perceptual and perceptual is None:
         raise ValueError("perceptual_weight is above 0 but no perceptual network was given")
@@ -92,6 +108,8 @@ def init_state(
         opt_g=adam(generator.parameters(), train_cfg.get("base_lr", 5e-4)),
         opt_d=adam(discriminator.parameters(), train_cfg.get("disc_lr", 1e-4)),
         perceptual=perceptual if with_perceptual else None,
+        g_dp=data_parallel(generator, mesh),
+        d_dp=data_parallel(discriminator, mesh),
     )
 
 
@@ -120,9 +138,10 @@ def make_train_step(
     exact_d_fake: Optional[bool] = None,
     split_d: Optional[bool] = None,
     nan_guard: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[GANState, Mapping[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """One G step then one D step on a batch {"t1", "pet", "info"} of device
-    tensors. Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
+    tensors (this rank's rows of it across ranks). Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
     JAX reports it), adv_loss and d_loss, the last two times adv_weight. With
     ``nan_guard``, a non-finite g_loss skips both optimiser steps (the step
     count stays) and the metrics gain ``skipped_nonfinite``."""
@@ -139,7 +158,7 @@ def make_train_step(
 
         state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
-            fake = state.g(t1, cond)
+            fake = state.g_dp(t1, cond)
             rec = l1_loss(fake, pet)
             p = _perceptual(state, pw, fake, pet)
             adv = (patch_adversarial_loss(state.d(fake)[-1], target_is_real=True, for_discriminator=False)
@@ -149,7 +168,7 @@ def make_train_step(
         metrics = {"g_loss": g_loss.detach(), "rec_loss": rec.detach(), "p_loss": p.detach(),
                    "adv_loss": adv.detach() * aw}
         if nan_guard:
-            ok = guard_nonfinite(g_loss)
+            ok = guard_nonfinite(g_loss, mesh)
             metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
             if not ok:
                 metrics["d_loss"] = torch.tensor(float("nan"))
@@ -163,9 +182,9 @@ def make_train_step(
             fake = fake.detach()
             state.opt_d.zero_grad(set_to_none=True)
             if split_d:
-                logits_fake, logits_real = state.d(fake)[-1], state.d(pet)[-1]
+                logits_fake, logits_real = state.d_dp(fake)[-1], state.d_dp(pet)[-1]
             else:
-                logits_fake, logits_real = state.d(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
+                logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
             d_loss = lsgan_discriminator_loss(logits_fake, logits_real)
             d_loss.backward()
             state.opt_d.step()
