@@ -115,7 +115,20 @@ Phases (any failure raises and the script exits non-zero):
                 resumed at 1 rank; the dry run (cips_tpu_torch.parallel.dryrun) of
                 two fp32 flagship steps at the reduced crop at W ranks held to one
                 process on the same global batch;
- 16. summary  — a JSON line of kernels, the card line, and the result line.
+ 16. space parallel — train_unet under torchrun at --n_space 2 (the mesh's space
+                axis: each rank a depth slab of every volume), full width and
+                volume, bf16, global batch 2, one epoch of 4 steps with eval and a
+                checkpoint: 2 ranks sharing the one card over gloo (4 cards or more:
+                data 2 x space 2 over NCCL); replicas identical, 6/6/6 flash launches
+                a step on each rank at Lq 1152 against Lk 2304, one writer, the first
+                two steps' losses against phase 15's 1-rank steps; step time a rank, peak
+                memory a rank, bytes exchanged a step by kind; the checkpoint resumed
+                at 1 rank; the flash kernels at (2, 4, 1152, 32) and (2, 4, 576, 32)
+                against Lk 2304 in bf16 and fp32 held to their plain versions, timed
+                beside SDPA and their bound; the fp32 step at full width and the
+                reduced crop at space 2 against one process: losses, replicas, G
+                and D each alone (cips_tpu_torch/scripts/probe_space_kink.py);
+ 17. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
 """
@@ -569,16 +582,19 @@ def sdpa_yardstick(q, k, v, dout, scale: float, iters: int, want=None) -> tuple:
     return (fwd[best_f], best_f), (bwd[best_b], best_b)
 
 
-def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16) -> dict:
+def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16, lk=None) -> dict:
     """Each flash kernel's device time (``ms``) and its time launched eagerly
     from Python (``eager_ms``, CUDA events over the calls after 20 warm-up, the
     host's work per call included) beside its three-term bound, its plain
     version's time and the fastest pinned SDPA call's device time, SDPA first
     held to the plain versions (both when ``plain``); {"fwd" | "dq" | "dkv": row}.
-    fp32 runs the fp32 kernels, which ``--dtype f32`` sends every attention to."""
+    fp32 runs the fp32 kernels, which ``--dtype f32`` sends every attention to.
+    ``lk``: the keys' length (Lq unless given; a space rank's queries attend to
+    the whole volume's keys)."""
     b, h, l, d = shape
+    lk = l if lk is None else lk
     iters = 200 if l <= 4096 else 50
-    q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, seed=1)
+    q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, seed=1, lk=lk)
     want = None
     if plain:
         f32 = [t.float() for t in (q, k, v, dout)]
@@ -586,21 +602,22 @@ def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16) -> dict:
             *f32, lse, delta, scale), *fa.flash_attention_bwd_dkv_reference(*f32, lse, delta, scale))
     (sdpa_f, name_f), (sdpa_b, name_b) = sdpa_yardstick(q, k, v, dout, scale, iters, want)
     del want
-    pairs = b * h * l * l
+    pairs = b * h * l * lk
     size = q.element_size()
+    rows_q, rows_k = b * h * l * d * size, b * h * lk * d * size  # one tensor of q's, of k's shape
     kernels = {
-        # 4 B H L^2 Dh operations; q, k, v, out and lse; one exponential per score
+        # 4 B H Lq Lk Dh operations; q, k, v, out and lse; one exponential per score
         "fwd": (lambda: fa.flash_attention_forward(q, k, v, scale),
                 lambda: fa.flash_attention_reference(q, k, v, scale),
-                4.0 * pairs * d, 4 * b * h * l * d * size + b * h * l * 4, sdpa_f, name_f),
-        # dQ 6 B H L^2 Dh operations, dK/dV 8; each reads q, k, v, dO and lse, delta (fp32)
+                4.0 * pairs * d, 2 * rows_q + 2 * rows_k + b * h * l * 4, sdpa_f, name_f),
+        # dQ 6 B H Lq Lk Dh operations, dK/dV 8; each reads q, k, v, dO and lse, delta (fp32)
         # and writes its grads; each recomputes one exponential per score
         "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
                lambda: fa.flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta, scale),
-               6.0 * pairs * d, 5 * b * h * l * d * size + 2 * b * h * l * 4, sdpa_b, name_b),
+               6.0 * pairs * d, 3 * rows_q + 2 * rows_k + 2 * b * h * l * 4, sdpa_b, name_b),
         "dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale),
                 lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale),
-                8.0 * pairs * d, 6 * b * h * l * d * size + 2 * b * h * l * 4, sdpa_b, name_b),
+                8.0 * pairs * d, 2 * rows_q + 4 * rows_k + 2 * b * h * l * 4, sdpa_b, name_b),
     }
     rows = {}
     for kind, (kernel, reference, flops, nbytes, library_ms, library) in kernels.items():
@@ -611,7 +628,7 @@ def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16) -> dict:
         yardstick = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
         # fp32: the operations at the FMA rate, the fp32 bound before 3xTF32, printed only
         fma = f", at the FMA rate {fma_ms(flops):.5f} ms ({fma_ms(flops) / ms:.1%})" if dtype == torch.float32 else ""
-        print(f"flash {kind} {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call "
+        print(f"flash {kind} {shape}{'' if lk == l else f' Lk {lk}'} {str(dtype)[6:]}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms a call "
               f"eagerly), plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, {yardstick} {library.lower()} "
               f"{library_ms:.4f} ms on the device ({ms / library_ms:.2f}x), bound {bound:.5f} ms ({bound_by}); "
               f"{bound / ms:.1%} of bound{fma}")
@@ -2116,10 +2133,11 @@ DP_CROP = PARITY_CROP  # the fp32 comparison of W ranks with one process (the dr
 
 
 def dp_rank_main(out_pattern: str, argv: list) -> int:
-    """One rank of phase 15, under torchrun: joins the process group, runs
-    cips_tpu_torch.cli.train_unet.main(argv) with each train step's flash launches,
-    time (CUDA events) and all-reduced bytes recorded, then writes what it saw to
-    ``out_pattern.format(rank=...)``: those records, its peak memory
+    """One rank of phases 15 and 16, under torchrun: joins the process group, runs
+    cips_tpu_torch.cli.train_unet.main(argv) with each train step's flash launches
+    and their (kernel, Lq, Lk), time (CUDA events), all-reduced bytes, bytes
+    exchanged over the space group by kind and metrics recorded, then writes what
+    it saw to ``out_pattern.format(rank=...)``: those records, its peak memory
     (`device_memory_report`), its checkpoint-metadata writes, its trained networks'
     gradient bytes and their largest difference from rank 0's, all-reduced."""
     from cips_tpu_torch.cli import train_unet
@@ -2129,23 +2147,33 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
     from cips_tpu_torch.training import profiling, unet_synthesis
     from cips_tpu_torch.training.common import CheckpointManager
 
-    mesh = pm.make_mesh("cuda")
-    steps, meta_writes = [], []
-    make_train_step, write_meta = unet_synthesis.make_train_step, CheckpointManager._write_meta
+    mesh = pm.make_mesh("cuda")  # the world's group; train_unet's own mesh adds any space groups
+    steps, meta_writes, launched = [], [], []
+    make_train_step, write_meta, launch = unet_synthesis.make_train_step, CheckpointManager._write_meta, fa._launch
+
+    def recorded_launch(name, q, k, *pointers, scale):
+        launched.append((name, q.shape[2], k.shape[2]))
+        return launch(name, q, k, *pointers, scale=scale)
 
     def recorded_make(*args, **kwargs):
         step = make_train_step(*args, **kwargs)
 
         def recorded(*step_args):
+            space = step_args[0].space  # the GANState's space group, None without one
             pm.data_parallel.reduced_bytes = 0
-            before = counts(fa)
+            if space is not None:
+                space.reset()
+            before, first = counts(fa), len(launched)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             out = step(*step_args)
             end.record()
             end.synchronize()
             steps.append({"launches": [a - b for a, b in zip(counts(fa), before)], "ms": start.elapsed_time(end),
-                          "reduced_bytes": pm.data_parallel.reduced_bytes})
+                          "reduced_bytes": pm.data_parallel.reduced_bytes,
+                          "space_bytes": dict(space.exchanged) if space is not None else {},
+                          "flash_shapes": sorted(set(launched[first:])),
+                          "metrics": {k: float(v) for k, v in out.items()}})
             return out
 
         return recorded
@@ -2154,7 +2182,8 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
         meta_writes.append(dict(meta))
         write_meta(self, meta)
 
-    unet_synthesis.make_train_step, CheckpointManager._write_meta = recorded_make, recorded_meta
+    unet_synthesis.make_train_step, CheckpointManager._write_meta, fa._launch = recorded_make, recorded_meta, \
+        recorded_launch
     try:
         set_counts(fa, (0, 0, 0))
         torch.cuda.reset_peak_memory_stats()
@@ -2172,7 +2201,7 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
         with open(out_pattern.format(rank=mesh.rank), "w", encoding="utf-8") as f:
             json.dump(record, f)
     finally:
-        unet_synthesis.make_train_step, CheckpointManager._write_meta = make_train_step, write_meta
+        unet_synthesis.make_train_step, CheckpointManager._write_meta, fa._launch = make_train_step, write_meta, launch
         mesh.close()
     return 0
 
@@ -2269,7 +2298,7 @@ def data_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str, 
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "cips_tpu_torch.parallel.dryrun", str(n), "--steps", "2",
-                           "--crop", *map(str, DP_CROP), "--dtype", "f32"],
+                           "--crop", *map(str, DP_CROP), "--dtype", "f32", "--n_space", "1"],
                           capture_output=True, text=True, timeout=DP_EPOCH_TIMEOUT,
                           env={**os.environ, "CIPS_DRYRUN_FULL": "1", "OMP_NUM_THREADS": "1"})
     if proc.returncode != 0:
@@ -2289,7 +2318,167 @@ def data_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str, 
           f"by {payload['max_rank_diff']}; {card}")
     return {"ranks": n, "backend": multi[1], "step_ms": step_ms, "peak_gib": peak,
             "launches_per_rank": [r["launches"] for r in records[n]],
-            "reduced_bytes": records[n][0]["steps"][0]["reduced_bytes"], "dryrun": payload}
+            "reduced_bytes": records[n][0]["steps"][0]["reduced_bytes"], "dryrun": payload,
+            "one_rank_metrics": [s["metrics"] for s in records[1][0]["steps"]]}
+
+
+SPACE_LK = 2304  # the flagship's attention level (12 x 16 x 12 tokens): a space rank's queries attend to all of it
+SPACE_ATTN = ((TRAIN_BATCH, 4, SPACE_LK // 2, 32), (TRAIN_BATCH, 4, SPACE_LK // 4, 32))  # n_space 2 and 4
+# Phase 16's first two train steps at n_space 2 against phase 15's 1-rank steps on the same batches from
+# the same weights (the same stores and seed), bf16: each loss within this share of the 1-rank one. The
+# first step's losses differ only by the means' rounding (measured 0): the trainers' zero-initialised
+# output convs make G's fake and D's logits 0 in the first forward, so they check the rows and the slabs'
+# means. The second step's follow one Adam step, which moves each weight by about lr whatever its
+# gradient's size, so they part by the elements whose gradients' signs differ between two summation
+# orders (measured 6.6e-4 at most on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md). Later steps
+# compound that (1.8e-3 and 7.4e-3 there) and are printed, not held.
+TOL_SPACE_LOSS_REL = 1e-2
+SPACE_LOSS_STEPS = 2  # the steps held to TOL_SPACE_LOSS_REL
+SPACE_LOSSES = ("g_loss", "rec_loss", "adv_loss", "d_loss")
+
+
+def space_kernel_checks(fa) -> None:
+    """The forward, dQ and dK/dV kernels at a space rank's shapes (Lq = 2304 /
+    n_space against Lk = 2304) in bf16 and fp32, against their plain versions in
+    fp32 on the same inputs, within the limits of phase 3."""
+    for i, (shape, dtype) in enumerate(itertools.product(SPACE_ATTN, (torch.bfloat16, torch.float32))):
+        q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, 40 + i, lk=SPACE_LK)
+        got = (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
+               *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale))
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, dout)]
+        ref_out, ref_lse = fa.flash_attention_reference(*f32[:3], scale)
+        want = (fa.flash_attention_bwd_dq_reference(*f32, lse, delta, scale),
+                *fa.flash_attention_bwd_dkv_reference(*f32, lse, delta, scale))
+        bf16 = dtype == torch.bfloat16
+        tol_out, tol_grad = (TOL_BF16_OUT_REL, TOL_BF16_GRAD_REL) if bf16 else (TOL_F32_OUT_REL, TOL_F32_GRAD_REL)
+        rel_out = ((out.float() - ref_out).abs().max() / ref_out.abs().max()).item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        rels = [((a.float() - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+        print(f"space kernels {shape} Lk {SPACE_LK} {str(dtype)[6:]}: out {rel_out:.3e} of max|out| (tol {tol_out:g}), "
+              f"lse {lse_err:.3e} (tol {TOL_LSE:g}); dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} of "
+              f"max|grad| (tol {tol_grad:g})")
+        check(rel_out <= tol_out and lse_err <= TOL_LSE and all(r <= tol_grad for r in rels)
+              and all(torch.isfinite(t).all().item() for t in (out, *got)),
+              f"flash kernels disagree with their plain versions at {shape} Lk {SPACE_LK} {dtype}")
+
+
+def space_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str, card: str,
+                         one_rank_metrics: list) -> dict:
+    """Phase 16: cips_tpu_torch.cli.train_unet under torchrun at --n_space 2 (one
+    card: 2 ranks sharing it over gloo; 2-3 cards: 2 over NCCL; 4 or more: data 2 x
+    space 2 over NCCL), flagship, bf16, full volume, global batch 2, one epoch of 4
+    steps with eval and a checkpoint. Checked: identical replicas, 6/6/6 flash
+    launches a step on each rank, all at Lq 1152 / Lk 2304, DDP's bytes, one writer,
+    the first two steps' losses against phase 15's 1-rank steps on the same batches; the
+    checkpoint resumed at 1 rank; the flash kernels at a space rank's shapes held to
+    their plain versions and timed beside SDPA and their bound; the fp32 step at the
+    reduced crop against one process (`scripts/probe_space_kink.py --check`)."""
+    from cips_tpu_torch.cli import train_unet
+    from cips_tpu_torch.training.common import CheckpointManager
+
+    cards = torch.cuda.device_count()
+    n, backend = (4, "nccl") if cards >= 4 else (2, "nccl" if cards >= 2 else "gloo")
+    layout = f"data {n // 2} x space 2"
+    print(f"space parallel: {cards} card(s); train_unet --n_space 2 at {n} ranks ({layout}) over {backend}"
+          + (" sharing the one card: the step time measures the mechanism's cost through gloo and the host, "
+             "not a speed-up" if cards == 1 else ""))
+
+    def args(exp: str, *extra) -> list:
+        return ["--PET_dir", tree["pet"], "--T1_dir", tree["t1"], "--min_and_max", tree["stats"], "--use_condition",
+                "--crop_size", *map(str, CROP), "--device", "cuda", "--exp_dir", exp,
+                "--training_info_csv", tree["csv"], "--eval_info_csv", eval_csv, "--packed_dir", packed[0],
+                "--eval_packed_dir", packed[1], "--dtype", "bf16", "--batch_size", str(TRAIN_BATCH),
+                "--save_every", "1", *extra]
+
+    exp = os.path.join(tmp, f"space_{n}")
+    recs = dp_run(n, backend, args(exp, "--epochs", "1", "--n_space", "2"), os.path.join(tmp, f"space_{n}_records"))
+    kernels = {"cips_flash_attention_fwd", "cips_flash_attention_bwd_dq", "cips_flash_attention_bwd_dkv"}
+    for r in recs:
+        ms = [s["ms"] for s in r["steps"]]
+        print(f"space parallel: rank {r['rank']} of {n} on {r['device']}: step ms {[round(x, 3) for x in ms]} (mean "
+              f"of steps 2-{len(ms)} {np.mean(ms[1:]):.3f}); bytes exchanged over the space group a step "
+              f"{r['steps'][-1]['space_bytes']}; DDP all-reduced {r['steps'][-1]['reduced_bytes']}; launches a step "
+              f"{sorted({tuple(s['launches']) for s in r['steps']})} at (kernel, Lq, Lk) "
+              f"{sorted({tuple(x) for s in r['steps'] for x in s['flash_shapes']})}; peak memory "
+              f"{r['memory']['peak_bytes_in_use'] / 2**30:.2f} GiB; meta.json writes {r['meta_writes']}; max "
+              f"difference from rank 0 {r['max_rank_diff']}; {card}")
+        check(len(r["steps"]) == DP_STEPS and all(s["launches"] == [6, 6, 6] for s in r["steps"]),
+              f"rank {r['rank']} of {n}: every step must launch 6 forward, 6 dQ and 6 dK/dV kernels")
+        check(all({tuple(x) for x in s["flash_shapes"]} == {(k, SPACE_LK // 2, SPACE_LK) for k in kernels}
+                  for s in r["steps"]), f"rank {r['rank']}: the train steps' flash kernels must run at Lq "
+              f"{SPACE_LK // 2}, Lk {SPACE_LK}")
+        check(r["max_rank_diff"] == 0.0, f"rank {r['rank']} of {n} differs from rank 0 by {r['max_rank_diff']}")
+        check(r["meta_writes"] == (1 if r["rank"] == 0 else 0), f"rank {r['rank']} wrote meta.json "
+              f"{r['meta_writes']} times")
+        check(all(s["reduced_bytes"] == r["grad_bytes"] for s in r["steps"]), "DDP's bytes are not the gradients'")
+        check(all(s["space_bytes"][kind] > 0 for s in r["steps"] for kind in ("halo", "norm", "kv", "mean"))
+              and all(s["space_bytes"]["volume"] == 0 for s in r["steps"]),
+              f"rank {r['rank']}: the space exchanges a step {r['steps'][0]['space_bytes']}")
+    check(os.path.exists(os.path.join(exp, "conditional", "AV45", "ckpt", "meta.json")), "no meta.json")
+    # each space group's ranks hold their data group's losses; the mean over all ranks is the global batch's
+    for i, want in enumerate(one_rank_metrics):
+        got = {k: float(np.mean([r["steps"][i]["metrics"][k] for r in recs])) for k in SPACE_LOSSES}
+        rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in SPACE_LOSSES}
+        print(f"space parallel: step {i + 1}'s losses at {layout} {got} vs phase 15's 1-rank step "
+              f"{ {k: want[k] for k in SPACE_LOSSES} }: relative differences "
+              f"{ {k: f'{v:.3e}' for k, v in rel.items()} }"
+              + (f" (limit {TOL_SPACE_LOSS_REL:g})" if i < SPACE_LOSS_STEPS else " (not held: Adam's noise compounds)"))
+        check(i >= SPACE_LOSS_STEPS or all(v <= TOL_SPACE_LOSS_REL for v in rel.values()),
+              f"the sharded step {i + 1}'s losses part from the 1-rank step's")
+    step_ms = float(np.mean([np.mean([s["ms"] for s in r["steps"]][1:]) for r in recs]))
+    peak = max(r["memory"]["peak_bytes_in_use"] for r in recs) / 2**30
+    exchanged = recs[0]["steps"][-1]["space_bytes"]
+    print(f"space parallel: step {step_ms:.3f} ms a rank at {layout} over {backend}, global batch {TRAIN_BATCH}; peak "
+          f"{peak:.2f} GiB a rank; bytes exchanged a step by rank 0 {exchanged} (total {sum(exchanged.values())}); "
+          f"DDP {recs[0]['steps'][-1]['reduced_bytes']}"
+          + ("; one card: the mechanism's cost through gloo, not a speed-up" if cards == 1 else "") + f"; {card}")
+
+    with uncounted(fa):
+        resumed = train_unet.main(args(exp, "--epochs", "2", "--resume"))
+    check(resumed.step == 2 * DP_STEPS and CheckpointManager(
+        os.path.join(exp, "conditional", "AV45", "ckpt")).latest_epoch() == 1,
+          f"the {layout} checkpoint resumed at 1 rank to step {resumed.step}")
+    print(f"space parallel: the {layout} checkpoint resumed at 1 rank, step {resumed.step}")
+    del resumed
+
+    with uncounted(fa):
+        t0 = time.perf_counter()
+        space_kernel_checks(fa)
+        timing = {"x".join(map(str, SPACE_ATTN[0])) + f" Lk {SPACE_LK}": flash_timing(fa, SPACE_ATTN[0], True,
+                                                                                        lk=SPACE_LK),
+                  "x".join(map(str, SPACE_ATTN[1])) + f" Lk {SPACE_LK}": flash_timing(fa, SPACE_ATTN[1], True,
+                                                                                        lk=SPACE_LK),
+                  "x".join(map(str, SPACE_ATTN[0])) + f" Lk {SPACE_LK} f32": flash_timing(
+                      fa, SPACE_ATTN[0], True, torch.float32, lk=SPACE_LK)}
+        print(f"space parallel: kernel checks and timing at a space rank's shapes in {time.perf_counter() - t0:.1f} s")
+
+    # fp32 at the reduced crop, full width, data 1 x space 2 against one process (no TF32, no cuDNN): the
+    # losses, the replicas, and G and D each alone within dryrun.TOL_GRADS; the whole step's gradients
+    # are printed beside the one-process step's own jump when G's output moves by 1e-5: a LeakyReLU of D
+    # within rounding of its kink parts any two summation orders there (probe_space_kink's docstring)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cips_tpu_torch.scripts.probe_space_kink", "--check",
+                           "--crop", *map(str, DP_CROP)], capture_output=True, text=True, timeout=DP_EPOCH_TIMEOUT,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-8000:])
+    check(proc.returncode == 0, "the fp32 space check failed")
+    payload = json.loads([line for line in proc.stdout.splitlines() if line.startswith("{")][-1])
+    fmt = lambda row: f"{row[0]:.3e} of {row[1]}'s max|grad| (2-norm {row[2]:.3e})"
+    parts = payload["parts"]
+    adversarial = parts["G's adversarial term"]
+    print(f"space parallel: fp32 at {DP_CROP}, full width, data 1 x space 2 vs one process, in "
+          f"{time.perf_counter() - t0:.1f} s: losses within {payload['metrics_rel']:.3e}, replicas apart by "
+          f"{payload['max_rank_diff']}; G alone {fmt(parts['G alone'])}, D alone {fmt(parts['D alone'])} (limit "
+          f"1e-4); G's adversarial term {fmt(adversarial)}; "
+          f"the whole step: G {fmt(payload['step']['generator'])}, D {fmt(payload['step']['discriminator'])}; "
+          f"one process's own G adversarial gradient with G's output x (1 + eps N(0, 1)): "
+          + "; ".join(f"eps {eps} {fmt(row)}" for eps, row in payload["jumps"].items()) + f"; {card}")
+    return {"ranks": n, "layout": layout, "backend": backend, "step_ms": step_ms, "peak_gib": peak,
+            "exchanged": exchanged, "launches_per_rank": [r["launches"] for r in recs], "timing": timing,
+            "fp32": payload}
 
 
 def main() -> int:
@@ -2611,7 +2800,13 @@ def main() -> int:
         data_parallel = data_parallel_phase(fa, tree, eval_csv, packed, tmp, card)
         print(f"data parallel phase in {time.perf_counter() - t0:.1f} s; {card}")
 
-    phase("16 summary")
+        phase("16 space parallel")
+        t0 = time.perf_counter()
+        space = space_parallel_phase(fa, tree, eval_csv, packed, tmp, card, data_parallel["one_rank_metrics"])
+        flash_at.update(space["timing"])
+        print(f"space parallel phase in {time.perf_counter() - t0:.1f} s; {card}")
+
+    phase("17 summary")
     kernels = []
     for name, kind, replaces, launches, err in (
         ("flash_attention_fwd", "fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err),
@@ -2635,6 +2830,11 @@ def main() -> int:
                         "launches_data_parallel": {"ranks": data_parallel["ranks"],
                                                    "backend": data_parallel["backend"],
                                                    "per_rank": [r[i] for r in data_parallel["launches_per_rank"]]},
+                        # phase 16: train_unet --n_space 2 under torchrun, each rank's launches (Lq 1152, Lk 2304
+                        # in the train steps; the eval forwards take whole volumes)
+                        "launches_space_parallel": {"ranks": space["ranks"], "layout": space["layout"],
+                                                    "backend": space["backend"],
+                                                    "per_rank": [r[i] for r in space["launches_per_rank"]]},
                         **flash_at["x".join(map(str, TRAIN_ATTN))][kind],
                         "at": {label: {k: round(t, 6) if isinstance(t, float) else t for k, t in rows[kind].items()}
                                for label, rows in flash_at.items()}})
@@ -2662,7 +2862,7 @@ def main() -> int:
                          for v in variants},
         })
     print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "event_timed": len(EVENT_TIMED)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -95,12 +95,13 @@ def make_loaders(args, need_values, mesh: Optional[Mesh] = None, split_eval: boo
 
     Across ranks (``mesh``) the training loader yields node ``mesh.node_index``'s
     batches, as JAX's loader of that process index and count, and this rank's
-    rows of them; the eval subjects are dealt out over all ranks
+    data group's rows of them (the ranks of a space group take the same rows,
+    and cut their depth slabs later: `parallel.mesh.device_prefetch`); the eval subjects are dealt out over all ranks
     (``split_eval``: each rank's mean is then summed with the others') or all
     go to every rank. Rank 0 packs while the others wait, so across nodes the
     stores' directory must be shared (or packed beforehand: ``--packed_dir``)."""
     mesh = mesh or Mesh()
-    shard = dict(shard_index=mesh.local_rank, shard_count=mesh.local_world_size)
+    shard = dict(shard_index=mesh.local_data_index, shard_count=mesh.local_data_count)
     train_place = dict(process_index=mesh.node_index, process_count=mesh.node_count, **shard)
     eval_place = dict(process_index=mesh.rank, process_count=mesh.world_size) if split_eval else {}
 

@@ -16,10 +16,20 @@ under DDP; the eval subjects are dealt out over the ranks and their mean taken
 over all; only rank 0 logs, dumps and writes checkpoints, which hold the plain
 networks' names, so that a run resumes at any number of ranks.
 
+``--n_space S`` shards each volume's depth over S ranks as well (the mesh's
+``space`` axis, `parallel.spatial`): the world is a (data, space) grid of
+WORLD_SIZE / S data groups of S ranks, a data group takes the rows a rank took,
+and each of its ranks a depth slab of them; every rank's gradient is the
+one-process gradient of the global batch. The crop's depth must be a multiple
+of S * 2^(levels - 1). Eval takes whole volumes, its subjects dealt out over
+all ranks as without it. A world whose rank count S does not divide is a
+ValueError.
+
   python -m cips_tpu_torch.cli.train_unet --exp_dir /tmp/exp \\
       --training_info_csv train.csv --eval_info_csv test.csv \\
       --PET_dir ... --T1_dir ... --pet_kind AV45 --use_condition
   python -m torch.distributed.run --nproc_per_node 8 -m cips_tpu_torch.cli.train_unet ...
+  python -m torch.distributed.run --nproc_per_node 4 -m cips_tpu_torch.cli.train_unet ... --n_space 2
 """
 
 from __future__ import annotations
@@ -50,7 +60,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--use_condition", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
-    p.add_argument("--n_space", type=int, default=1, help="spatial-shard axis size (only 1: not ported yet)")
+    p.add_argument("--n_space", type=int, default=1,
+                   help="ranks that shard each volume's depth (the mesh's space axis); divides the rank count")
     p.add_argument("--max_steps", type=int, default=0, help="debug: stop after N steps")
     p.add_argument("--profile_dir", default=None, help="write a torch.profiler trace of steps 10-15 there")
     p.add_argument("--perceptual_weights", default=None,
@@ -78,11 +89,16 @@ def _checkpoint(state: unet_synthesis.GANState, epoch: int) -> dict:
 
 def main(argv=None) -> unet_synthesis.GANState:
     args = build_argparser().parse_args(argv)
-    if args.n_space != 1:
-        raise NotImplementedError("--n_space: not ported yet")
-    mesh = make_mesh(args.device)
-    device = mesh.device
     cfg = common.load_config(args.config, "training.json")
+    # checked here: a depth that n_space does not divide would reach the ranks whole (JAX's rule for a
+    # leaf its axis does not split), and the generator could not tell a whole volume from a slab
+    depth = (args.random_crop_size or args.crop_size)[0]
+    multiple = args.n_space * 2 ** (len(cfg["atten_unet_def"]["num_channels"]) - 1)
+    if args.n_space > 1 and depth % multiple:
+        raise ValueError(f"--n_space {args.n_space}: the training depth {depth} must be a multiple of {multiple} "
+                         f"(equal slabs of even depth at every level)")
+    mesh = make_mesh(args.device, n_space=args.n_space)
+    device = mesh.device
     train_cfg = cfg["training"]
     need_values = common.covariates_for(args.pet_kind, args.use_condition)
     dirs = common.experiment_dirs(args.exp_dir, args.use_condition, args.pet_kind)
@@ -123,7 +139,7 @@ def main(argv=None) -> unet_synthesis.GANState:
     tracing = contextlib.ExitStack()
     try:
         for epoch in range(begin_epoch, args.epochs):
-            for batch in device_prefetch(train_loader.epoch(epoch), mesh):
+            for batch in device_prefetch(train_loader.epoch(epoch), mesh, spatial_axis=1):
                 if args.profile_dir and mesh.is_lead and global_step == 10:
                     tracing.enter_context(profiling.trace(args.profile_dir))
                 metrics = step_fn(state, batch)

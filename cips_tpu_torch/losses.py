@@ -8,16 +8,26 @@
     against 1 (real) or 0 (fake); the generator's form targets real on fakes;
   * `lsgan_discriminator_loss` — 0.5 * (MSE(fake, 0) + MSE(real, 1)).
 
-All reductions are in fp32.
+All reductions are in fp32. The flagship's losses take a ``space`` group when
+their inputs are depth slabs (the mesh's ``space`` axis): their means are then
+the whole volume's, the global sum over the global count (`spatial.space_mean`).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from cips_tpu_torch.parallel.spatial import SpaceGroup, space_mean
 
-def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred.float() - target.float()).abs().mean()
+
+def _mean(x: torch.Tensor, space: Optional[SpaceGroup]) -> torch.Tensor:
+    return x.mean() if space is None else space_mean(x, space)
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, space: Optional[SpaceGroup] = None) -> torch.Tensor:
+    return _mean((pred.float() - target.float()).abs(), space)
 
 
 def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
@@ -27,16 +37,18 @@ def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     return per_sample.mean()
 
 
-def patch_adversarial_loss(logits: torch.Tensor, *, target_is_real: bool, for_discriminator: bool) -> torch.Tensor:
+def patch_adversarial_loss(logits: torch.Tensor, *, target_is_real: bool, for_discriminator: bool,
+                           space: Optional[SpaceGroup] = None) -> torch.Tensor:
     """LSGAN loss on patch logits. The generator's form (for_discriminator=False)
     is only valid with target_is_real=True."""
     if not for_discriminator and not target_is_real:
         raise ValueError("generator adversarial loss targets the real label")
     diff = logits.float() - (1.0 if target_is_real else 0.0)
-    return (diff * diff).mean()
+    return _mean(diff * diff, space)
 
 
-def lsgan_discriminator_loss(logits_fake: torch.Tensor, logits_real: torch.Tensor) -> torch.Tensor:
-    loss_fake = patch_adversarial_loss(logits_fake, target_is_real=False, for_discriminator=True)
-    loss_real = patch_adversarial_loss(logits_real, target_is_real=True, for_discriminator=True)
+def lsgan_discriminator_loss(logits_fake: torch.Tensor, logits_real: torch.Tensor,
+                             space: Optional[SpaceGroup] = None) -> torch.Tensor:
+    loss_fake = patch_adversarial_loss(logits_fake, target_is_real=False, for_discriminator=True, space=space)
+    loss_real = patch_adversarial_loss(logits_real, target_is_real=True, for_discriminator=True, space=space)
     return 0.5 * (loss_fake + loss_real)

@@ -6,7 +6,10 @@ reference's JSON config schema (``configs/training.json:atten_unet_def``);
 ``upcast_attention`` is accepted for that schema and changes nothing, because
 attention scores are always fp32 here (see ``ops/attention.py``).
 ``forward`` takes and returns channels-last (N, D, H, W, C) volumes, like
-the JAX model; inside, the layout is NCDHW.
+the JAX model; inside, the layout is NCDHW. Over a ``space`` group
+(`parallel.spatial.sharded`) it takes and returns a depth slab: every level's
+depth must part into equal slabs of even depth, so the volume's depth must be
+a multiple of n_space * 2^(levels - 1).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from cips_tpu_torch.models.blocks import (
     UpBlock,
     attention_mode,
 )
+from cips_tpu_torch.parallel.spatial import SpaceGroup
 
 
 def _tuplify(v, n: int) -> Tuple:
@@ -35,6 +39,8 @@ def _tuplify(v, n: int) -> Tuple:
 
 
 class AttenUNet(nn.Module):
+    space: Optional[SpaceGroup] = None
+
     def __init__(
         self,
         spatial_dims: int = 3,
@@ -64,6 +70,7 @@ class AttenUNet(nn.Module):
         if len(attention_levels) != n:
             raise ValueError("attention_levels must match num_channels length")
         self.dtype = dtype
+        self.levels = n
         self.with_conditioning = with_conditioning
         res_blocks = _tuplify(num_res_blocks, n)
         head_channels = _tuplify(num_head_channels, n)
@@ -119,6 +126,11 @@ class AttenUNet(nn.Module):
         if context is not None and not self.with_conditioning:
             raise ValueError("context requires with_conditioning=True")
         h = x.movedim(-1, 1).to(self.dtype)
+        if self.space is not None:
+            step = self.space.size * 2 ** (self.levels - 1)
+            if (h.shape[2] * self.space.size) % step:
+                raise ValueError(f"depth {h.shape[2] * self.space.size} over {self.space.size} ranks: every level "
+                                 f"needs equal slabs of even depth, so a multiple of {step}")
         if context is not None:
             context = context.to(self.dtype)
         h = self.conv_in(h)

@@ -10,6 +10,13 @@ cast to the activation's dtype where they are used, as flax's
 compute dtype once. Parameter names are the reference's torch ``state_dict``
 names (``conv1.conv.weight``, ``transformer_blocks.0.attn1.to_q.weight``, ...;
 see cips_tpu/data/torch_import.py).
+
+Depth-sharded training (the mesh's ``space`` axis): `Conv`, `GroupNorm` and the
+self-attentions carry a ``space`` group, None unless a train step shards the
+volume (`parallel.spatial.sharded`). Then a conv exchanges halo planes
+(`spatial.halo_conv`), a norm all-reduces its statistics and a self-attention
+gathers K and V over the group, each rank's queries attending to the whole
+volume's keys; the resampling of 2x is local to a slab of even depth.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cips_tpu_torch.ops.attention import merge_heads, multi_head_attention, split_heads
+from cips_tpu_torch.parallel import spatial
 
 _CONV_FN = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_CLS = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
@@ -56,7 +64,11 @@ class GroupNorm(nn.GroupNorm):
     The per-(sample, channel) scale and offset are formed in fp32 and rounded
     to the activation dtype before the one multiply-add, as the JAX package's
     GroupNorm does. An fp64 input (a reference run) keeps fp64 statistics.
+    Over a ``space`` group the statistics are the whole volume's
+    (`spatial.group_moments`).
     """
+
+    space: Optional[spatial.SpaceGroup] = None
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
         super().__init__(num_groups, num_channels, eps=eps)
@@ -66,8 +78,11 @@ class GroupNorm(nn.GroupNorm):
         g = self.num_groups
         stats = torch.promote_types(x.dtype, torch.float32)
         x32 = x.to(stats).reshape(n, g, -1)
-        mean = x32.mean(dim=-1)
-        meansq = (x32 * x32).mean(dim=-1)
+        if self.space is None:
+            mean = x32.mean(dim=-1)
+            meansq = (x32 * x32).mean(dim=-1)
+        else:
+            mean, meansq = spatial.group_moments(x32, self.space)
         inv = torch.rsqrt((meansq - mean * mean).clamp_min(0.0) + self.eps)  # (N, G)
         w = self.weight.to(stats).reshape(1, g, c // g)
         scale = (inv[:, :, None] * w).reshape(n, c)
@@ -97,7 +112,11 @@ class Linear(nn.Linear):
 class Conv(nn.Module):
     """'same' convolution, padding (k-1)//2; parameters at ``conv.weight`` / ``conv.bias``
     (MONAI ``Convolution(conv_only=True)`` naming). ``zero_init`` marks the
-    reference's zero-initialised output convs."""
+    reference's zero-initialised output convs. Over a ``space`` group the input
+    is a depth slab of a volume of global depth ``depth`` (by default equal
+    slabs) and the output this rank's slab of the conv's (`spatial.halo_conv`)."""
+
+    space: Optional[spatial.SpaceGroup] = None
 
     def __init__(
         self, spatial_dims: int, in_channels: int, out_channels: int,
@@ -109,8 +128,11 @@ class Conv(nn.Module):
         )
         self.zero_init = zero_init
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
         c = self.conv
+        if self.space is not None:
+            return spatial.halo_conv(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride, c.padding, self.space,
+                                     depth)
         return _CONV_FN[x.ndim - 2](
             x, c.weight.to(x.dtype), c.bias.to(x.dtype), stride=c.stride, padding=c.padding
         )
@@ -179,7 +201,11 @@ class ResnetBlock(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head (cross-)attention over tokens (B, L, C); self-attention without context."""
+    """Multi-head (cross-)attention over tokens (B, L, C); self-attention without
+    context. Over a ``space`` group the tokens are a depth slab's and
+    self-attention gathers the whole volume's K and V (`gather_kv`)."""
+
+    space: Optional[spatial.SpaceGroup] = None
 
     def __init__(
         self, query_dim: int, cross_attention_dim: Optional[int] = None,
@@ -202,7 +228,9 @@ class CrossAttention(nn.Module):
         q = split_heads(self.to_q(x), self.num_heads)
         k = split_heads(self.to_k(ctx), self.num_heads)
         v = split_heads(self.to_v(ctx), self.num_heads)
-        out = multi_head_attention(q, k, v, scale=self.scale)
+        if context is None and self.space is not None:
+            k, v = gather_kv(k, v, self.space)
+        out = multi_head_attention(q, k, v, scale=self.scale, self_attention=context is None)
         return self.to_out(merge_heads(out))
 
 
@@ -239,6 +267,16 @@ class BasicTransformerBlock(nn.Module):
         x = self.attn1(self.norm1(x)) + x
         x = self.attn2(self.norm2(x), context=context) + x
         return self.ff(self.norm3(x)) + x
+
+
+def gather_kv(k: torch.Tensor, v: torch.Tensor, space: spatial.SpaceGroup) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole volume's K and V, (B, H, L, Dh) each, from every rank's slab of
+    them: tokens run depth outermost, so a depth slab is a contiguous token range
+    and the slabs in rank order are the sequence. One exchange for both; the
+    backward sums every rank's dK and dV into the owner's slab."""
+    kv = spatial.gather(torch.cat([k, v], dim=-1), space, dim=2, kind="kv")
+    k, v = kv.chunk(2, dim=-1)
+    return k.contiguous(), v.contiguous()
 
 
 def _to_tokens(h: torch.Tensor) -> torch.Tensor:
@@ -279,7 +317,10 @@ class SpatialTransformer(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Spatial self-attention: GN, linear q/k/v over voxel tokens, projection, + residual."""
+    """Spatial self-attention: GN, linear q/k/v over voxel tokens, projection, +
+    residual; over a ``space`` group K and V are gathered (`gather_kv`)."""
+
+    space: Optional[spatial.SpaceGroup] = None
 
     def __init__(
         self, spatial_dims: int, num_channels: int, num_head_channels: Optional[int] = None,
@@ -299,7 +340,9 @@ class AttentionBlock(nn.Module):
         q = split_heads(self.to_q(tokens), self.num_heads)
         k = split_heads(self.to_k(tokens), self.num_heads)
         v = split_heads(self.to_v(tokens), self.num_heads)
-        out = self.proj_attn(merge_heads(multi_head_attention(q, k, v, scale=self.scale)))
+        if self.space is not None:
+            k, v = gather_kv(k, v, self.space)
+        out = self.proj_attn(merge_heads(multi_head_attention(q, k, v, scale=self.scale, self_attention=True)))
         return _from_tokens(out, x.shape[2:]) + x
 
 

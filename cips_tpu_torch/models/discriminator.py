@@ -12,6 +12,12 @@ scale and offset applied as one ``x * w + off`` in the activation dtype. The
 JAX package's hand-written VJP of it is an XLA fusion device; autograd
 computes the same function.
 
+Over a ``space`` group (`parallel.spatial.sharded`) the volume comes as
+depth slabs and every map stays one: the convs exchange halo planes, the
+stride-1 ones' outputs parting unevenly (12 -> 11 -> 10 planes at the full
+volume's depth 96; a rank may hold none), the norms reduce over the group, and
+the empty-map check judges the global depth, which ``forward`` carries.
+
 The ``state_dict`` holds conv_0, then the conv_i / norm_i pairs, then the
 penultimate conv and norm, then conv_out, every conv with a bias: the order
 `cips_tpu/data/torch_import.py:import_patch_discriminator` maps by.
@@ -19,13 +25,14 @@ penultimate conv and norm, then conv_out, every conv with a bias: the order
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from cips_tpu_torch.models.blocks import Conv, GroupNorm
+from cips_tpu_torch.parallel.spatial import SpaceGroup, conv_output_size
 
 
 class InstanceNorm(GroupNorm):
@@ -36,6 +43,8 @@ class InstanceNorm(GroupNorm):
 
 
 class PatchDiscriminator(nn.Module):
+    space: Optional[SpaceGroup] = None
+
     def __init__(
         self,
         spatial_dims: int = 3,
@@ -62,26 +71,33 @@ class PatchDiscriminator(nn.Module):
         self.norm_penultimate = InstanceNorm(ch)
         self.conv_out = Conv(spatial_dims, ch, out_channels, k, stride=1)
 
-    def _conv(self, name: str, h: torch.Tensor) -> torch.Tensor:
+    def _conv(self, name: str, h: torch.Tensor, depth: int) -> Tuple[torch.Tensor, int]:
+        """The conv ``name`` of ``h`` (global depth ``depth``) and its output's global depth."""
         conv = getattr(self, name)
-        if any(n + 2 * p < self.kernel_size for n, p in zip(h.shape[2:], conv.conv.padding)):
+        if any(n + 2 * p < self.kernel_size for n, p in zip((depth, *h.shape[3:]), conv.conv.padding)):
             # an empty patch map would flow into a mean() and surface as a NaN
             # loss; the JAX model computes it and raises at the logits, torch's
             # conv would refuse it with a less telling error
             raise ValueError(
                 f"empty patch-logit map: input too small for num_layers_d={self.num_layers_d} "
-                f"(k={self.kernel_size}), {tuple(h.shape[2:])} before {name}"
+                f"(k={self.kernel_size}), {(depth, *h.shape[3:])} before {name}"
             )
-        return conv(h)
+        c = conv.conv
+        out = conv(h, depth) if self.space is not None else conv(h)
+        return out, conv_output_size(depth, self.kernel_size, c.stride[0], c.padding[0])
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """(N, *S, C_in) -> [feature maps..., logits], each channels-last."""
-        h = F.leaky_relu(self._conv("conv_0", x.movedim(-1, 1).to(self.dtype)), 0.2)
+        h = x.movedim(-1, 1).to(self.dtype)
+        h, depth = self._conv("conv_0", h, h.shape[2] * (1 if self.space is None else self.space.size))
+        h = F.leaky_relu(h, 0.2)
         features = [h]
         for i in range(1, self.num_layers_d):
-            h = F.leaky_relu(getattr(self, f"norm_{i}")(self._conv(f"conv_{i}", h)), 0.2)
+            h, depth = self._conv(f"conv_{i}", h, depth)
+            h = F.leaky_relu(getattr(self, f"norm_{i}")(h), 0.2)
             features.append(h)
-        h = F.leaky_relu(self.norm_penultimate(self._conv("conv_penultimate", h)), 0.2)
+        h, depth = self._conv("conv_penultimate", h, depth)
+        h = F.leaky_relu(self.norm_penultimate(h), 0.2)
         features.append(h)
-        features.append(self._conv("conv_out", h))
+        features.append(self._conv("conv_out", h, depth)[0])
         return [f.movedim(1, -1) for f in features]

@@ -14,6 +14,13 @@ MONAI-generative's ``PerceptualLoss`` with richzhang LPIPS's pieces:
     over those slices is the axis loss, and the three axis losses are summed.
     The JAX package's random slice subset (its ``rng`` argument) is not ported.
 
+Depth-sharded volumes (the mesh's ``space`` axis): the 2.5-D slices cross
+the depth axis, so `PerceptualLoss` gathers both volumes whole on every rank
+first (`spatial.gather`) and each rank computes the whole term. The gather's
+backward sums the ranks' gradients into each slab's owner, so the term reaches
+the generator n_space times, as every loss all-reduced over the group does
+(`parallel.spatial`).
+
 A tap that the backbone has shrunk to nothing (an input smaller than its
 receptive field, as in tiny test crops) is skipped, as in the JAX package.
 
@@ -35,6 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cips_tpu_torch.parallel.spatial import SpaceGroup, gather
 
 _SHIFT = (-0.030, -0.088, -0.188)  # LPIPS ScalingLayer
 _SCALE = (0.458, 0.448, 0.450)
@@ -171,7 +180,10 @@ class PerceptualLoss(nn.Module):
         self.lpips = LPIPS(network_type, dtype)
         self.requires_grad_(False)
 
-    def forward(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    def forward(self, pred: torch.Tensor, target: torch.Tensor, space: Optional[SpaceGroup] = None) -> torch.Tensor:
+        """The loss of a pair of volumes, or of depth slabs of them over ``space``."""
+        if space is not None:
+            pred, target = gather(pred, space, 1, "volume"), gather(target, space, 1, "volume")
         if self.spatial_dims == 2:
             return self.lpips(pred.movedim(-1, 1), target.movedim(-1, 1)).mean()
         s = self.stride

@@ -2,11 +2,14 @@
 
 Shapes: q (B, H, Lq, Dh), k and v (B, H, Lk, Dh).
 
-Every equal-length attention (Lq == Lk) goes through `FlashAttention`
-(`ops/flash_attention.py`): the flash kernels, forward and backward, on the
-card, and their plain versions on the CPU. The JAX package's TPU token threshold is a v5e crossover
-and is not carried over. Cross-attention to the covariate token (Lk = 1)
-takes `_reference_attention`, as in the JAX package.
+Every self-attention goes through `FlashAttention` (`ops/flash_attention.py`):
+the flash kernels, forward and backward, on the card, and their plain versions
+on the CPU. That includes a depth-sharded one, whose slab of queries (Lq =
+L / n_space) attends to the whole volume's keys (Lk = L). The JAX package's TPU
+token threshold is a v5e crossover and is not carried over. Cross-attention to
+the covariate token (Lk = 1) takes `_reference_attention`, as in the JAX
+package. The call site names its kind (``self_attention``); a caller that does
+not is routed by equal lengths.
 
 Scores are always formed in fp32 from fp32 copies of q and k, so the
 reference's optional score upcast (`upcast_attention`) has nothing left to
@@ -37,11 +40,16 @@ def multi_head_attention(
     v: torch.Tensor,
     *,
     scale: Optional[float] = None,
+    self_attention: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Scaled dot-product attention; ``scale`` defaults to 1/sqrt(Dh)."""
+    """Scaled dot-product attention; ``scale`` defaults to 1/sqrt(Dh). A
+    self-attention takes `FlashAttention`, a cross-attention the plain path;
+    ``self_attention`` None takes Lq == Lk for one."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.shape[2] == k.shape[2]:
+    if self_attention is None:
+        self_attention = q.shape[2] == k.shape[2]
+    if self_attention:
         return FlashAttention.apply(q, k, v, scale)
     return _reference_attention(q, k, v, scale)
 

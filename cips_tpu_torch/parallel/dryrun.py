@@ -2,23 +2,28 @@
 cips_tpu/parallel/dryrun.py).
 
     python -m cips_tpu_torch.parallel.dryrun N [--device cpu] [--steps S]
-        [--crop D H W] [--dtype f32|bf16]
+        [--crop D H W] [--dtype f32|bf16] [--n_space S]
 
 starts N ranks on this host (one process each, the layout torchrun gives one
 node; `mesh.backend_for` picks NCCL or gloo; a rank on the CPU takes one torch
-thread) and runs the
+thread) as a (data, space) mesh of N / S data groups of S ranks, and runs the
 flagship's train step (G then D) from seeded weights (`randomize_`) on a seeded global
-batch of N samples, one a rank, at the tiny validation shape (8, 16, 8) in
-fp32. ``CIPS_DRYRUN_TASK=causal`` runs the causal trio instead (encoder, T1
+batch of N / S samples, one a data group, each of its S ranks a depth slab of
+it, at the tiny validation shape (8, 16, 8) in fp32. The default S is JAX's
+(`default_n_space`). ``CIPS_DRYRUN_TASK=causal`` runs the causal trio instead (encoder, T1
 and PET decoders under one Adam, then D) and ``CIPS_DRYRUN_FULL=1`` the bundled
 config at the full (96, 128, 96) volume in bf16, as the JAX dry run does;
-``--crop`` and ``--dtype`` override the shape and dtype.
+``--crop`` and ``--dtype`` override the shape and dtype. The causal trio's
+space axis is not ported (ROADMAP.md §A, "the causal trio on the space
+axis"): it runs at S = 1, and refuses S > 1.
 
 Where JAX's `_collective_bytes` counts the collectives in the compiled HLO,
 the port counts the bytes that DDP all-reduces in each step (a communication
 hook on its buckets) and asserts that they equal the trained parameters'
 gradient bytes, and that every rank's parameters are identical after the
-steps (the largest difference, all-reduced, is 0). In fp32 it also asserts
+steps (the largest difference, all-reduced, is 0); it reports the bytes each
+rank exchanged over its space group a step, by kind (`SpaceGroup.exchanged`).
+In fp32 it also asserts
 that rank 0's repeat of the steps in one process on the whole global batch
 agrees: the first step's gradients within ``TOL_GRADS`` of each tensor's
 max|grad| (`compare_grads`), the parameters after it within ``TOL_ONE_PROCESS``
@@ -44,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from cips_tpu_torch.parallel import mesh as pm
+from cips_tpu_torch.parallel import spatial
 
 N_COVARIATES = 5
 TINY_CROP = (8, 16, 8)
@@ -105,12 +111,12 @@ def free_port() -> int:
 
 
 def _rank_entry(local_rank: int, world: int, port: int, device: str, out_dir: str, fn: Callable,
-                args: tuple) -> None:
+                args: tuple, n_space: int, timeout: Optional[float]) -> None:
     os.environ.update(RANK=str(local_rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     if device == "cpu":  # the node's ranks share its cores
         torch.set_num_threads(1)
-    mesh = pm.make_mesh(device)
+    mesh = pm.make_mesh(device, n_space=n_space, timeout=timeout)
     try:
         result = fn(mesh, *args)
         torch.save(result, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
@@ -121,30 +127,39 @@ def _rank_entry(local_rank: int, world: int, port: int, device: str, out_dir: st
 class Ranks:
     """Ranks started by `start`; `join` waits for them and returns each rank's result, in rank order."""
 
-    def __init__(self, context, out_dir: tempfile.TemporaryDirectory, n: int):
-        self._context, self._out_dir, self._n = context, out_dir, n
+    def __init__(self, context, out_dir: tempfile.TemporaryDirectory, n: int, timeout: Optional[float] = None):
+        self._context, self._out_dir, self._n, self._timeout = context, out_dir, n, timeout
+        self._started = time.monotonic()
 
     def join(self) -> List[Any]:
+        """Each rank's result; with a timeout, ranks still running that many seconds
+        after the start are terminated and a TimeoutError raised."""
         try:
-            while not self._context.join():
-                pass
+            while not self._context.join(None if self._timeout is None else 1.0):
+                if self._timeout is not None and time.monotonic() - self._started > self._timeout:
+                    for process in self._context.processes:
+                        process.terminate()
+                    raise TimeoutError(f"{self._n} ranks still running after {self._timeout} s")
             return [torch.load(os.path.join(self._out_dir.name, f"rank{r}.pt"), weights_only=False)
                     for r in range(self._n)]
         finally:
             self._out_dir.cleanup()
 
 
-def start(fn: Callable, n: int, *args, device: str = "cuda") -> Ranks:
+def start(fn: Callable, n: int, *args, device: str = "cuda", n_space: int = 1,
+          timeout: Optional[float] = None) -> Ranks:
     """Start ``fn(mesh, *args)`` in ``n`` spawned ranks of one node (rank r on
-    card r, in turn where there are fewer cards, or all on the CPU) and return at
-    once. ``fn`` must be importable by name (a module-level function); its
-    result must pickle."""
+    card r, in turn where there are fewer cards, or all on the CPU), their mesh
+    ``n_space`` ranks deep in space, and return at once. ``fn`` must be
+    importable by name (a module-level function); its result must pickle.
+    ``timeout`` (seconds) bounds the ranks' collectives and `Ranks.join`."""
     import torch.multiprocessing as mp
 
     out_dir = tempfile.TemporaryDirectory(prefix="cips_dryrun_")
-    context = mp.start_processes(_rank_entry, args=(n, free_port(), device, out_dir.name, fn, args),
+    context = mp.start_processes(_rank_entry,
+                                 args=(n, free_port(), device, out_dir.name, fn, args, n_space, timeout),
                                  nprocs=n, join=False, start_method="spawn")
-    return Ranks(context, out_dir, n)
+    return Ranks(context, out_dir, n, timeout)
 
 
 def global_batch(n: int, crop, seed: int) -> Dict[str, torch.Tensor]:
@@ -199,18 +214,22 @@ def _copy(t: torch.Tensor) -> torch.Tensor:
 def run_steps(mesh: Optional[pm.Mesh], task: str, cfg: dict, crop, dtype: torch.dtype, steps: int, n: int,
               device: torch.device) -> Dict[str, Any]:
     """``steps`` train steps on seeded global batches of ``n`` samples (this
-    rank's rows of them across ranks): the metrics, the bytes all-reduced in
+    rank's rows of them across ranks, its depth slab of those over space): the
+    metrics, the bytes all-reduced by DDP and exchanged over the space group in
     each step, the trained networks' gradients and parameters after each step
     (on the CPU, fp32), and each step's time (CUDA events on a card, else the
     host clock)."""
     state, step, nets = _build(task, cfg, dtype, device, mesh, n)
-    out: Dict[str, Any] = {"metrics": [], "reduced_bytes": [], "step_ms": []}
+    space = mesh.space if mesh is not None else None
+    out: Dict[str, Any] = {"metrics": [], "reduced_bytes": [], "space_bytes": [], "step_ms": []}
     for i in range(steps):
         batch = global_batch(n, crop, seed=100 + i)
         if mesh is not None:
-            batch = pm.shard_batch(mesh, batch)
+            batch = pm.shard_batch(mesh, batch, spatial_axis=1)
         batch = {k: v.to(device) for k, v in batch.items()}
         pm.data_parallel.reduced_bytes = 0
+        if space is not None:
+            space.reset()
         t0 = time.perf_counter()
         if device.type == "cuda":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -223,6 +242,7 @@ def run_steps(mesh: Optional[pm.Mesh], task: str, cfg: dict, crop, dtype: torch.
         else:
             out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["reduced_bytes"].append(pm.data_parallel.reduced_bytes)
+        out["space_bytes"].append(dict(space.exchanged) if space is not None else dict.fromkeys(spatial.KINDS, 0))
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
         out.setdefault("grads", []).append({f"{net}.{k}": _copy(p.grad) for net, m in nets.items()
                                             for k, p in m.named_parameters() if p.grad is not None})
@@ -324,18 +344,19 @@ def dryrun_rank(mesh: pm.Mesh, task: str, full: bool, crop, dtype_name: str, ste
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.enabled = False
     cfg = _config(task, full)
-    n = mesh.world_size
+    n = mesh.data_count  # one sample a data group
     run = run_steps(mesh, task, cfg, crop, dtype, steps, n, mesh.device)
     for i, m in enumerate(run["metrics"]):
         key = "rec_pet_loss" if task == "causal" else "g_loss"
         assert np.isfinite(m[key]), f"non-finite {key} in step {i} of the dry run: {m}"
-    if n > 1:
+    if mesh.distributed:
         assert all(b == run["grad_bytes"] for b in run["reduced_bytes"]), (
             f"DDP all-reduced {run['reduced_bytes']} bytes a step; the trained gradients hold {run['grad_bytes']}")
-    payload = {"task": task, "ranks": n, "device": str(mesh.device), "crop": list(crop), "dtype": dtype_name,
-               "global_batch": n, "steps": steps, "reduced_bytes_per_step": run["reduced_bytes"],
+    payload = {"task": task, "ranks": mesh.world_size, "n_space": mesh.space_count, "device": str(mesh.device),
+               "crop": list(crop), "dtype": dtype_name, "global_batch": n, "steps": steps,
+               "reduced_bytes_per_step": run["reduced_bytes"], "space_bytes_per_step": run["space_bytes"],
                "grad_bytes": run["grad_bytes"], "step_ms": run["step_ms"], "metrics": run["metrics"]}
-    payload["max_rank_diff"] = max_rank_difference(mesh, run["params"][-1]) if n > 1 else 0.0
+    payload["max_rank_diff"] = max_rank_difference(mesh, run["params"][-1]) if mesh.distributed else 0.0
     assert payload["max_rank_diff"] == 0.0, f"replicas differ by {payload['max_rank_diff']}"
     if dtype == torch.float32 and mesh.is_lead:
         one = run_steps(None, task, cfg, crop, dtype, steps, n, mesh.device)
@@ -355,6 +376,17 @@ def dryrun_rank(mesh: pm.Mesh, task: str, full: bool, crop, dtype_name: str, ste
     return payload if mesh.is_lead else {}
 
 
+def default_n_space(n: int, task: str, full: bool) -> int:
+    """JAX's dry-run mesh (cips_tpu/parallel/dryrun.py): at the full volume data
+    2 (1 when ``n`` is odd) times space the rest, else space 2 when ``n`` is
+    even; 1 for the causal trio (not ported on space)."""
+    if task == "causal":
+        return 1
+    if full:
+        return n // 2 if n % 2 == 0 else n
+    return 2 if n % 2 == 0 else 1
+
+
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("n", type=int, help="ranks")
@@ -362,16 +394,22 @@ def main(argv=None) -> Dict:
     p.add_argument("--steps", type=int, default=1)
     p.add_argument("--crop", type=int, nargs=3, default=None)
     p.add_argument("--dtype", default=None, choices=["f32", "bf16"])
+    p.add_argument("--n_space", type=int, default=None, help="ranks a volume's depth is sharded over")
     args = p.parse_args(argv)
     task = os.environ.get("CIPS_DRYRUN_TASK", "flagship")
     full = bool(os.environ.get("CIPS_DRYRUN_FULL"))
+    n_space = args.n_space if args.n_space is not None else default_n_space(args.n, task, full)
+    if task == "causal" and n_space > 1:
+        raise NotImplementedError("CIPS_DRYRUN_TASK=causal: the causal trio's space axis is not ported yet "
+                                  "(ROADMAP.md section A, 'the causal trio on the space axis'); pass --n_space 1")
     crop = tuple(args.crop) if args.crop else (FULL_CROP if full else TINY_CROP)
     dtype = args.dtype or ("bf16" if full else "f32")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
-    payload = start(dryrun_rank, args.n, task, full, crop, dtype, args.steps, device=args.device).join()[0]
+    payload = start(dryrun_rank, args.n, task, full, crop, dtype, args.steps, device=args.device,
+                    n_space=n_space).join()[0]
     print(json.dumps(payload))
-    print(f"dryrun ok on {args.n} ranks ({task}, {'x'.join(map(str, crop))}, {dtype})")
+    print(f"dryrun ok on {args.n} ranks, space {n_space} ({task}, {'x'.join(map(str, crop))}, {dtype})")
     return payload
 
 

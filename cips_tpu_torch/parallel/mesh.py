@@ -18,15 +18,21 @@ local rank:
   * forwards whose gradients are not wanted (a frozen critic, a no_grad fake)
     go to the network itself, never through its DDP wrapper.
 
-The ``space`` axis (spatial sharding) is not ported: the trainers refuse
-``--n_space`` > 1. Without torchrun's environment everything here is a no-op
-over one process.
+The ``space`` axis: with ``n_space`` > 1 (`make_mesh`) the ranks form a
+(data, space) grid, space innermost as in JAX (rank = data index * n_space +
+space index). The ``n_space`` ranks of a *space group* hold the same rows, each
+a contiguous depth slab of every volume (`shard_batch` with a spatial axis);
+`parallel.spatial` holds what they exchange. The data index takes the place of
+the rank in the batch split. Only the flagship trainer (`train_unet`) and its
+dry run take ``n_space`` > 1. Without torchrun's environment everything here is
+a no-op over one process.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import datetime
 import os
 from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Tuple
 
@@ -36,6 +42,7 @@ import torch.distributed as dist
 from torch import nn
 
 from cips_tpu_torch import default_device
+from cips_tpu_torch.parallel.spatial import SpaceGroup, new_group, slab
 
 
 def shard_rows(n: int, index: int, count: int) -> slice:
@@ -52,7 +59,10 @@ def shard_rows(n: int, index: int, count: int) -> slice:
 class Mesh:
     """This process's place among the ranks and its device. One process: rank 0
     of 1. ``owns_group``: this process created the process group (`make_mesh`)
-    and ends it (`close`)."""
+    and ends it (`close`). ``space_count`` ranks (the innermost) hold one row's
+    depth slabs; ``space`` is this rank's `SpaceGroup` and ``data_group`` the
+    process group of the ranks at its space index (both None at ``space_count``
+    1, where the data group is the world)."""
 
     rank: int = 0
     world_size: int = 1
@@ -60,6 +70,30 @@ class Mesh:
     local_world_size: int = 1
     device: torch.device = torch.device("cpu")
     owns_group: bool = False
+    space_count: int = 1
+    space: Optional[SpaceGroup] = dataclasses.field(default=None, repr=False)
+    data_group: Any = dataclasses.field(default=None, repr=False)
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.space_count
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.space_count
+
+    @property
+    def data_count(self) -> int:
+        return self.world_size // self.space_count
+
+    @property
+    def local_data_index(self) -> int:
+        """This rank's place among the node's data groups (its rows' share)."""
+        return self.local_rank // self.space_count
+
+    @property
+    def local_data_count(self) -> int:
+        return self.local_world_size // self.space_count
 
     @property
     def node_index(self) -> int:
@@ -79,14 +113,19 @@ class Mesh:
         return self.rank == 0
 
     def rows(self, n: int) -> slice:
-        """This rank's rows of a node's batch of ``n`` (`shard_rows`)."""
-        return shard_rows(n, self.local_rank, self.local_world_size)
+        """This rank's rows of a node's batch of ``n`` (`shard_rows` by the data index)."""
+        return shard_rows(n, self.local_data_index, self.local_data_count)
 
     def owns_rows(self, n: int) -> bool:
         """Whether this rank's rows of a node batch of ``n`` are its own: False on
-        every local rank but the first when the batch is replicated, so that a
-        gather over ranks counts each sample once."""
-        return self.local_rank == 0 or n % self.local_world_size == 0
+        every rank of a space group but the first, and on every local data group
+        but the first when the batch is replicated, so that a gather over ranks
+        counts each sample once."""
+        return self.space_index == 0 and (self.local_data_index == 0 or n % self.local_data_count == 0)
+
+    def depth_slab(self, n: int) -> slice:
+        """This rank's planes of a depth ``n`` that its space group shards (`spatial.slab`)."""
+        return slice(*slab(n, self.space_index, self.space_count))
 
     def global_rows(self, n: int) -> Tuple[int, slice]:
         """(rows of the global batch, this rank's rows in it) for node batches of
@@ -122,34 +161,52 @@ def backend_for(device_type: str) -> str:
     return "nccl" if device_type == "cuda" and local_world <= torch.cuda.device_count() else "gloo"
 
 
-def initialize_distributed(device_type: str = "cuda") -> bool:
+def initialize_distributed(device_type: str = "cuda", timeout: Optional[float] = None) -> bool:
     """Join the process group that torchrun's environment describes (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
-    ``MASTER_PORT``) over `backend_for` the device type. A no-op in a single
-    process or when a group exists already. Returns True when this call
-    created the group."""
+    ``MASTER_PORT``) over `backend_for` the device type; ``timeout`` (seconds)
+    bounds its set-up and collectives (PyTorch's default otherwise). A no-op in
+    a single process or when a group exists already. Returns True when this
+    call created the group."""
     _, world, _, _ = _topology()
     if world <= 1 or dist.is_initialized():
         return False
-    dist.init_process_group(backend_for(device_type), init_method="env://")
+    dist.init_process_group(backend_for(device_type), init_method="env://", **_timeout(timeout))
     return True
 
 
-def make_mesh(device: Optional[str] = None) -> Mesh:
+def _timeout(seconds: Optional[float]) -> Dict[str, Any]:
+    return {} if seconds is None else {"timeout": datetime.timedelta(seconds=seconds)}
+
+
+def make_mesh(device: Optional[str] = None, n_space: int = 1, timeout: Optional[float] = None) -> Mesh:
     """This process's `Mesh`, joining torchrun's process group first
     (`initialize_distributed`). Its device is ``cuda:LOCAL_RANK``, made the
     current device (local ranks beyond the node's cards share them in turn), or
-    the CPU when ``device`` is "cpu"."""
+    the CPU when ``device`` is "cpu". With ``n_space`` > 1 every rank creates
+    the space groups (consecutive ranks, one a data index) and then the data
+    groups (one a space index), in that order; a world, or a node, whose rank
+    count ``n_space`` does not divide is a ValueError (JAX's `make_mesh`).
+    ``timeout`` (seconds) bounds every group's set-up and collectives."""
     dev = default_device(device)
     rank, world, local_rank, local_world = _topology()
+    if n_space < 1 or world % n_space or local_world % n_space:
+        raise ValueError(f"--n_space {n_space} does not divide the {world} rank(s) ({local_world} on this node)")
     if dev.type == "cuda":
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    owns = initialize_distributed(dev.type)
+    owns = initialize_distributed(dev.type, timeout)
     if dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()
+    space = data_group = None
+    if n_space > 1:
+        spaces = [new_group(range(d * n_space, (d + 1) * n_space), **_timeout(timeout))
+                  for d in range(world // n_space)]
+        datas = [dist.new_group(list(range(s, world, n_space)), **_timeout(timeout)) for s in range(n_space)]
+        space, data_group = spaces[rank // n_space], datas[rank % n_space]
     return Mesh(rank=rank, world_size=world, local_rank=local_rank if world > 1 else 0,
-                local_world_size=local_world if world > 1 else 1, device=dev, owns_group=owns)
+                local_world_size=local_world if world > 1 else 1, device=dev, owns_group=owns,
+                space_count=n_space, space=space, data_group=data_group)
 
 
 def barrier(mesh: Mesh) -> None:
@@ -157,10 +214,29 @@ def barrier(mesh: Mesh) -> None:
         dist.barrier()
 
 
-def shard_batch(mesh: Mesh, batch: Mapping[str, Any]) -> Dict[str, Any]:
+def shard_space(mesh: Mesh, batch: Mapping[str, Any], spatial_axis: Optional[int] = None) -> Dict[str, Any]:
+    """This rank's depth slab of each leaf along ``spatial_axis``, under JAX's
+    rule: only where the axis exists and the space count divides it (the
+    volumes); any other leaf stays whole, replicated over space (the
+    covariate row (B, 1, K))."""
+    s = mesh.space_count
+    if spatial_axis is None or s == 1:
+        return dict(batch)
+
+    def cut(v):
+        if v.ndim <= spatial_axis or v.shape[spatial_axis] % s:
+            return v
+        index = (slice(None),) * spatial_axis + (mesh.depth_slab(v.shape[spatial_axis]),)
+        return v[index]
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def shard_batch(mesh: Mesh, batch: Mapping[str, Any], spatial_axis: Optional[int] = None) -> Dict[str, Any]:
     """This rank's rows of a node's batch (arrays or tensors, batch first): JAX's
-    `shard_batch` over the data axis (`Mesh.rows`)."""
-    return {k: v[mesh.rows(len(v))] for k, v in batch.items()}
+    `shard_batch` over the data axis (`Mesh.rows`), then over space along
+    ``spatial_axis`` (`shard_space`)."""
+    return shard_space(mesh, {k: v[mesh.rows(len(v))] for k, v in batch.items()}, spatial_axis)
 
 
 def _broadcast_(mesh: Mesh, tensor: torch.Tensor) -> None:
@@ -231,15 +307,18 @@ def _pinned(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
 
 
-def device_prefetch(iterator: Iterable[Mapping[str, Any]], mesh: Mesh, depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+def device_prefetch(iterator: Iterable[Mapping[str, Any]], mesh: Mesh, depth: int = 2,
+                    spatial_axis: Optional[int] = None) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches of numpy arrays as tensors on the mesh's device, ``depth`` batches
-    in flight ahead of the one handed out (JAX's `device_prefetch`). On a card
+    in flight ahead of the one handed out (JAX's `device_prefetch`), each cut to
+    this rank's depth slab along ``spatial_axis`` first (`shard_space`). On a card
     each batch is copied from pinned host memory by non-blocking copies on a
     side stream; the compute stream waits on the copy's event before it gets
     the batch, and ``record_stream`` keeps the allocator from reusing a
     buffer before that stream is done with it. On the CPU it is a plain
     conversion, in order."""
     device = mesh.device
+    iterator = (shard_space(mesh, batch, spatial_axis) for batch in iterator)
     if device.type != "cuda":
         for batch in iterator:
             yield {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}

@@ -152,15 +152,18 @@ class MetricWriter:
 
 
 def mean_over_ranks(metrics: Mapping[str, torch.Tensor], mesh: Optional[Mesh] = None) -> Dict[str, float]:
-    """Each 0-d metric as a float, averaged over the ranks: every rank's batch is
-    the same size, so this is the mean over the global batch that the JAX step
-    returns. Every rank must call it at the same step (one all-reduce)."""
+    """Each 0-d metric as a float, averaged over the data groups: every group's
+    batch is the same size, so this is the mean over the global batch that the
+    JAX step returns. The ranks of a space group hold one value (their losses are
+    the whole volume's), so the mean is taken over the ranks at this rank's space
+    index (``mesh.data_group``; the world without a space axis). Every rank must
+    call it at the same step (one all-reduce)."""
     if mesh is None or not mesh.distributed:
         return {k: float(v) for k, v in metrics.items()}
     stacked = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(mesh.device).reshape(())
                            for v in metrics.values()])
-    dist.all_reduce(stacked)
-    return dict(zip(metrics, (stacked / mesh.world_size).tolist()))
+    dist.all_reduce(stacked, group=mesh.data_group)
+    return dict(zip(metrics, (stacked / mesh.data_count).tolist()))
 
 
 def global_mean(values: Sequence[float], mesh: Optional[Mesh] = None) -> float:
@@ -180,7 +183,8 @@ def guard_nonfinite(loss: torch.Tensor, mesh: Optional[Mesh] = None) -> bool:
     step and, on False, skips the generator's and the discriminator's updates
     together, as the JAX package discards both; across ranks the decision is
     taken on the all-reduced count of non-finite losses, so every rank skips
-    together (JAX tests the global loss), and replicas never part. It costs one
+    together (JAX tests the global loss), and replicas never part; a space
+    group's ranks hold one loss, a non-finite one on all of them. It costs one
     device-to-host read per step, and one all-reduce across ranks."""
     bad = (~torch.isfinite(loss.detach())).float().reshape(())
     if mesh is not None and mesh.distributed:

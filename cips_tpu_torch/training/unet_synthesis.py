@@ -19,7 +19,13 @@ JAX package's metrics. Across ranks (``mesh``) G and D train under DDP
 (`GANState.g_dp`, `d_dp`); the critic's forward in the G step, frozen, and the
 ``exact_d_fake`` regeneration go to the networks themselves, so that every
 forward through a wrapper is followed by the one backward that reaches all of
-its parameters; the non-finite guard is decided over all ranks. The JAX package's remat policies and ``d_remat`` are HBM
+its parameters; the non-finite guard is decided over all ranks. With the
+mesh's ``space`` axis (`GANState.space`) the train step runs G, D and the
+losses on depth slabs over the space group (`parallel.spatial`): every loss is
+the whole volume's on each rank of the group, and with the backward's sums over
+the group and DDP's mean over the world, every rank's gradient is the
+one-process gradient of the global batch. The eval step and serving take whole
+volumes. The JAX package's remat policies and ``d_remat`` are HBM
 devices that do not change the result; they are not ported.
 """
 
@@ -35,6 +41,7 @@ from cips_tpu_torch.losses import l1_loss, lsgan_discriminator_loss, patch_adver
 from cips_tpu_torch.models import perceptual as lpips
 from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.models.discriminator import PatchDiscriminator
+from cips_tpu_torch.parallel import spatial
 from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
 
@@ -46,7 +53,8 @@ class GANState:
     """The two networks, their Adam optimisers, the count of applied steps and
     the frozen perceptual network (None when its weight is 0). ``g_dp`` and
     ``d_dp`` are the networks as the step trains them: their DDP wrappers
-    across ranks, else the networks themselves."""
+    across ranks, else the networks themselves. ``space``: the space group
+    whose ranks hold depth slabs of this rank's rows (None: whole volumes)."""
 
     g: AttenUNet
     d: PatchDiscriminator
@@ -56,6 +64,7 @@ class GANState:
     perceptual: Optional[lpips.PerceptualLoss] = None
     g_dp: Optional[nn.Module] = field(default=None, repr=False)
     d_dp: Optional[nn.Module] = field(default=None, repr=False)
+    space: Optional[spatial.SpaceGroup] = field(default=None, repr=False)
 
     def __post_init__(self):
         self.g_dp = self.g if self.g_dp is None else self.g_dp
@@ -98,7 +107,8 @@ def init_state(
 ) -> GANState:
     """The state; ``perceptual`` is kept only when ``perceptual_weight`` is above 0,
     and is then required (a ValueError without it). Across ranks G and D are
-    wrapped for data-parallel training (rank 0's weights broadcast)."""
+    wrapped for data-parallel training (rank 0's weights broadcast); the
+    mesh's space group, if any, shards the train step's volumes."""
     with_perceptual = _weights(train_cfg)[0] > 0
     if with_perceptual and perceptual is None:
         raise ValueError("perceptual_weight is above 0 but no perceptual network was given")
@@ -110,6 +120,7 @@ def init_state(
         perceptual=perceptual if with_perceptual else None,
         g_dp=data_parallel(generator, mesh),
         d_dp=data_parallel(discriminator, mesh),
+        space=mesh.space if mesh is not None else None,
     )
 
 
@@ -125,10 +136,11 @@ def _weights(train_cfg: Mapping[str, Any]) -> Tuple[float, float]:
     return float(train_cfg.get("perceptual_weight", 0.0)), float(train_cfg.get("adv_weight", 0.1))
 
 
-def _perceptual(state: GANState, pw: float, fake: torch.Tensor, pet: torch.Tensor) -> torch.Tensor:
+def _perceptual(state: GANState, pw: float, fake: torch.Tensor, pet: torch.Tensor,
+                space: Optional[spatial.SpaceGroup] = None) -> torch.Tensor:
     """The LPIPS term (unweighted), or 0 without a weight."""
     if pw > 0:
-        return state.perceptual(fake, pet)
+        return state.perceptual(fake, pet, space=space)
     return torch.zeros((), device=fake.device)
 
 
@@ -141,7 +153,8 @@ def make_train_step(
     mesh: Optional[Mesh] = None,
 ) -> Callable[[GANState, Mapping[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """One G step then one D step on a batch {"t1", "pet", "info"} of device
-    tensors (this rank's rows of it across ranks). Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
+    tensors (this rank's rows of it across ranks, depth slabs of them over
+    ``state.space``). Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
     JAX reports it), adv_loss and d_loss, the last two times adv_weight. With
     ``nan_guard``, a non-finite g_loss skips both optimiser steps (the step
     count stays) and the metrics gain ``skipped_nonfinite``."""
@@ -152,6 +165,11 @@ def make_train_step(
         split_d = bool(train_cfg.get("split_d", False))
 
     def train_step(state: GANState, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        with spatial.sharded((state.g, state.d), state.space):
+            return sharded_step(state, batch, state.space)
+
+    def sharded_step(state: GANState, batch: Mapping[str, torch.Tensor],
+                     space: Optional[spatial.SpaceGroup]) -> Dict[str, torch.Tensor]:
         t1, pet = batch["t1"], batch["pet"]
         cond = _condition(batch, use_condition)
         zero = torch.zeros((), device=t1.device)
@@ -159,10 +177,10 @@ def make_train_step(
         state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
             fake = state.g_dp(t1, cond)
-            rec = l1_loss(fake, pet)
-            p = _perceptual(state, pw, fake, pet)
-            adv = (patch_adversarial_loss(state.d(fake)[-1], target_is_real=True, for_discriminator=False)
-                   if aw > 0 else zero)
+            rec = l1_loss(fake, pet, space)
+            p = _perceptual(state, pw, fake, pet, space)
+            adv = (patch_adversarial_loss(state.d(fake)[-1], target_is_real=True, for_discriminator=False,
+                                          space=space) if aw > 0 else zero)
             g_loss = rec + pw * p + aw * adv
             g_loss.backward()
         metrics = {"g_loss": g_loss.detach(), "rec_loss": rec.detach(), "p_loss": p.detach(),
@@ -185,7 +203,7 @@ def make_train_step(
                 logits_fake, logits_real = state.d_dp(fake)[-1], state.d_dp(pet)[-1]
             else:
                 logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
-            d_loss = lsgan_discriminator_loss(logits_fake, logits_real)
+            d_loss = lsgan_discriminator_loss(logits_fake, logits_real, space)
             d_loss.backward()
             state.opt_d.step()
             metrics["d_loss"] = d_loss.detach() * aw

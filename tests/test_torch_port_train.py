@@ -380,8 +380,9 @@ def test_train_cli_needs_cuda_unless_asked_and_refuses_unported_flags(tree, tmp_
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_unet.main(_train_args(tree, str(tmp_path / "a"), "--epochs", "1"))
-    # --perceptual_weights is ported (tests/test_torch_port_classifier.py); --n_space is not
-    with pytest.raises(NotImplementedError, match="--n_space"):
+    # --perceptual_weights is ported (tests/test_torch_port_classifier.py); --n_space 2 needs
+    # ranks it divides (tests/test_torch_port_space.py), and one process is refused
+    with pytest.raises(ValueError, match="--n_space 2 does not divide"):
         train_unet.main(_train_args(tree, str(tmp_path / "b"), "--device", "cpu", "--n_space", "2"))
 
 
