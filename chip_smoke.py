@@ -125,10 +125,26 @@ Phases (any failure raises and the script exits non-zero):
                 memory a rank, bytes exchanged a step by kind; the checkpoint resumed
                 at 1 rank; the flash kernels at (2, 4, 1152, 32) and (2, 4, 576, 32)
                 against Lk 2304 in bf16 and fp32 held to their plain versions, timed
-                beside SDPA and their bound; the fp32 step at full width and the
-                reduced crop at space 2 against one process: losses, replicas, G
-                and D each alone (cips_tpu_torch/scripts/probe_space_kink.py);
- 17. summary  — a JSON line of kernels, the card line, and the result line.
+                beside SDPA and their bound; the fp32 step at full width and
+                (40, 64, 32), whose coarsest level's 5 planes part 2 / 3, at space 2
+                against one process: losses, replicas, G and D each alone
+                (cips_tpu_torch/scripts/probe_space_kink.py); then uneven slabs: the
+                flagship's dry run at (88, 128, 96), space 2, bf16 (the coarsest
+                level's 11 planes part 5 / 6: 6/6/6 flash launches at Lq 960 and
+                1152 against Lk 2112), the kernels at those shapes held to their
+                plain versions;
+ 17. causal space — the causal trio's dry run (CIPS_DRYRUN_TASK=causal, the bundled
+                config, the full volume, bf16, 2 steps) at --n_space 2: 2 ranks sharing
+                the card over gloo (4 cards or more: data 2 x space 2 over NCCL);
+                replicas identical, 7/7/7 flash launches a step on each rank at Lq 9216
+                against Lk 18432, DDP's bytes the gradients', the bytes exchanged a step
+                by kind beside the prediction, the first step's losses against a 1-rank
+                step on the same batch and noise; the flash kernels at (1, 4, 9216, 32)
+                and (1, 2, 9216, 32) against Lk 18432 in bf16 and fp32 held to their
+                plain versions, timed beside SDPA and their bound; the fp32 trio at full
+                width and the reduced crop at space 2 against one process: losses,
+                replicas, the trio and D each alone (probe_space_kink --task causal);
+ 18. summary  — a JSON line of kernels, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
 """
@@ -144,6 +160,7 @@ import itertools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -388,7 +405,7 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, traces: int = 3) -> float:
+def device_ms(fn, iters: int, traces: int = 3, floor: float = 0.0) -> float:
     """Device time of one call of ``fn``: every kernel and copy it launches, from a
     torch.profiler trace of ``iters`` calls after 5 warm-up calls, each kernel's
     mean duration times its launches a call. The host's own work per call
@@ -400,7 +417,9 @@ def device_ms(fn, iters: int, traces: int = 3) -> float:
     times it, where their sum over ``iters`` would read low; this is printed.
     All of them: the trace is taken again, up to ``traces`` times, and if every
     one is empty the call is timed by CUDA events instead, printed as such and
-    counted in EVENT_TIMED."""
+    counted in EVENT_TIMED. A trace that reads under ``floor`` (the call's bound,
+    the least time the card could take) lost the records of a whole kernel and is
+    taken again the same way."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
@@ -413,7 +432,11 @@ def device_ms(fn, iters: int, traces: int = 3) -> float:
             torch.cuda.synchronize()
         records = device_records(prof, f"device_ms of {fn!r}")
         if records:
-            return kernel_ms_per_call(records, iters, fn)
+            ms = kernel_ms_per_call(records, iters, fn)
+            if ms >= floor:
+                return ms
+            print(f"device_ms: trace {trace} of {traces} of {fn!r} reads {ms:.4f} ms, under the bound {floor:.5f} ms")
+            continue
         print(f"device_ms: trace {trace} of {traces} of {fn!r} holds no device time")
     EVENT_TIMED.append(repr(fn))
     ms = cuda_ms(fn, iters)
@@ -437,10 +460,13 @@ def device_records(prof, label) -> list:
 def kernel_ms_per_call(records, iters: int, label) -> float:
     """Device ms a call from a trace's device records (key_averages) over ``iters``
     calls: a kernel recorded about n x iters times runs n times a call at its mean
-    duration; one recorded fewer than iters / 2 times is spread over the calls."""
+    duration, and so does one recorded at least iters / 10 times (once a call, most
+    of its records lost: late in a call of this script the profiler kept as few as
+    a third of them, on an NVIDIA H100 80GB HBM3 at 700 W); one recorded fewer times
+    (once a trace) is spread over the calls."""
     total, lost = 0.0, 0
     for e in records:
-        n = round(e.count / iters)
+        n = round(e.count / iters) or int(e.count >= iters / 10)
         total += e.self_device_time_total * (n / e.count if n else 1 / iters)
         lost += max(n * iters - e.count, 0)
     if lost:
@@ -543,13 +569,14 @@ def kernel_checks(fa) -> float:
     return worst
 
 
-def sdpa_yardstick(q, k, v, dout, scale: float, iters: int, want=None) -> tuple:
+def sdpa_yardstick(q, k, v, dout, scale: float, iters: int, want=None, floors=(0.0, 0.0)) -> tuple:
     """SDPA's forward and backward (dq, dk and dv in one call) under each of the
     flash, efficient and cuDNN backends, pinned, by device time; a backend that
     refuses the shape or dtype is skipped and printed, and none accepting it raises.
     ``want`` (out, dq, dk, dv) of the plain versions in fp32, if given: each
     backend's results must agree with it within the kernels' own limits before
-    it is timed. Returns ((fwd ms, backend), (bwd ms, backend)) of the fastest."""
+    it is timed. ``floors``: the forward's and the backward's bounds (`device_ms`).
+    Returns ((fwd ms, backend), (bwd ms, backend)) of the fastest."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -570,9 +597,10 @@ def sdpa_yardstick(q, k, v, dout, scale: float, iters: int, want=None) -> tuple:
                           f"dv {errs[3]:.3e} (tol {tols[0]:g}, {tols[1]:g})")
                     check(all(e <= t for e, t in zip(errs, tols)),
                           f"SDPA {name} computes another function at {tuple(q.shape)} {q.dtype}")
-                fwd[name] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
+                fwd[name] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters,
+                                      floor=floors[0])
                 bwd[name] = device_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True),
-                                      iters)
+                                      iters, floor=floors[1])
         except RuntimeError as err:
             print(f"SDPA {name} refuses {tuple(q.shape)}: {str(err).splitlines()[0][:200]}")
     check(bool(fwd), f"no SDPA backend accepts {tuple(q.shape)} {q.dtype}")
@@ -600,8 +628,6 @@ def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16, lk=None) -> dict:
         f32 = [t.float() for t in (q, k, v, dout)]
         want = (fa.flash_attention_reference(*f32[:3], scale)[0], fa.flash_attention_bwd_dq_reference(
             *f32, lse, delta, scale), *fa.flash_attention_bwd_dkv_reference(*f32, lse, delta, scale))
-    (sdpa_f, name_f), (sdpa_b, name_b) = sdpa_yardstick(q, k, v, dout, scale, iters, want)
-    del want
     pairs = b * h * l * lk
     size = q.element_size()
     rows_q, rows_k = b * h * l * d * size, b * h * lk * d * size  # one tensor of q's, of k's shape
@@ -609,22 +635,27 @@ def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16, lk=None) -> dict:
         # 4 B H Lq Lk Dh operations; q, k, v, out and lse; one exponential per score
         "fwd": (lambda: fa.flash_attention_forward(q, k, v, scale),
                 lambda: fa.flash_attention_reference(q, k, v, scale),
-                4.0 * pairs * d, 2 * rows_q + 2 * rows_k + b * h * l * 4, sdpa_f, name_f),
+                4.0 * pairs * d, 2 * rows_q + 2 * rows_k + b * h * l * 4),
         # dQ 6 B H Lq Lk Dh operations, dK/dV 8; each reads q, k, v, dO and lse, delta (fp32)
         # and writes its grads; each recomputes one exponential per score
         "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
                lambda: fa.flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta, scale),
-               6.0 * pairs * d, 3 * rows_q + 2 * rows_k + 2 * b * h * l * 4, sdpa_b, name_b),
+               6.0 * pairs * d, 3 * rows_q + 2 * rows_k + 2 * b * h * l * 4),
         "dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale),
                 lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale),
-                8.0 * pairs * d, 2 * rows_q + 4 * rows_k + 2 * b * h * l * 4, sdpa_b, name_b),
+                8.0 * pairs * d, 2 * rows_q + 4 * rows_k + 2 * b * h * l * 4),
     }
+    bounds = {kind: bound_ms(flops, nbytes, float(pairs), dtype) for kind, (_, _, flops, nbytes) in kernels.items()}
+    library_fwd, library_bwd = sdpa_yardstick(q, k, v, dout, scale, iters, want, floors=(
+        bounds["fwd"][0], max(bounds["dq"][0], bounds["dkv"][0])))
+    del want
     rows = {}
-    for kind, (kernel, reference, flops, nbytes, library_ms, library) in kernels.items():
-        ms = device_ms(kernel, 200)
+    for kind, (kernel, reference, flops, nbytes) in kernels.items():
+        bound, bound_by = bounds[kind]
+        library_ms, library = library_fwd if kind == "fwd" else library_bwd
+        ms = device_ms(kernel, 200, floor=bound)
         eager_ms = cuda_ms(kernel, 200, warmup=20)
         plain_ms = cuda_ms(reference, 20) if plain else None
-        bound, bound_by = bound_ms(flops, nbytes, float(pairs), dtype)
         yardstick = "SDPA" if kind == "fwd" else "SDPA backward (dq, dk, dv)"
         # fp32: the operations at the FMA rate, the fp32 bound before 3xTF32, printed only
         fma = f", at the FMA rate {fma_ms(flops):.5f} ms ({fma_ms(flops) / ms:.1%})" if dtype == torch.float32 else ""
@@ -2335,14 +2366,67 @@ SPACE_ATTN = ((TRAIN_BATCH, 4, SPACE_LK // 2, 32), (TRAIN_BATCH, 4, SPACE_LK // 
 TOL_SPACE_LOSS_REL = 1e-2
 SPACE_LOSS_STEPS = 2  # the steps held to TOL_SPACE_LOSS_REL
 SPACE_LOSSES = ("g_loss", "rec_loss", "adv_loss", "d_loss")
+# Uneven slabs: the flagship's dry run at a depth of 88, whose coarsest level (11 x 16 x 12 = 2,112
+# tokens) parts 5 / 6 over 2 ranks, so the flash kernels run at Lq 960 and 1,152 against Lk 2,112 (no
+# multiple of 128); at (40, 64, 32) the coarsest level's 5 planes part 2 / 3.
+SPACE_UNEVEN_CROP = (88, 128, 96)
+SPACE_UNEVEN_LK = 2112
+SPACE_UNEVEN_ATTN = ((1, 4, 960, 32), (1, 4, 1152, 32))
+SPACE_KINK_UNEVEN_CROP = (40, 64, 32)
+# Phase 17: the causal trio at space 2, batch 1 a data group: the latent's 24 planes part 12 / 12, so
+# every flash kernel runs at Lq 9,216 against Lk 18,432; the encoder's 4 sites at 4 heads, the PET
+# decoder's 3 at 2.
+CAUSAL_SPACE_LK = 18432
+CAUSAL_SPACE_ATTN = ((1, 4, 9216, 32), (1, 2, 9216, 32))
+CAUSAL_SPACE_STEPS = 2
+# PERF.md's prediction of the bytes rank 0 exchanges a step by kind at data 1 x space 2 (scaled from
+# the CPU's count at (16, 32, 24) in fp32), printed beside the measured ones
+CAUSAL_SPACE_PREDICTED = {"halo": 64.7e6, "norm": 40640, "kv": 51904512, "volume": 4.7e6, "mean": 88}
 
 
-def space_kernel_checks(fa) -> None:
-    """The forward, dQ and dK/dV kernels at a space rank's shapes (Lq = 2304 /
-    n_space against Lk = 2304) in bf16 and fp32, against their plain versions in
-    fp32 on the same inputs, within the limits of phase 3."""
-    for i, (shape, dtype) in enumerate(itertools.product(SPACE_ATTN, (torch.bfloat16, torch.float32))):
-        q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, 40 + i, lk=SPACE_LK)
+def recorded_dryrun_rank(mesh, task: str, full: bool, crop, dtype_name: str, steps: int) -> dict:
+    """One rank of `cips_tpu_torch.parallel.dryrun` (`dryrun_rank`, what the dry
+    run's entry point runs in each rank) with each train step's flash launches,
+    every launch's (kernel, Lq, Lk) and the rank's peak memory recorded; started
+    by `dryrun.start` (spawn re-imports this file to find it)."""
+    from cips_tpu_torch.ops import flash_attention as fa
+    from cips_tpu_torch.parallel import dryrun
+    from cips_tpu_torch.training import causal_task, unet_synthesis
+
+    launched, per_step, launch = [], [], fa._launch
+
+    def recorded_launch(name, q, k, *pointers, scale):
+        launched.append((name, q.shape[2], k.shape[2]))
+        return launch(name, q, k, *pointers, scale=scale)
+
+    fa._launch = recorded_launch
+    try:
+        set_counts(fa, (0, 0, 0))
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        with step_launches(fa, per_step, causal_task if task == "causal" else unet_synthesis):
+            payload = dryrun.dryrun_rank(mesh, task, full, crop, dtype_name, steps)
+        return {"rank": mesh.rank, "device": str(mesh.device), "payload": payload, "steps": per_step,
+                "launches": list(counts(fa)), "flash_shapes": sorted(set(launched)),
+                "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)}
+    finally:
+        fa._launch = launch
+
+
+def recorded_dryrun(task: str, crop, dtype_name: str, steps: int, n: int, n_space: int) -> list:
+    """The dry run's ranks (`recorded_dryrun_rank`) at ``n`` ranks, space ``n_space``, on the card(s):
+    each rank's record, in rank order (rank 0's holds the payload)."""
+    from cips_tpu_torch.parallel import dryrun
+
+    return dryrun.start(recorded_dryrun_rank, n, task, True, tuple(crop), dtype_name, steps, device="cuda",
+                        n_space=n_space, timeout=DP_EPOCH_TIMEOUT).join()
+
+
+def space_kernel_checks(fa, shapes=SPACE_ATTN, lk: int = SPACE_LK) -> None:
+    """The forward, dQ and dK/dV kernels at a space rank's ``shapes`` (its queries
+    against all ``lk`` keys) in bf16 and fp32, against their plain versions in fp32
+    on the same inputs, within the limits of phase 3."""
+    for i, (shape, dtype) in enumerate(itertools.product(shapes, (torch.bfloat16, torch.float32))):
+        q, k, v, out, lse, dout, delta, scale = bwd_inputs(fa, shape, dtype, 40 + i, lk=lk)
         got = (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
                *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale))
         torch.cuda.synchronize()
@@ -2355,12 +2439,66 @@ def space_kernel_checks(fa) -> None:
         rel_out = ((out.float() - ref_out).abs().max() / ref_out.abs().max()).item()
         lse_err = (lse - ref_lse).abs().max().item()
         rels = [((a.float() - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
-        print(f"space kernels {shape} Lk {SPACE_LK} {str(dtype)[6:]}: out {rel_out:.3e} of max|out| (tol {tol_out:g}), "
+        print(f"space kernels {shape} Lk {lk} {str(dtype)[6:]}: out {rel_out:.3e} of max|out| (tol {tol_out:g}), "
               f"lse {lse_err:.3e} (tol {TOL_LSE:g}); dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} of "
               f"max|grad| (tol {tol_grad:g})")
         check(rel_out <= tol_out and lse_err <= TOL_LSE and all(r <= tol_grad for r in rels)
               and all(torch.isfinite(t).all().item() for t in (out, *got)),
-              f"flash kernels disagree with their plain versions at {shape} Lk {SPACE_LK} {dtype}")
+              f"flash kernels disagree with their plain versions at {shape} Lk {lk} {dtype}")
+        del q, k, v, out, lse, dout, delta, got, f32, ref_out, want
+
+
+def kink_start(task: str, crop) -> tuple:
+    """Start `probe_space_kink --task TASK --check --crop CROP` in its own session (so that
+    `kink_stop` can end its spawned ranks with it), its output into temporary files (a pipe that
+    nobody reads would stall it): the fp32 step at full width, data 1 x space 2, against one process
+    (no TF32, no cuDNN). Returns what `kink_check` and `kink_stop` take."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "cips_tpu_torch.scripts.probe_space_kink", "--task", task,
+                             "--check", "--crop", *map(str, crop)], stdout=out, stderr=err, text=True,
+                            env={**os.environ, "OMP_NUM_THREADS": "1"}, start_new_session=True)
+    return proc, task, tuple(crop), time.perf_counter(), out, err
+
+
+def kink_stop(started: tuple) -> None:
+    """End a probe that `kink_start` started and its ranks, if it still runs."""
+    proc = started[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def kink_check(started: tuple, label: str, card: str) -> dict:
+    """Wait for a probe of `kink_start`: the losses, the replicas, and G and D each alone within
+    dryrun.TOL_GRADS, which the probe asserts; prints the whole step's gradients beside one
+    process's own jump when G's synthesis moves by a relative eps. Returns the probe's payload."""
+    proc, task, crop, t0, out, err = started
+    try:
+        proc.wait(timeout=DP_EPOCH_TIMEOUT)
+    finally:
+        kink_stop(started)
+    for f in (out, err):
+        f.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode != 0:
+        print(stdout[-4000:])
+        print(stderr[-8000:])
+    check(proc.returncode == 0, f"the fp32 {task} space check at {crop} failed")
+    payload = json.loads([line for line in stdout.splitlines() if line.startswith("{")][-1])
+    fmt = lambda row: f"{row[0]:.3e} of {row[1]}'s max|grad| (2-norm {row[2]:.3e})"  # noqa: E731
+    parts = payload["parts"]
+    adversarial = parts["G's adversarial term"]
+    print(f"{label}: fp32 at {crop}, full width, data 1 x space 2 vs one process, in "
+          f"{time.perf_counter() - t0:.1f} s: losses within {payload['metrics_rel']:.3e}, replicas apart by "
+          f"{payload['max_rank_diff']}; G alone {fmt(parts['G alone'])}, D alone {fmt(parts['D alone'])} (limit "
+          f"1e-4); G's adversarial term {fmt(adversarial)}; "
+          f"the whole step: G {fmt(payload['step']['generator'])}, D {fmt(payload['step']['discriminator'])}; "
+          f"one process's own G adversarial gradient with G's synthesis x (1 + eps N(0, 1)): "
+          + "; ".join(f"eps {eps} {fmt(row)}" for eps, row in payload["jumps"].items())
+          + f"; bytes exchanged {payload['space_bytes']}; {card}")
+    return payload
 
 
 def space_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str, card: str,
@@ -2372,8 +2510,8 @@ def space_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str,
     launches a step on each rank, all at Lq 1152 / Lk 2304, DDP's bytes, one writer,
     the first two steps' losses against phase 15's 1-rank steps on the same batches; the
     checkpoint resumed at 1 rank; the flash kernels at a space rank's shapes held to
-    their plain versions and timed beside SDPA and their bound; the fp32 step at the
-    reduced crop against one process (`scripts/probe_space_kink.py --check`)."""
+    their plain versions and timed beside SDPA and their bound; the fp32 step at a
+    reduced crop against one process (`kink_check`); uneven slabs (`space_uneven_case`)."""
     from cips_tpu_torch.cli import train_unet
     from cips_tpu_torch.training.common import CheckpointManager
 
@@ -2453,32 +2591,118 @@ def space_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str,
                       fa, SPACE_ATTN[0], True, torch.float32, lk=SPACE_LK)}
         print(f"space parallel: kernel checks and timing at a space rank's shapes in {time.perf_counter() - t0:.1f} s")
 
-    # fp32 at the reduced crop, full width, data 1 x space 2 against one process (no TF32, no cuDNN): the
-    # losses, the replicas, and G and D each alone within dryrun.TOL_GRADS; the whole step's gradients
-    # are printed beside the one-process step's own jump when G's output moves by 1e-5: a LeakyReLU of D
-    # within rounding of its kink parts any two summation orders there (probe_space_kink's docstring)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "cips_tpu_torch.scripts.probe_space_kink", "--check",
-                           "--crop", *map(str, DP_CROP)], capture_output=True, text=True, timeout=DP_EPOCH_TIMEOUT,
-                          env={**os.environ, "OMP_NUM_THREADS": "1"})
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:])
-        print(proc.stderr[-8000:])
-    check(proc.returncode == 0, "the fp32 space check failed")
-    payload = json.loads([line for line in proc.stdout.splitlines() if line.startswith("{")][-1])
-    fmt = lambda row: f"{row[0]:.3e} of {row[1]}'s max|grad| (2-norm {row[2]:.3e})"
-    parts = payload["parts"]
-    adversarial = parts["G's adversarial term"]
-    print(f"space parallel: fp32 at {DP_CROP}, full width, data 1 x space 2 vs one process, in "
-          f"{time.perf_counter() - t0:.1f} s: losses within {payload['metrics_rel']:.3e}, replicas apart by "
-          f"{payload['max_rank_diff']}; G alone {fmt(parts['G alone'])}, D alone {fmt(parts['D alone'])} (limit "
-          f"1e-4); G's adversarial term {fmt(adversarial)}; "
-          f"the whole step: G {fmt(payload['step']['generator'])}, D {fmt(payload['step']['discriminator'])}; "
-          f"one process's own G adversarial gradient with G's output x (1 + eps N(0, 1)): "
-          + "; ".join(f"eps {eps} {fmt(row)}" for eps, row in payload["jumps"].items()) + f"; {card}")
+    # The fp32 checks of this phase and the next, and the uneven case, side by side (each is a few
+    # host-bound processes; none is timed): the flagship at a reduced crop whose coarsest level parts
+    # unevenly (5 planes: 2 / 3) and the causal trio at DP_CROP, full width, data 1 x space 2 against one
+    # process (no TF32, no cuDNN): the losses, the replicas, and G and D each alone within
+    # dryrun.TOL_GRADS; the whole step's gradients are printed beside the one-process step's own jump
+    # when G's synthesis moves by a relative eps: a LeakyReLU of D within rounding of its kink parts any
+    # two summation orders (the flagship's at (32, 64, 32) by 1e-2; probe_space_kink's docstring)
+    probes = [kink_start("flagship", SPACE_KINK_UNEVEN_CROP), kink_start("causal", DP_CROP)]
+    try:
+        uneven = space_uneven_case(fa, card)
+        payload = kink_check(probes[0], "space parallel", card)
+        causal_fp32 = kink_check(probes[1], "causal space", card)
+    finally:
+        for probe in probes:
+            kink_stop(probe)
     return {"ranks": n, "layout": layout, "backend": backend, "step_ms": step_ms, "peak_gib": peak,
             "exchanged": exchanged, "launches_per_rank": [r["launches"] for r in recs], "timing": timing,
-            "fp32": payload}
+            "fp32": payload, "uneven": uneven, "causal_fp32": causal_fp32}
+
+
+def space_uneven_case(fa, card: str) -> dict:
+    """Phase 16's uneven slabs: the flagship's dry run at SPACE_UNEVEN_CROP, space 2 (2 ranks), bf16,
+    full width, 1 step (finite losses and identical replicas, which the dry run asserts; 6/6/6 flash
+    launches on each rank, at Lq 960 on rank 0 and 1,152 on rank 1 against Lk 2,112); the flash kernels
+    at those shapes against their plain versions. Returns each rank's launches."""
+    kernels = ("cips_flash_attention_fwd", "cips_flash_attention_bwd_dq", "cips_flash_attention_bwd_dkv")
+    t0 = time.perf_counter()
+    recs = recorded_dryrun("flagship", SPACE_UNEVEN_CROP, "bf16", 1, 2, 2)
+    for r, shape in zip(recs, SPACE_UNEVEN_ATTN):
+        print(f"space parallel (uneven): rank {r['rank']} on {r['device']} at {SPACE_UNEVEN_CROP}: launches a step "
+              f"{r['steps']} at (kernel, Lq, Lk) {r['flash_shapes']}; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+        check(r["steps"] == [(6, 6, 6)], f"rank {r['rank']}: the uneven step must launch 6/6/6 flash kernels")
+        check({tuple(x) for x in r["flash_shapes"]} == {(k, shape[2], SPACE_UNEVEN_LK) for k in kernels},
+              f"rank {r['rank']}: the uneven step's flash kernels must run at Lq {shape[2]}, Lk {SPACE_UNEVEN_LK}")
+    payload = recs[0]["payload"]
+    print(f"space parallel (uneven): the flagship's dry run at {SPACE_UNEVEN_CROP}, data 1 x space 2, bf16 in "
+          f"{time.perf_counter() - t0:.1f} s: metrics {payload['metrics']}, bytes exchanged by rank 0 "
+          f"{payload['space_bytes_per_step']}, step {payload['step_ms']} ms, replicas apart by "
+          f"{payload['max_rank_diff']}; {card}")
+    check(all(np.isfinite(v) for m in payload["metrics"] for v in m.values()), "non-finite uneven metrics")
+    with uncounted(fa):
+        space_kernel_checks(fa, SPACE_UNEVEN_ATTN, SPACE_UNEVEN_LK)
+    return {"launches_per_rank": [r["launches"] for r in recs]}
+
+
+def causal_space_phase(fa, card: str, fp32: dict) -> dict:
+    """Phase 17: the causal trio's dry run at --n_space 2 (2 ranks sharing the card over gloo; 2-3
+    cards: 2 over NCCL; 4 or more: data 2 x space 2 over NCCL), the bundled config, the full volume,
+    bf16, CAUSAL_SPACE_STEPS steps. Checked: identical replicas and DDP's bytes (the dry run asserts
+    both), 7/7/7 flash launches a step on each rank, all at Lq 9,216 / Lk 18,432, every kind of
+    exchange, the first step's losses against a 1-rank step on the same batch and noise; the flash
+    kernels at CAUSAL_SPACE_ATTN against their plain versions, timed beside SDPA and their bound.
+    ``fp32``: the fp32 trio at DP_CROP, space 2, against one process part by part (`probe_space_kink
+    --task causal --check`), which phase 16 ran beside its own."""
+    from cips_tpu_torch.parallel import dryrun
+
+    cards = torch.cuda.device_count()
+    n, backend = (4, "nccl") if cards >= 4 else (2, "nccl" if cards >= 2 else "gloo")
+    layout = f"data {n // 2} x space 2"
+    print(f"causal space: {cards} card(s); CIPS_DRYRUN_TASK=causal CIPS_DRYRUN_FULL=1 parallel.dryrun {n} "
+          f"--n_space 2 ({layout}) over {backend}" + (" sharing the one card: the step time measures the "
+                                                      "mechanism's cost through gloo, not a speed-up"
+                                                      if cards == 1 else ""))
+    t0 = time.perf_counter()
+    recs = recorded_dryrun("causal", CROP, "bf16", CAUSAL_SPACE_STEPS, n, 2)
+    kernels = {"cips_flash_attention_fwd", "cips_flash_attention_bwd_dq", "cips_flash_attention_bwd_dkv"}
+    payload = recs[0]["payload"]
+    for r in recs:
+        print(f"causal space: rank {r['rank']} of {n} on {r['device']}: launches a step {r['steps']} at (kernel, Lq, "
+              f"Lk) {r['flash_shapes']}; peak memory {r['peak_bytes'] / 2**30:.2f} GiB; {card}")
+        check(r["steps"] == [(CAUSAL_FLASH,) * 3] * CAUSAL_SPACE_STEPS,
+              f"rank {r['rank']}: every causal step must launch {CAUSAL_FLASH} forward, dQ and dK/dV kernels")
+        check({tuple(x) for x in r["flash_shapes"]} == {(k, CAUSAL_SPACE_LK // 2, CAUSAL_SPACE_LK) for k in kernels},
+              f"rank {r['rank']}: the causal flash kernels must run at Lq {CAUSAL_SPACE_LK // 2}, Lk {CAUSAL_SPACE_LK}")
+    check(all(b == payload["grad_bytes"] for b in payload["reduced_bytes_per_step"]),
+          "DDP's bytes are not the gradients'")
+    exchanged = payload["space_bytes_per_step"]
+    check(all(step[kind] > 0 for step in exchanged for kind in CAUSAL_SPACE_PREDICTED),
+          f"the causal space exchanges a step {exchanged}")
+    step_ms = payload["step_ms"]
+    peak = max(r["peak_bytes"] for r in recs) / 2**30
+    print(f"causal space: {layout} over {backend}, batch 1 a data group, in {time.perf_counter() - t0:.1f} s: step ms "
+          f"{[round(x, 3) for x in step_ms]} (rank 0, CUDA events); peak {peak:.2f} GiB a rank; bytes exchanged a "
+          f"step by rank 0 {exchanged[-1]} (total {sum(exchanged[-1].values())}) against the prediction "
+          f"{CAUSAL_SPACE_PREDICTED}; DDP {payload['reduced_bytes_per_step']} = gradients {payload['grad_bytes']}; "
+          f"replicas apart by {payload['max_rank_diff']}; {card}")
+    with uncounted(fa):
+        one = dryrun.run_steps(None, "causal", dryrun._config("causal", True), CROP, torch.bfloat16, 1,
+                               payload["global_batch"], torch.device("cuda"))
+    want = one["metrics"][0]
+    got = payload["metrics"][0]  # the global batch's
+    rel = {k: abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items()}
+    print(f"causal space: step 1's losses at {layout} {got} vs a 1-rank step on the same batch and noise {want}: "
+          f"relative differences { {k: f'{v:.3e}' for k, v in rel.items()} } (limit {TOL_SPACE_LOSS_REL:g}); "
+          f"the 1-rank step {one['step_ms'][0]:.3f} ms")
+    check(all(v <= TOL_SPACE_LOSS_REL for v in rel.values()), "the sharded causal step's losses part from 1 rank's")
+    del one
+
+    with uncounted(fa):
+        t0 = time.perf_counter()
+        space_kernel_checks(fa, CAUSAL_SPACE_ATTN, CAUSAL_SPACE_LK)
+        timing = {"x".join(map(str, shape)) + f" Lk {CAUSAL_SPACE_LK}": flash_timing(fa, shape, True,
+                                                                                     lk=CAUSAL_SPACE_LK)
+                  for shape in CAUSAL_SPACE_ATTN}
+        timing["x".join(map(str, CAUSAL_SPACE_ATTN[0])) + f" Lk {CAUSAL_SPACE_LK} f32"] = flash_timing(
+            fa, CAUSAL_SPACE_ATTN[0], True, torch.float32, lk=CAUSAL_SPACE_LK)
+        print(f"causal space: kernel checks and timing at a causal space rank's shapes in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    return {"ranks": n, "layout": layout, "backend": backend, "step_ms": step_ms, "peak_gib": peak,
+            "exchanged": exchanged[-1], "launches_per_rank": [r["launches"] for r in recs], "timing": timing,
+            "fp32": fp32}
 
 
 def main() -> int:
@@ -2806,7 +3030,13 @@ def main() -> int:
         flash_at.update(space["timing"])
         print(f"space parallel phase in {time.perf_counter() - t0:.1f} s; {card}")
 
-    phase("17 summary")
+        phase("17 causal space")
+        t0 = time.perf_counter()
+        causal_space = causal_space_phase(fa, card, space["causal_fp32"])
+        flash_at.update(causal_space["timing"])
+        print(f"causal space phase in {time.perf_counter() - t0:.1f} s; {card}")
+
+    phase("18 summary")
     kernels = []
     for name, kind, replaces, launches, err in (
         ("flash_attention_fwd", "fwd", "cips_tpu/ops/pallas/flash_attention.py:44", train_counts[0], fwd_err),
@@ -2835,6 +3065,13 @@ def main() -> int:
                         "launches_space_parallel": {"ranks": space["ranks"], "layout": space["layout"],
                                                     "backend": space["backend"],
                                                     "per_rank": [r[i] for r in space["launches_per_rank"]]},
+                        # phase 16's uneven slabs: the flagship's dry run at (88, 128, 96), space 2, one step
+                        # (Lq 960 and 1152, Lk 2112)
+                        "launches_space_uneven": [r[i] for r in space["uneven"]["launches_per_rank"]],
+                        # phase 17: the causal trio's dry run at space 2, each rank's launches (Lq 9216, Lk 18432)
+                        "launches_causal_space": {"ranks": causal_space["ranks"], "layout": causal_space["layout"],
+                                                  "backend": causal_space["backend"],
+                                                  "per_rank": [r[i] for r in causal_space["launches_per_rank"]]},
                         **flash_at["x".join(map(str, TRAIN_ATTN))][kind],
                         "at": {label: {k: round(t, 6) if isinstance(t, float) else t for k, t in rows[kind].items()}
                                for label, rows in flash_at.items()}})
@@ -2862,7 +3099,7 @@ def main() -> int:
                          for v in variants},
         })
     print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "event_timed": len(EVENT_TIMED)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

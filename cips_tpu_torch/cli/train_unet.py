@@ -20,8 +20,10 @@ networks' names, so that a run resumes at any number of ranks.
 ``space`` axis, `parallel.spatial`): the world is a (data, space) grid of
 WORLD_SIZE / S data groups of S ranks, a data group takes the rows a rank took,
 and each of its ranks a depth slab of them; every rank's gradient is the
-one-process gradient of the global batch. The crop's depth must be a multiple
-of S * 2^(levels - 1). Eval takes whole volumes, its subjects dealt out over
+one-process gradient of the global batch. Any depth the unsharded model takes
+will do, as in JAX: the slabs of a deeper level may be uneven, and a crop depth
+that S does not divide reaches the ranks whole and trains unsharded on each of
+them. Eval takes whole volumes, its subjects dealt out over
 all ranks as without it. A world whose rank count S does not divide is a
 ValueError.
 
@@ -90,13 +92,9 @@ def _checkpoint(state: unet_synthesis.GANState, epoch: int) -> dict:
 def main(argv=None) -> unet_synthesis.GANState:
     args = build_argparser().parse_args(argv)
     cfg = common.load_config(args.config, "training.json")
-    # checked here: a depth that n_space does not divide would reach the ranks whole (JAX's rule for a
-    # leaf its axis does not split), and the generator could not tell a whole volume from a slab
+    # the volumes' depth: one that n_space does not divide reaches the ranks whole (JAX's rule for a leaf
+    # its axis does not split), and the train step runs it unsharded
     depth = (args.random_crop_size or args.crop_size)[0]
-    multiple = args.n_space * 2 ** (len(cfg["atten_unet_def"]["num_channels"]) - 1)
-    if args.n_space > 1 and depth % multiple:
-        raise ValueError(f"--n_space {args.n_space}: the training depth {depth} must be a multiple of {multiple} "
-                         f"(equal slabs of even depth at every level)")
     mesh = make_mesh(args.device, n_space=args.n_space)
     device = mesh.device
     train_cfg = cfg["training"]
@@ -131,7 +129,7 @@ def main(argv=None) -> unet_synthesis.GANState:
     timer = StepTimer()
     step_fn = unet_synthesis.make_train_step(
         train_cfg, use_condition=args.use_condition, exact_d_fake=(True if args.exact_d_fake else None),
-        nan_guard=args.nan_guard, mesh=mesh,
+        nan_guard=args.nan_guard, mesh=mesh, volume_depth=depth,
     )
     eval_fn = unet_synthesis.make_eval_step(train_cfg, use_condition=args.use_condition)
 

@@ -8,9 +8,10 @@
     against 1 (real) or 0 (fake); the generator's form targets real on fakes;
   * `lsgan_discriminator_loss` — 0.5 * (MSE(fake, 0) + MSE(real, 1)).
 
-All reductions are in fp32. The flagship's losses take a ``space`` group when
-their inputs are depth slabs (the mesh's ``space`` axis): their means are then
-the whole volume's, the global sum over the global count (`spatial.space_mean`).
+All reductions are in fp32. Every loss takes a ``space`` group when its
+inputs are depth slabs (the mesh's ``space`` axis): a mean is then the whole
+volume's, the global sum over the global count (`spatial.space_mean`), and
+the KL's per-sample sums are summed over the group before the batch mean.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from cips_tpu_torch.parallel.spatial import SpaceGroup, space_mean
+from cips_tpu_torch.parallel.spatial import SpaceGroup, space_mean, space_sum
 
 
 def _mean(x: torch.Tensor, space: Optional[SpaceGroup]) -> torch.Tensor:
@@ -30,10 +31,12 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor, space: Optional[SpaceGroup
     return _mean((pred.float() - target.float()).abs(), space)
 
 
-def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor, space: Optional[SpaceGroup] = None) -> torch.Tensor:
     """KL(N(mu, exp(logvar)) || N(0, 1)), summed per sample, mean over the batch."""
     mu, logvar = mu.float(), logvar.float()
     per_sample = -0.5 * (1.0 + logvar - mu * mu - logvar.exp()).flatten(1).sum(dim=1)
+    if space is not None:
+        per_sample = space_sum(per_sample, space, "mean")
     return per_sample.mean()
 
 

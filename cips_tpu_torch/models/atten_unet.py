@@ -7,9 +7,11 @@ reference's JSON config schema (``configs/training.json:atten_unet_def``);
 attention scores are always fp32 here (see ``ops/attention.py``).
 ``forward`` takes and returns channels-last (N, D, H, W, C) volumes, like
 the JAX model; inside, the layout is NCDHW. Over a ``space`` group
-(`parallel.spatial.sharded`) it takes and returns a depth slab: every level's
-depth must part into equal slabs of even depth, so the volume's depth must be
-a multiple of n_space * 2^(levels - 1).
+(`parallel.spatial.sharded`) it takes and returns an equal depth slab; a
+deeper level's depth may part unevenly over the group, or leave a rank without
+a plane, and the blocks carry each level's global depth. A volume whose skips
+do not line up (a depth of 90 over 4 levels: 45 pools to 22, which upsamples to
+44) is a ValueError, sharded or not.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from cips_tpu_torch.models.blocks import (
     MidBlock,
     UpBlock,
     attention_mode,
+    output_depth,
 )
 from cips_tpu_torch.parallel.spatial import SpaceGroup
 
@@ -126,23 +129,37 @@ class AttenUNet(nn.Module):
         if context is not None and not self.with_conditioning:
             raise ValueError("context requires with_conditioning=True")
         h = x.movedim(-1, 1).to(self.dtype)
-        if self.space is not None:
-            step = self.space.size * 2 ** (self.levels - 1)
-            if (h.shape[2] * self.space.size) % step:
-                raise ValueError(f"depth {h.shape[2] * self.space.size} over {self.space.size} ranks: every level "
-                                 f"needs equal slabs of even depth, so a multiple of {step}")
+        depth = None if self.space is None else h.shape[2] * self.space.size
+        self.check_shape((h.shape[2] * (1 if self.space is None else self.space.size), *h.shape[3:]))
         if context is not None:
             context = context.to(self.dtype)
-        h = self.conv_in(h)
+        h = self.conv_in(h, depth)
         residuals = [h]
         for block in self.down_blocks:
-            h, outs = block(h, context)
+            h, outs = block(h, context, depth)
             residuals.extend(outs)
-        h = self.middle_block(h, context)
+            depth = output_depth(block, depth)
+        h = self.middle_block(h, context, depth)
         for block, take in zip(self.up_blocks, self._up_takes):
             skips, residuals = residuals[-take:], residuals[:-take]
-            h = block(h, skips, context)
-        return self.out(h).movedim(1, -1)
+            h = block(h, skips, context, depth)
+            depth = output_depth(block, depth)
+        norm, silu, conv_out = self.out
+        return conv_out(silu(norm(h)), depth).movedim(1, -1)
+
+    def check_shape(self, shape: Sequence[int]) -> None:
+        """A ValueError unless every skip of a volume of spatial ``shape`` meets a
+        decoder tensor of its own size: each axis, halved at each level and
+        doubled back, must come back to each level's size."""
+        for n in shape:
+            sizes = [n]
+            for block in self.down_blocks[:-1]:
+                sizes.append(block.output_depth(sizes[-1]))
+            for level in range(len(sizes) - 1, 0, -1):
+                if 2 * sizes[level] != sizes[level - 1]:
+                    raise ValueError(f"spatial shape {tuple(shape)}: an axis of {n} is {sizes[level - 1]} at level "
+                                     f"{level - 1} and {sizes[level]} at level {level}, which upsamples to "
+                                     f"{2 * sizes[level]}: the skip does not line up")
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

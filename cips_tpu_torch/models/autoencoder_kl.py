@@ -12,6 +12,10 @@ Parameter names are MONAI-generative's flat ``blocks`` list, the names that
 [mid resnet, attention, resnet], each level's resnets and its upsampler, the
 final GroupNorm, conv_out); resnets keep their skip conv as ``nin_shortcut``.
 The VAE's ``Encoder`` and ``AutoencoderKL`` are not ported: no CLI reaches them.
+
+Over a ``space`` group (`parallel.spatial.sharded`) it takes a depth slab of a
+latent of global depth ``depth`` (by default equal slabs) and returns this
+rank's slab of the output; the non-local block's self-attention gathers K and V.
 """
 
 from __future__ import annotations
@@ -22,11 +26,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cips_tpu_torch.models.blocks import AttentionBlock, Conv, GroupNorm, ResnetBlock, Upsample
+from cips_tpu_torch.models.blocks import AttentionBlock, Conv, GroupNorm, ResnetBlock, Upsample, output_depth
 from cips_tpu_torch.models.encoder import tuplify
+from cips_tpu_torch.parallel import spatial
 
 
 class Decoder(nn.Module):
+    space: Optional[spatial.SpaceGroup] = None
+
     def __init__(
         self,
         spatial_dims: int = 3,
@@ -66,10 +73,12 @@ class Decoder(nn.Module):
         blocks += [GroupNorm(norm_num_groups, prev, norm_eps), Conv(spatial_dims, prev, out_channels, 3)]
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
         """(N, *S, C_latent) channels-last latent -> (N, *S * 2^(levels-1), out_channels)."""
         h = z.movedim(-1, 1).to(self.dtype)
+        depth = None if self.space is None else spatial.depth_of(h, self.space, depth)
         *body, norm, conv_out = self.blocks
         for block in body:
-            h = block(h)
-        return conv_out(F.silu(norm(h))).movedim(1, -1)
+            h = block(h, depth)
+            depth = output_depth(block, depth)
+        return conv_out(F.silu(norm(h)), depth).movedim(1, -1)

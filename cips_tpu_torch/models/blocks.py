@@ -11,16 +11,20 @@ compute dtype once. Parameter names are the reference's torch ``state_dict``
 names (``conv1.conv.weight``, ``transformer_blocks.0.attn1.to_q.weight``, ...;
 see cips_tpu/data/torch_import.py).
 
-Depth-sharded training (the mesh's ``space`` axis): `Conv`, `GroupNorm` and the
-self-attentions carry a ``space`` group, None unless a train step shards the
-volume (`parallel.spatial.sharded`). Then a conv exchanges halo planes
-(`spatial.halo_conv`), a norm all-reduces its statistics and a self-attention
-gathers K and V over the group, each rank's queries attending to the whole
-volume's keys; the resampling of 2x is local to a slab of even depth.
+Depth-sharded training (the mesh's ``space`` axis): `Conv`, `GroupNorm`, the
+resamplers, the resnets and the attentions carry a ``space`` group, None unless
+a train step shards the volume (`parallel.spatial.sharded`). Then a conv
+exchanges halo planes (`spatial.halo_conv`), a norm all-reduces its statistics,
+a self-attention gathers K and V over the group, each rank's queries attending
+to the whole volume's keys, and a 2x resampling gathers the planes its output
+slab needs where they lie on a neighbour. Each block's ``depth`` is the global
+depth of its input slab (by default that of equal slabs); a block's
+`output_depth` is its output's, which the models carry from level to level.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -43,18 +47,39 @@ def heads_for(channels: int, num_head_channels: Optional[int]) -> Tuple[int, int
     return channels // num_head_channels, num_head_channels
 
 
-def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour x2 upsampling over all spatial dims of (N, C, *S)."""
+def nearest_upsample_2x(x: torch.Tensor, space: Optional[spatial.SpaceGroup] = None,
+                        depth: Optional[int] = None) -> torch.Tensor:
+    """Nearest-neighbour x2 upsampling over all spatial dims of (N, C, *S). Over
+    ``space``, ``x`` is a depth slab of global depth ``depth`` and the result is
+    this rank's slab of the output depth: output planes [a, b) repeat input
+    planes [a // 2, (b + 1) // 2), which are gathered first (none move where the
+    slabs line up)."""
+    if space is not None:
+        n = spatial.depth_of(x, space, depth)
+        outs = [spatial.slab(2 * n, i, space.size) for i in range(space.size)]
+        sources = [(a // 2, (b + 1) // 2 if b > a else a // 2) for a, b in outs]
+        x = spatial.gather_ranges(x, space, 2, n, sources, "resample")
+        (a, b), lo = outs[space.index], sources[space.index][0]
     for axis in range(2, x.ndim):
         x = x.repeat_interleave(2, dim=axis)
+    if space is not None:
+        x = x.narrow(2, a - 2 * lo if b > a else 0, b - a)
     return x
 
 
-def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """2x VALID average pooling over all spatial dims of (N, C, *S), in any dtype."""
-    spatial = [s // 2 for s in x.shape[2:]]
-    x = x[(slice(None), slice(None)) + tuple(slice(0, 2 * s) for s in spatial)]
-    windows = x.reshape(*x.shape[:2], *(d for s in spatial for d in (s, 2)))
+def avg_pool_2x(x: torch.Tensor, space: Optional[spatial.SpaceGroup] = None,
+                depth: Optional[int] = None) -> torch.Tensor:
+    """2x VALID average pooling over all spatial dims of (N, C, *S), in any dtype.
+    Over ``space``, ``x`` is a depth slab of global depth ``depth`` and the
+    result is this rank's slab of depth // 2: output planes [a, b) pool input
+    planes [2a, 2b), which are gathered first (a pair may straddle two ranks)."""
+    if space is not None:
+        n = spatial.depth_of(x, space, depth)
+        outs = [spatial.slab(n // 2, i, space.size) for i in range(space.size)]
+        x = spatial.gather_ranges(x, space, 2, n, [(2 * a, 2 * b) for a, b in outs], "resample")
+    spatial_ = [s // 2 for s in x.shape[2:]]
+    x = x[(slice(None), slice(None)) + tuple(slice(0, 2 * s) for s in spatial_)]
+    windows = x.reshape(*x.shape[:2], *(d for s in spatial_ for d in (s, 2)))
     return windows.mean(dim=tuple(range(3, windows.ndim, 2)))
 
 
@@ -77,7 +102,7 @@ class GroupNorm(nn.GroupNorm):
         n, c = x.shape[:2]
         g = self.num_groups
         stats = torch.promote_types(x.dtype, torch.float32)
-        x32 = x.to(stats).reshape(n, g, -1)
+        x32 = x.to(stats).reshape(n, g, c // g * math.prod(x.shape[2:]))  # a slab may hold no plane
         if self.space is None:
             mean = x32.mean(dim=-1)
             meansq = (x32 * x32).mean(dim=-1)
@@ -138,27 +163,48 @@ class Conv(nn.Module):
         )
 
 
+def output_depth(module: nn.Module, depth: Optional[int]) -> Optional[int]:
+    """The depth of ``module``'s output for an input of depth ``depth`` (None: None)."""
+    return depth if depth is None or not hasattr(module, "output_depth") else module.output_depth(depth)
+
+
+def _depth(module: nn.Module, x: torch.Tensor, depth: Optional[int]) -> Optional[int]:
+    """``x``'s global depth over the module's space group, None without one."""
+    return None if module.space is None else spatial.depth_of(x, module.space, depth)
+
+
 class Downsample(nn.Module):
     """Stride-2 conv (use_conv) or 2x average-pool downsampling."""
+
+    space: Optional[spatial.SpaceGroup] = None
 
     def __init__(self, spatial_dims: int, in_channels: int, use_conv: bool, out_channels: Optional[int] = None):
         super().__init__()
         self.op = Conv(spatial_dims, in_channels, out_channels or in_channels, 3, 2) if use_conv else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return avg_pool_2x(x) if self.op is None else self.op(x)
+    def output_depth(self, depth: int) -> int:
+        return depth // 2 if self.op is None else spatial.conv_output_size(depth, 3, 2, 1)
+
+    def forward(self, x: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
+        return avg_pool_2x(x, self.space, depth) if self.op is None else self.op(x, depth)
 
 
 class Upsample(nn.Module):
     """Nearest x2 upsampling with optional 3x3 conv."""
 
+    space: Optional[spatial.SpaceGroup] = None
+
     def __init__(self, spatial_dims: int, in_channels: int, use_conv: bool, out_channels: Optional[int] = None):
         super().__init__()
         self.conv = Conv(spatial_dims, in_channels, out_channels or in_channels, 3) if use_conv else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = nearest_upsample_2x(x)
-        return x if self.conv is None else self.conv(x)
+    def output_depth(self, depth: int) -> int:
+        return 2 * depth
+
+    def forward(self, x: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
+        depth = _depth(self, x, depth)
+        x = nearest_upsample_2x(x, self.space, depth)
+        return x if self.conv is None else self.conv(x, output_depth(self, depth))
 
 
 class ResnetBlock(nn.Module):
@@ -169,6 +215,8 @@ class ResnetBlock(nn.Module):
     the 1x1 skip conv: ``skip_connection`` in the AttenUNet family,
     ``nin_shortcut`` in MONAI-generative's AutoencoderKL.
     """
+
+    space: Optional[spatial.SpaceGroup] = None
 
     def __init__(
         self, spatial_dims: int, in_channels: int, out_channels: Optional[int] = None,
@@ -186,24 +234,30 @@ class ResnetBlock(nn.Module):
         setattr(self, skip_name,
                 Conv(spatial_dims, in_channels, out_channels, 1) if out_channels != in_channels else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def output_depth(self, depth: int) -> int:
+        return 2 * depth if self.up else depth // 2 if self.down else depth
+
+    def forward(self, x: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
+        depth = _depth(self, x, depth)
         h = F.silu(self.norm1(x))
         if self.up:
-            x, h = nearest_upsample_2x(x), nearest_upsample_2x(h)
+            x, h = nearest_upsample_2x(x, self.space, depth), nearest_upsample_2x(h, self.space, depth)
         elif self.down:
-            x, h = avg_pool_2x(x), avg_pool_2x(h)
-        h = self.conv1(h)
-        h = self.conv2(F.silu(self.norm2(h)))
+            x, h = avg_pool_2x(x, self.space, depth), avg_pool_2x(h, self.space, depth)
+        depth = output_depth(self, depth)
+        h = self.conv1(h, depth)
+        h = self.conv2(F.silu(self.norm2(h)), depth)
         skip = getattr(self, self._skip_name)
         if skip is not None:
-            x = skip(x)
+            x = skip(x, depth)
         return x + h
 
 
 class CrossAttention(nn.Module):
     """Multi-head (cross-)attention over tokens (B, L, C); self-attention without
-    context. Over a ``space`` group the tokens are a depth slab's and
-    self-attention gathers the whole volume's K and V (`gather_kv`)."""
+    context. Over a ``space`` group the tokens are a depth slab's, ``planes``
+    giving the volume's global depth and its tokens a plane, and self-attention
+    gathers the whole volume's K and V (`gather_kv`)."""
 
     space: Optional[spatial.SpaceGroup] = None
 
@@ -221,7 +275,8 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim, inner_dim, bias=False)
         self.to_out = nn.Sequential(Linear(inner_dim, query_dim))
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                planes: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         ctx = x if context is None else context
         if ctx.ndim == 2:
             ctx = ctx[:, None, :]
@@ -229,7 +284,7 @@ class CrossAttention(nn.Module):
         k = split_heads(self.to_k(ctx), self.num_heads)
         v = split_heads(self.to_v(ctx), self.num_heads)
         if context is None and self.space is not None:
-            k, v = gather_kv(k, v, self.space)
+            k, v = gather_kv(k, v, self.space, planes)
         out = multi_head_attention(q, k, v, scale=self.scale, self_attention=context is None)
         return self.to_out(merge_heads(out))
 
@@ -263,20 +318,31 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(num_channels)
         self.norm3 = LayerNorm(num_channels)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.attn1(self.norm1(x)) + x
-        x = self.attn2(self.norm2(x), context=context) + x
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                planes: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        x = self.attn1(self.norm1(x), planes=planes) + x
+        x = self.attn2(self.norm2(x), context=context, planes=planes) + x
         return self.ff(self.norm3(x)) + x
 
 
-def gather_kv(k: torch.Tensor, v: torch.Tensor, space: spatial.SpaceGroup) -> Tuple[torch.Tensor, torch.Tensor]:
+def gather_kv(k: torch.Tensor, v: torch.Tensor, space: spatial.SpaceGroup,
+              planes: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole volume's K and V, (B, H, L, Dh) each, from every rank's slab of
     them: tokens run depth outermost, so a depth slab is a contiguous token range
-    and the slabs in rank order are the sequence. One exchange for both; the
-    backward sums every rank's dK and dV into the owner's slab."""
-    kv = spatial.gather(torch.cat([k, v], dim=-1), space, dim=2, kind="kv")
-    k, v = kv.chunk(2, dim=-1)
+    and the slabs in rank order are the sequence. ``planes``: (the volume's global
+    depth, tokens a plane); a slab may hold any number of planes, none included.
+    One exchange for both; the backward sums every rank's dK and dV into the
+    owner's slab."""
+    kv = torch.cat([k, v], dim=-1)
+    (b, h, l, width), (depth, per_plane) = kv.shape, planes
+    kv = spatial.gather(kv.reshape(b, h, l // per_plane, per_plane * width), space, 2, "kv", n=depth)
+    k, v = kv.reshape(b, h, depth * per_plane, width).chunk(2, dim=-1)
     return k.contiguous(), v.contiguous()
+
+
+def _planes(module: nn.Module, x: torch.Tensor, depth: Optional[int]) -> Optional[Tuple[int, int]]:
+    """(global depth, tokens a plane) of the (N, C, d, *S) slab ``x`` over the module's space group."""
+    return None if module.space is None else (spatial.depth_of(x, module.space, depth), math.prod(x.shape[3:]))
 
 
 def _to_tokens(h: torch.Tensor) -> torch.Tensor:
@@ -290,6 +356,8 @@ def _from_tokens(tokens: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:
 
 class SpatialTransformer(nn.Module):
     """GN -> 1x1 proj -> voxel tokens -> transformer blocks -> 1x1 zero-proj, + residual."""
+
+    space: Optional[spatial.SpaceGroup] = None
 
     def __init__(
         self, spatial_dims: int, in_channels: int, num_attention_heads: int, num_head_channels: int,
@@ -308,12 +376,14 @@ class SpatialTransformer(nn.Module):
         )
         self.proj_out = Conv(spatial_dims, inner_dim, in_channels, 1, zero_init=True)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.proj_in(self.norm(x))
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                depth: Optional[int] = None) -> torch.Tensor:
+        h = self.proj_in(self.norm(x), depth)
         tokens = _to_tokens(h)
+        planes = _planes(self, x, depth)
         for block in self.transformer_blocks:
-            tokens = block(tokens, context=context)
-        return self.proj_out(_from_tokens(tokens, h.shape[2:])) + x
+            tokens = block(tokens, context=context, planes=planes)
+        return self.proj_out(_from_tokens(tokens, h.shape[2:]), depth) + x
 
 
 class AttentionBlock(nn.Module):
@@ -335,13 +405,13 @@ class AttentionBlock(nn.Module):
         self.to_v = Linear(num_channels, num_channels)
         self.proj_attn = Linear(num_channels, num_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
         tokens = _to_tokens(self.norm(x))
         q = split_heads(self.to_q(tokens), self.num_heads)
         k = split_heads(self.to_k(tokens), self.num_heads)
         v = split_heads(self.to_v(tokens), self.num_heads)
         if self.space is not None:
-            k, v = gather_kv(k, v, self.space)
+            k, v = gather_kv(k, v, self.space, _planes(self, x, depth))
         out = self.proj_attn(merge_heads(multi_head_attention(q, k, v, scale=self.scale, self_attention=True)))
         return _from_tokens(out, x.shape[2:]) + x
 
@@ -369,8 +439,9 @@ def _make_attention(
     return None
 
 
-def _apply_attention(attn: nn.Module, h: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
-    return attn(h, context=context) if isinstance(attn, SpatialTransformer) else attn(h)
+def _apply_attention(attn: nn.Module, h: torch.Tensor, context: Optional[torch.Tensor],
+                     depth: Optional[int] = None) -> torch.Tensor:
+    return attn(h, context=context, depth=depth) if isinstance(attn, SpatialTransformer) else attn(h, depth)
 
 
 class DownBlock(nn.Module):
@@ -412,17 +483,20 @@ class DownBlock(nn.Module):
                 else Downsample(spatial_dims, out_channels, use_conv=True, out_channels=out_channels)
             )
 
+    def output_depth(self, depth: int) -> int:
+        return output_depth(self.downsampler, depth) if self.downsampler is not None else depth
+
     def forward(
-        self, h: torch.Tensor, context: Optional[torch.Tensor] = None
+        self, h: torch.Tensor, context: Optional[torch.Tensor] = None, depth: Optional[int] = None
     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         outputs = []
         for i, resnet in enumerate(self.resnets):
-            h = resnet(h)
+            h = resnet(h, depth)
             if self.attentions:
-                h = _apply_attention(self.attentions[i], h, context)
+                h = _apply_attention(self.attentions[i], h, context, depth)
             outputs.append(h)
         if self.downsampler is not None:
-            h = self.downsampler(h)
+            h = self.downsampler(h, depth)
             outputs.append(h)
         return h, outputs
 
@@ -443,10 +517,11 @@ class MidBlock(nn.Module):
         )
         self.resnet_2 = ResnetBlock(spatial_dims, in_channels, in_channels, norm_num_groups=norm_num_groups, norm_eps=norm_eps)
 
-    def forward(self, h: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.resnet_1(h)
-        h = _apply_attention(self.attention, h, context)
-        return self.resnet_2(h)
+    def forward(self, h: torch.Tensor, context: Optional[torch.Tensor] = None,
+                depth: Optional[int] = None) -> torch.Tensor:
+        h = self.resnet_1(h, depth)
+        h = _apply_attention(self.attention, h, context, depth)
+        return self.resnet_2(h, depth)
 
 
 class UpBlock(nn.Module):
@@ -489,14 +564,18 @@ class UpBlock(nn.Module):
                 else Upsample(spatial_dims, out_channels, use_conv=True, out_channels=out_channels)
             )
 
+    def output_depth(self, depth: int) -> int:
+        return output_depth(self.upsampler, depth) if self.upsampler is not None else depth
+
     def forward(
-        self, h: torch.Tensor, res_list: Sequence[torch.Tensor], context: Optional[torch.Tensor] = None
+        self, h: torch.Tensor, res_list: Sequence[torch.Tensor], context: Optional[torch.Tensor] = None,
+        depth: Optional[int] = None,
     ) -> torch.Tensor:
         res_list = list(res_list)
         for i, resnet in enumerate(self.resnets):
-            h = resnet(torch.cat([h, res_list.pop()], dim=1))
+            h = resnet(torch.cat([h, res_list.pop()], dim=1), depth)
             if self.attentions:
-                h = _apply_attention(self.attentions[i], h, context)
+                h = _apply_attention(self.attentions[i], h, context, depth)
         if self.upsampler is not None:
-            h = self.upsampler(h)
+            h = self.upsampler(h, depth)
         return h

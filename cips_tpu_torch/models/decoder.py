@@ -12,6 +12,11 @@ x4, composing with the 3-level spatial encoder. The unpacked model;
 Parameter names are the AttenUNet family's, which `import_diffusion_decoder`
 reads: ``conv_in``, ``middle_block.*``, ``up_blocks.I.{resnets,attentions,upsampler}``,
 ``out.0`` (GroupNorm) and ``out.2`` (conv).
+
+Over a ``space`` group (`parallel.spatial.sharded`) it takes a depth slab of
+a latent of global depth ``depth`` (by default equal slabs) and returns this
+rank's slab of the output: the self-attentions gather K and V, and the
+cross-attention to the covariate row, which every rank holds whole, stays local.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ from cips_tpu_torch.models.blocks import (
     SpatialTransformer,
     Upsample,
     heads_for,
+    output_depth,
 )
 from cips_tpu_torch.models.encoder import tuplify
+from cips_tpu_torch.parallel import spatial
 
 
 class DecoderLevel(nn.Module):
@@ -42,15 +49,20 @@ class DecoderLevel(nn.Module):
         self.attentions = nn.ModuleList(attentions)
         self.upsampler = upsampler
 
-    def forward(self, h: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+    def output_depth(self, depth: int) -> int:
+        return depth if self.upsampler is None else output_depth(self.upsampler, depth)
+
+    def forward(self, h: torch.Tensor, context: Optional[torch.Tensor], depth: Optional[int] = None) -> torch.Tensor:
         for i, resnet in enumerate(self.resnets):
-            h = resnet(h)
+            h = resnet(h, depth)
             if self.attentions:
-                h = self.attentions[i](h, context=context)
-        return h if self.upsampler is None else self.upsampler(h)
+                h = self.attentions[i](h, context=context, depth=depth)
+        return h if self.upsampler is None else self.upsampler(h, depth)
 
 
 class DiffusionModelDecoder(nn.Module):
+    space: Optional[spatial.SpaceGroup] = None
+
     def __init__(
         self,
         spatial_dims: int = 3,
@@ -107,14 +119,18 @@ class DiffusionModelDecoder(nn.Module):
             Conv(spatial_dims, prev, out_channels, 3, zero_init=True),
         )
 
-    def forward(self, z: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, context: Optional[torch.Tensor] = None,
+                depth: Optional[int] = None) -> torch.Tensor:
         """(N, *S, C_latent) channels-last latent and (N, 1, K) context -> (N, *S', out_channels)."""
         if context is not None and not self.with_conditioning:
             raise ValueError("context requires with_conditioning=True")
         h = z.movedim(-1, 1).to(self.dtype)
+        depth = None if self.space is None else spatial.depth_of(h, self.space, depth)
         if context is not None:
             context = context.to(self.dtype)
-        h = self.middle_block(self.conv_in(h), context)
+        h = self.middle_block(self.conv_in(h, depth), context, depth)
         for level in self.up_blocks:
-            h = level(h, context)
-        return self.out(h).movedim(1, -1)
+            h = level(h, context, depth)
+            depth = output_depth(level, depth)
+        norm, silu, conv_out = self.out
+        return conv_out(silu(norm(h)), depth).movedim(1, -1)

@@ -16,7 +16,11 @@ a context, a cross-attention level's ``attn2`` attends to its own tokens, as
 in the JAX package; build it with ``cross_attention_dim=None`` then, so that
 its keys and values are projected from the tokens' width (the shapes flax
 infers when the encoder is initialised without a context). ``forward`` takes
-and returns channels-last volumes, as the JAX model does.
+and returns channels-last volumes, as the JAX model does. Over a ``space``
+group (`parallel.spatial.sharded`, the spatial head only) it takes an equal
+depth slab and returns this rank's slab of the latent, whose global depth is
+`output_depth`'s; every self-attention, both of a level's transformer
+attentions here, gathers K and V.
 
 Parameter names are the reference's torch ``state_dict`` names that
 `import_diffusion_encoder` reads (``conv_in``, ``down_blocks.I.*``, the mlp
@@ -33,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cips_tpu_torch.models.blocks import Conv, DownBlock, GroupNorm, Linear, attention_mode
+from cips_tpu_torch.models.blocks import Conv, DownBlock, GroupNorm, Linear, attention_mode, output_depth
+from cips_tpu_torch.parallel.spatial import SpaceGroup
 
 
 def tuplify(v, n: int) -> tuple:
@@ -44,6 +49,8 @@ def tuplify(v, n: int) -> tuple:
 
 
 class DiffusionModelEncoder(nn.Module):
+    space: Optional[SpaceGroup] = None
+
     def __init__(
         self,
         spatial_dims: int = 3,
@@ -110,11 +117,19 @@ class DiffusionModelEncoder(nn.Module):
         if context is not None and not self.with_conditioning:
             raise ValueError("context requires with_conditioning=True")
         h = x.movedim(-1, 1).to(self.dtype)
+        depth = None if self.space is None else h.shape[2] * self.space.size
         if context is not None:
             context = context.to(self.dtype)
-        h = self.conv_in(h)
+        h = self.conv_in(h, depth)
         for block in self.down_blocks:
-            h, _ = block(h, context)
+            h, _ = block(h, context, depth)
+            depth = output_depth(block, depth)
         if self.head == "spatial":
-            return self.conv_out(F.silu(self.out_norm(h))).movedim(1, -1)
+            return self.conv_out(F.silu(self.out_norm(h)), depth).movedim(1, -1)
         return self.out(h.flatten(1))
+
+    def output_depth(self, depth: int) -> int:
+        """The latent's depth for an input of depth ``depth``."""
+        for block in self.down_blocks:
+            depth = output_depth(block, depth)
+        return depth

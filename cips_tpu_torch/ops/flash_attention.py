@@ -23,7 +23,9 @@ Any scale, as in the JAX package: the kernels take the row max before the
 scale, so the wrappers hand every kernel a positive one (`_positive_scale`:
 a negated K for a negative scale, a zero K for scale 0).
 
-Layout: q (B, H, Lq, Dh), k and v (B, H, Lk, Dh); any L.
+Layout: q (B, H, Lq, Dh), k and v (B, H, Lk, Dh); any L. No query (Lq = 0,
+a depth-sharded rank that holds no plane of the attended level) launches no
+kernel: the output is empty and dK, dV are 0.
 """
 
 from __future__ import annotations
@@ -244,10 +246,12 @@ def flash_attention_forward(
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if _is_cpu(q, k, v):
         return flash_attention_reference(q, k, v, scale)
-    _check_cuda_inputs(q, k, v)
-    k, scale, _ = _positive_scale(k, scale)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.shape[2] == 0:
+        return out, lse
+    _check_cuda_inputs(q, k, v)
+    k, scale, _ = _positive_scale(k, scale)
     _launch("cips_flash_attention_fwd", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), scale=scale)
     flash_attention_forward.launches += 1
@@ -261,6 +265,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Ten
     the dQ kernel (and count the launch) or raise."""
     if _is_cpu(q, k, v, dout, lse, delta):
         return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta, scale)
+    if q.shape[2] == 0:
+        return torch.empty_like(q)
     _check_cuda_inputs(q, k, v)
     _check_cuda_residuals(q, dout, lse, delta)
     k, scale, _ = _positive_scale(k, scale)
@@ -278,6 +284,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float) -> Tuple[to
     the dK/dV kernel (and count the launch) or raise."""
     if _is_cpu(q, k, v, dout, lse, delta):
         return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale)
+    if q.shape[2] == 0:
+        return torch.zeros_like(k), torch.zeros_like(v)
     _check_cuda_inputs(q, k, v)
     _check_cuda_residuals(q, dout, lse, delta)
     k, scale, dk_sign = _positive_scale(k, scale)

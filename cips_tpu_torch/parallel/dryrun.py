@@ -12,10 +12,11 @@ batch of N / S samples, one a data group, each of its S ranks a depth slab of
 it, at the tiny validation shape (8, 16, 8) in fp32. The default S is JAX's
 (`default_n_space`). ``CIPS_DRYRUN_TASK=causal`` runs the causal trio instead (encoder, T1
 and PET decoders under one Adam, then D) and ``CIPS_DRYRUN_FULL=1`` the bundled
-config at the full (96, 128, 96) volume in bf16, as the JAX dry run does;
-``--crop`` and ``--dtype`` override the shape and dtype. The causal trio's
-space axis is not ported (ROADMAP.md §A, "the causal trio on the space
-axis"): it runs at S = 1, and refuses S > 1.
+config at the full (96, 128, 96) volume in bf16, as the JAX dry run does (the
+causal trio's full mesh then takes ``CIPS_DRYRUN_DATA`` data groups, as JAX's
+does); ``--crop`` and ``--dtype`` override the shape and dtype. Any crop the
+unsharded model takes will do: a deeper level's slabs may be uneven, and a
+depth that S does not divide reaches the ranks whole and runs unsharded.
 
 Where JAX's `_collective_bytes` counts the collectives in the compiled HLO,
 the port counts the bytes that DDP all-reduces in each step (a communication
@@ -50,6 +51,7 @@ import torch.distributed as dist
 
 from cips_tpu_torch.parallel import mesh as pm
 from cips_tpu_torch.parallel import spatial
+from cips_tpu_torch.training.common import mean_over_ranks
 
 N_COVARIATES = 5
 TINY_CROP = (8, 16, 8)
@@ -188,8 +190,10 @@ def randomize_(models, seed: int) -> None:
                 p.copy_(draw)
 
 
-def _build(task: str, cfg: dict, dtype: torch.dtype, device: torch.device, mesh: Optional[pm.Mesh], n: int):
-    """(state, step, trained networks) for ``task``, every weight drawn by `randomize_`."""
+def _build(task: str, cfg: dict, dtype: torch.dtype, device: torch.device, mesh: Optional[pm.Mesh], n: int,
+           depth: int):
+    """(state, step, trained networks) for ``task`` on volumes of depth ``depth``,
+    every weight drawn by `randomize_`."""
     from cips_tpu_torch.training import causal_task, unet_synthesis
 
     train_cfg = cfg["training"]
@@ -197,13 +201,14 @@ def _build(task: str, cfg: dict, dtype: torch.dtype, device: torch.device, mesh:
         models = causal_task.build_models(cfg, N_COVARIATES, dtype=dtype, device=device, seed=0)
         randomize_(models[:4], seed=1)
         state = causal_task.init_state(*models, train_cfg, mesh=mesh)
-        step = causal_task.make_train_step(train_cfg, mesh=mesh, batch_size=n)
+        step = causal_task.make_train_step(train_cfg, mesh=mesh, batch_size=n, volume_depth=depth)
         rng = torch.Generator(device).manual_seed(1)
         return state, (lambda s, b: step(s, b, rng)), {"generator": state.gen, "discriminator": state.d}
     g, d, p = unet_synthesis.build_models(cfg, N_COVARIATES, dtype=dtype, device=device, seed=0)
     randomize_((g, d), seed=1)
     state = unet_synthesis.init_state(g, d, train_cfg, p, mesh=mesh)
-    return state, unet_synthesis.make_train_step(train_cfg, mesh=mesh), {"generator": g, "discriminator": d}
+    return (state, unet_synthesis.make_train_step(train_cfg, mesh=mesh, volume_depth=depth),
+            {"generator": g, "discriminator": d})
 
 
 def _copy(t: torch.Tensor) -> torch.Tensor:
@@ -215,11 +220,11 @@ def run_steps(mesh: Optional[pm.Mesh], task: str, cfg: dict, crop, dtype: torch.
               device: torch.device) -> Dict[str, Any]:
     """``steps`` train steps on seeded global batches of ``n`` samples (this
     rank's rows of them across ranks, its depth slab of those over space): the
-    metrics, the bytes all-reduced by DDP and exchanged over the space group in
-    each step, the trained networks' gradients and parameters after each step
-    (on the CPU, fp32), and each step's time (CUDA events on a card, else the
-    host clock)."""
-    state, step, nets = _build(task, cfg, dtype, device, mesh, n)
+    metrics (the global batch's, `mean_over_ranks`), the bytes all-reduced by
+    DDP and exchanged over the space group in each step, the trained networks'
+    gradients and parameters after each step (on the CPU, fp32), and each
+    step's time (CUDA events on a card, else the host clock)."""
+    state, step, nets = _build(task, cfg, dtype, device, mesh, n, crop[0])
     space = mesh.space if mesh is not None else None
     out: Dict[str, Any] = {"metrics": [], "reduced_bytes": [], "space_bytes": [], "step_ms": []}
     for i in range(steps):
@@ -243,7 +248,7 @@ def run_steps(mesh: Optional[pm.Mesh], task: str, cfg: dict, crop, dtype: torch.
             out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["reduced_bytes"].append(pm.data_parallel.reduced_bytes)
         out["space_bytes"].append(dict(space.exchanged) if space is not None else dict.fromkeys(spatial.KINDS, 0))
-        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["metrics"].append(mean_over_ranks(metrics, mesh))
         out.setdefault("grads", []).append({f"{net}.{k}": _copy(p.grad) for net, m in nets.items()
                                             for k, p in m.named_parameters() if p.grad is not None})
         out.setdefault("params", []).append({f"{net}.{k}": _copy(v) for net, m in nets.items()
@@ -378,13 +383,16 @@ def dryrun_rank(mesh: pm.Mesh, task: str, full: bool, crop, dtype_name: str, ste
 
 def default_n_space(n: int, task: str, full: bool) -> int:
     """JAX's dry-run mesh (cips_tpu/parallel/dryrun.py): at the full volume data
-    2 (1 when ``n`` is odd) times space the rest, else space 2 when ``n`` is
-    even; 1 for the causal trio (not ported on space)."""
+    2 (1 when ``n`` is odd) times space the rest, the causal trio's data count
+    ``CIPS_DRYRUN_DATA`` when set (`_run_causal`); else space 2 when ``n`` is even."""
+    if not full:
+        return 2 if n % 2 == 0 else 1
+    data = 2 if n % 2 == 0 else 1
     if task == "causal":
-        return 1
-    if full:
-        return n // 2 if n % 2 == 0 else n
-    return 2 if n % 2 == 0 else 1
+        data = int(os.environ.get("CIPS_DRYRUN_DATA", data))
+    if data < 1 or n % data:
+        raise ValueError(f"CIPS_DRYRUN_DATA={data} does not divide the {n} ranks")
+    return n // data
 
 
 def main(argv=None) -> Dict:
@@ -399,9 +407,6 @@ def main(argv=None) -> Dict:
     task = os.environ.get("CIPS_DRYRUN_TASK", "flagship")
     full = bool(os.environ.get("CIPS_DRYRUN_FULL"))
     n_space = args.n_space if args.n_space is not None else default_n_space(args.n, task, full)
-    if task == "causal" and n_space > 1:
-        raise NotImplementedError("CIPS_DRYRUN_TASK=causal: the causal trio's space axis is not ported yet "
-                                  "(ROADMAP.md section A, 'the causal trio on the space axis'); pass --n_space 1")
     crop = tuple(args.crop) if args.crop else (FULL_CROP if full else TINY_CROP)
     dtype = args.dtype or ("bf16" if full else "f32")
     if args.device == "cuda" and not torch.cuda.is_available():

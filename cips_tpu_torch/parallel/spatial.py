@@ -21,7 +21,18 @@ sample's depth slabs), each with its backward:
   * `gather`: every rank's slab along an axis, in rank order, the whole tensor
     on each rank (self-attention's K and V, the volumes the 2.5-D LPIPS term
     slices across the depth axis); its backward sums each rank's gradient into
-    the owner's slab (a reduce-scatter).
+    the owner's slab (a reduce-scatter);
+  * `gather_ranges`, which both of those use: any planes of a slabbed tensor on
+    any rank. The 2x resamplings of `models.blocks` re-slab with it when a
+    level's depth does not part into equal slabs of even depth (a pooled pair,
+    or an upsampled plane, whose source lies on a neighbour).
+
+Slabs need not be equal. The volumes reach the ranks cut into equal slabs (the
+mesh's rule, `mesh.shard_space`: a depth the group's size does not divide
+stays whole, and `space_for` then runs it unsharded), but a deeper level's
+depth may part unevenly (12 planes over 8 ranks give slabs of 1 and 2) or
+leave a rank without a plane (12 over 16), so the models carry each level's
+global depth (``depth``) into the functions here.
 
 Every function is written for "sum semantics": rank r's backward returns the
 gradient of the sum over the group's ranks of their losses. A term every rank
@@ -48,7 +59,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-KINDS = ("halo", "norm", "kv", "volume", "mean")
+KINDS = ("halo", "norm", "kv", "volume", "mean", "resample")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -90,6 +101,28 @@ def new_group(ranks: Sequence[int], **kwargs) -> Optional[SpaceGroup]:
 def slab(n: int, index: int, count: int) -> Tuple[int, int]:
     """The planes [start, stop) that rank ``index`` of ``count`` holds of a global depth ``n``."""
     return index * n // count, (index + 1) * n // count
+
+
+def depth_of(x: torch.Tensor, space: SpaceGroup, depth: Optional[int] = None) -> int:
+    """The global depth of the slab ``x`` (N, C, d, ...): ``depth`` when given,
+    else that of ``space.size`` equal slabs."""
+    return x.shape[2] * space.size if depth is None else depth
+
+
+def space_for(space: Optional[SpaceGroup], local_depth: int, volume_depth: Optional[int]) -> Optional[SpaceGroup]:
+    """The group that a batch of volumes of global depth ``volume_depth``, of
+    which this rank holds ``local_depth`` planes, is sharded over: ``space`` when
+    the mesh's rule cut the volumes into its equal slabs (its size divides the
+    depth), None when they reached the ranks whole and run unsharded on each.
+    ``volume_depth`` None takes the volumes for slabs. A ValueError when this
+    rank's planes are neither."""
+    if space is None or volume_depth is None:
+        return space
+    sharded = volume_depth % space.size == 0
+    if local_depth != (volume_depth // space.size if sharded else volume_depth):
+        raise ValueError(f"{local_depth} planes on a rank of {space.size}: neither a slab of depth {volume_depth} "
+                         f"nor the whole volume")
+    return space if sharded else None
 
 
 def conv_output_size(n: int, kernel: int, stride: int, padding: int) -> int:
@@ -253,10 +286,11 @@ def gather_ranges(x: torch.Tensor, space: SpaceGroup, dim: int, n: int, ranges: 
     return _GatherRanges.apply(x, space, dim, n, list(ranges), kind)
 
 
-def gather(x: torch.Tensor, space: SpaceGroup, dim: int, kind: str) -> torch.Tensor:
-    """The whole tensor along ``dim`` on every rank, from ``space.size`` equal
-    slabs; the backward sums every rank's gradient into the owner's slab."""
-    n = x.shape[dim] * space.size
+def gather(x: torch.Tensor, space: SpaceGroup, dim: int, kind: str, n: Optional[int] = None) -> torch.Tensor:
+    """The whole tensor along ``dim`` on every rank, from its slabs of global size
+    ``n`` (by default ``space.size`` equal slabs); the backward sums every rank's
+    gradient into the owner's slab."""
+    n = x.shape[dim] * space.size if n is None else n
     return gather_ranges(x, space, dim, n, [(0, n)] * space.size, kind)
 
 
@@ -268,7 +302,7 @@ def halo_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     if x.ndim != 5:
         raise ValueError(f"halo_conv takes (N, C, D, H, W) slabs, got {tuple(x.shape)}")
     k, s, p = weight.shape[2], stride[0], padding[0]
-    n = x.shape[2] * space.size if depth is None else depth
+    n = depth_of(x, space, depth)
     windows = conv_windows(n, k, s, p, space.size)
     lo, hi, keep = windows[space.index]
     h = gather_ranges(x, space, 2, n, [(a, b) for a, b, _ in windows], "halo")
@@ -280,9 +314,10 @@ def halo_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
 @contextlib.contextmanager
 def sharded(modules: Iterable[torch.nn.Module], space: Optional[SpaceGroup]):
     """Inside the block, every submodule of ``modules`` that takes a space group
-    (a ``space`` class attribute: the convs, norms and self-attentions of
-    `models.blocks`, the AttenUNet and the PatchDiscriminator) computes on
-    depth slabs over ``space``. A no-op without a group."""
+    (a ``space`` class attribute: the convs, norms, resamplers, resnets and
+    attentions of `models.blocks`, the AttenUNet, the causal trio's models and
+    the PatchDiscriminator) computes on depth slabs over ``space``. A no-op
+    without a group."""
     if space is None:
         yield
         return

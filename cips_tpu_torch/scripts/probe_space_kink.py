@@ -1,11 +1,12 @@
-"""The depth-sharded fp32 flagship step at full width against one process, part
-by part, and the kink that keeps the whole step from agreeing at 1e-4.
+"""The depth-sharded fp32 step at full width against one process, part by
+part, and the kink that keeps the whole step from agreeing at 1e-4.
 
-    python -m cips_tpu_torch.scripts.probe_space_kink [--device cpu] [--crop D H W] [--check]
+    python -m cips_tpu_torch.scripts.probe_space_kink [--task flagship|causal] [--device cpu]
+        [--crop D H W] [--check]
 
 From `parallel.dryrun`'s seeded weights (`randomize_`) and first batch, fp32, no
-TF32 and no cuDNN, at the bundled flagship config and (32, 64, 32) by default,
-2 spawned ranks at data 1 x space 2:
+TF32 and no cuDNN, at the bundled config of the task (the flagship's, or the
+causal trio's) and (32, 64, 32) by default, 2 spawned ranks at data 1 x space 2:
 
   1. the first train step against one process: each network's gradients (the
      worst tensor over its max|grad|, tensors under 1e-3 of the network's
@@ -13,10 +14,11 @@ TF32 and no cuDNN, at the bundled flagship config and (32, 64, 32) by default,
      relative 2-norm), the losses, the replicas' largest difference and the bytes
      exchanged over the space group by kind;
   2. the parts alone, sharded against whole: G with a seeded linear loss on its
-     output, D with its logits' mean square on a fixed input, and G's
-     adversarial term (G, then the frozen D);
-  3. in one process, how far G's adversarial gradient moves when G's output is
-     multiplied by 1 + eps N(0, 1), eps 1e-7, 1e-6 and 1e-5.
+     outputs (the causal trio's T1 reconstruction and PET synthesis, from fixed
+     noise), D with its logits' mean square on a fixed input, and G's
+     adversarial term (G, then the frozen D on the synthesis);
+  3. in one process, how far G's adversarial gradient moves when G's synthesis
+     is multiplied by 1 + eps N(0, 1), eps 1e-7, 1e-6 and 1e-5.
 
 A LeakyReLU of D whose input lies within rounding of 0 takes the other slope in
 another summation order, and the gradients through D jump: at the default crop
@@ -39,7 +41,7 @@ import torch.distributed as dist
 
 from cips_tpu_torch.losses import patch_adversarial_loss
 from cips_tpu_torch.parallel import dryrun, spatial
-from cips_tpu_torch.training import unet_synthesis
+from cips_tpu_torch.training import causal_task, unet_synthesis
 from cips_tpu_torch.training.common import frozen
 
 TOL_METRICS = 1e-5  # the step's losses: forward values, summed in other orders
@@ -50,11 +52,26 @@ def _fp32_exact() -> None:
     torch.backends.cudnn.enabled = False
 
 
-def _models(device):
-    g, d, _ = unet_synthesis.build_models(dryrun._config("flagship", True), dryrun.N_COVARIATES,
-                                          dtype=torch.float32, device=device, seed=0)
+def _models(device, task: str):
+    """(G, D) with the dry run's weights: the flagship's AttenUNet, or the causal trio as one module."""
+    cfg = dryrun._config(task, True)
+    if task == "causal":
+        *trio, d, _ = causal_task.build_models(cfg, dryrun.N_COVARIATES, dtype=torch.float32, device=device, seed=0)
+        dryrun.randomize_((*trio, d), seed=1)
+        return causal_task.CausalGenerator(dict(zip(causal_task.GENERATOR_PARTS, trio))), d
+    g, d, _ = unet_synthesis.build_models(cfg, dryrun.N_COVARIATES, dtype=torch.float32, device=device, seed=0)
     dryrun.randomize_((g, d), seed=1)
     return g, d
+
+
+def _noise(g, crop, device):
+    """The causal trio's fixed (eps_t1, eps_pet) for its global latent; None for the flagship."""
+    if not isinstance(g, causal_task.CausalGenerator):
+        return None
+    latent = [g["encoder"].output_depth(c) for c in crop]
+    draw = torch.Generator().manual_seed(6)
+    return [torch.randn((1, *latent, g["encoder"].conv_out.conv.out_channels // 2), generator=draw).to(device)
+            for _ in range(2)]
 
 
 def distance(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]) -> Dict[str, Tuple[float, str, float]]:
@@ -90,53 +107,69 @@ def _part_grads(module, x, loss_fn, space):
 
 
 class _Generator(torch.nn.Module):
-    def __init__(self, g, info):
+    """G's outputs from t1: the flagship's synthesis, or the causal trio's T1
+    reconstruction and PET synthesis from the fixed noise ``eps``, this rank's slab
+    of it over a space group."""
+
+    def __init__(self, g, info, eps=None):
         super().__init__()
-        self.g, self.info = g, info
+        self.g, self.info, self.eps = g, info, eps
 
     def forward(self, t1):
-        return self.g(t1, self.info)
+        if self.eps is None:
+            return (self.g(t1, self.info),)
+        draws = iter(self.eps)
+
+        def noise(z, depth):
+            eps, space = next(draws), self.g.space
+            return eps if space is None else eps[:, slice(*spatial.slab(depth, space.index, space.size))]
+
+        _, _, t1_rec, rec_pet, _ = self.g(t1, self.info, noise)
+        return t1_rec, rec_pet
 
 
 class _Adversarial(_Generator):
-    """G, then the frozen D: the train step's adversarial term."""
+    """G, then the frozen D on its synthesis: the train step's adversarial term."""
 
-    def __init__(self, g, d, info):
-        super().__init__(g, info)
+    def __init__(self, g, d, info, eps=None):
+        super().__init__(g, info, eps)
         self.d = d
 
     def forward(self, t1):
         with frozen(self.d):
-            return self.d(super().forward(t1))
+            return self.d(super().forward(t1)[-1])
 
 
-def _rank(mesh, crop) -> Dict:
+def _rank(mesh, crop, task: str) -> Dict:
     _fp32_exact()
-    cfg = dryrun._config("flagship", True)
-    run = dryrun.run_steps(mesh, "flagship", cfg, crop, torch.float32, 1, mesh.data_count, mesh.device)
-    payload = {"crop": list(crop), "device": str(mesh.device), "space_bytes": run["space_bytes"][0],
+    cfg = dryrun._config(task, True)
+    run = dryrun.run_steps(mesh, task, cfg, crop, torch.float32, 1, mesh.data_count, mesh.device)
+    payload = {"task": task, "crop": list(crop), "device": str(mesh.device), "space_bytes": run["space_bytes"][0],
                "max_rank_diff": dryrun.max_rank_difference(mesh, run["params"][0])}
     if mesh.is_lead:
-        one = dryrun.run_steps(None, "flagship", cfg, crop, torch.float32, 1, mesh.data_count, mesh.device)
+        one = dryrun.run_steps(None, task, cfg, crop, torch.float32, 1, mesh.data_count, mesh.device)
         payload["step"] = distance(run["grads"][0], one["grads"][0])
         payload["metrics_rel"] = max(abs(v - one["metrics"][0][k]) / max(abs(one["metrics"][0][k]), 1e-30)
                                      for k, v in run["metrics"][0].items())
-    g, d = _models(mesh.device)
+    g, d = _models(mesh.device, task)
+    eps = _noise(g, crop, mesh.device)
     batch = {k: v.to(mesh.device) for k, v in dryrun.global_batch(1, crop, seed=100).items()}
-    gout = torch.randn((1, *crop, 1), generator=torch.Generator().manual_seed(7)).to(mesh.device)
+    draw = torch.Generator().manual_seed(7)
+    gouts = [torch.randn((1, *crop, 1), generator=draw).to(mesh.device) for _ in range(2)]
 
-    def g_loss(out, space):
+    def g_loss(outs, space):
         if space is None:
-            return (out * gout).sum()
-        part = out * gout[:, slice(*spatial.slab(crop[0], space.index, space.size))]
-        return spatial.space_sum(part.sum().reshape(1), space, "mean")[0]
+            return sum((out * gout).sum() for out, gout in zip(outs, gouts))
+        planes = slice(*spatial.slab(crop[0], space.index, space.size))
+        part = sum((out * gout[:, planes]).sum() for out, gout in zip(outs, gouts))
+        return spatial.space_sum(part.reshape(1), space, "mean")[0]
 
     def d_loss(logits, space):
         return patch_adversarial_loss(logits[-1], target_is_real=True, for_discriminator=False, space=space)
 
-    parts = (("G alone", _Generator(g, batch["info"]), batch["t1"], g_loss),
+    parts = (("G alone", _Generator(g, batch["info"], eps), batch["t1"], g_loss),
              ("D alone", d, torch.cat([batch["t1"], batch["pet"]]), d_loss),
-             ("G's adversarial term", _Adversarial(g, d, batch["info"]), batch["t1"], d_loss))
+             ("G's adversarial term", _Adversarial(g, d, batch["info"], eps), batch["t1"], d_loss))
     payload["parts"] = {}
     for label, module, x, loss_fn in parts:
         want = _part_grads(module, x, loss_fn, None)
@@ -144,20 +177,21 @@ def _rank(mesh, crop) -> Dict:
     return payload if mesh.is_lead else {}
 
 
-def jumps(device: torch.device, crop) -> Dict[str, Dict]:
-    """G's adversarial gradient in one process with G's output moved by a relative eps N(0, 1)."""
+def jumps(device: torch.device, crop, task: str) -> Dict[str, Dict]:
+    """G's adversarial gradient in one process with G's synthesis moved by a relative eps N(0, 1)."""
     _fp32_exact()
-    g, d = _models(device)
+    g, d = _models(device, task)
     batch = {k: v.to(device) for k, v in dryrun.global_batch(1, crop, seed=100).items()}
+    generator = _Generator(g, batch["info"], _noise(g, crop, device))
 
     def grads(eps: float) -> Dict[str, torch.Tensor]:
         g.zero_grad(set_to_none=True)
         with frozen(d):
-            fake = g(batch["t1"], batch["info"])
+            fake = generator(batch["t1"])[-1]
             if eps:
                 fake = fake * (1 + eps * torch.randn(fake.shape, generator=torch.Generator().manual_seed(5)).to(device))
             patch_adversarial_loss(d(fake)[-1], target_is_real=True, for_discriminator=False).backward()
-        return {f"generator.{k}": p.grad.clone() for k, p in g.named_parameters()}
+        return {f"generator.{k}": p.grad.clone() for k, p in g.named_parameters() if p.grad is not None}
 
     ref = grads(0.0)
     return {f"{eps:g}": distance(grads(eps), ref)["generator"] for eps in (1e-7, 1e-6, 1e-5)}
@@ -165,6 +199,7 @@ def jumps(device: torch.device, crop) -> Dict[str, Dict]:
 
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--task", default="flagship", choices=["flagship", "causal"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--crop", type=int, nargs=3, default=[32, 64, 32])
     p.add_argument("--check", action="store_true", help="assert the parts, the losses and the replicas")
@@ -172,8 +207,8 @@ def main(argv=None) -> Dict:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
     crop = tuple(args.crop)
-    payload = dryrun.start(_rank, 2, crop, device=args.device, n_space=2).join()[0]
-    payload["jumps"] = jumps(torch.device(args.device), crop)
+    payload = dryrun.start(_rank, 2, crop, args.task, device=args.device, n_space=2).join()[0]
+    payload["jumps"] = jumps(torch.device(args.device), crop, args.task)
     if args.device == "cuda":
         payload["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(payload))

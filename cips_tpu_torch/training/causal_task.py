@@ -21,10 +21,17 @@ Losses (config training_causal.json):
 The noise eps is drawn by `sample_noise` from the caller's ``torch.Generator``:
 eps_t1 first, then eps_pet. Across ranks (``mesh``) the trio and D train under
 DDP, the trio as one module (`CausalGenerator`); each noise is drawn for the
-global batch and sliced to this rank's rows, so W ranks draw what one
-process draws for the whole batch; the frozen critic and the
-``exact_d_fake`` regeneration go to the networks themselves, and the
-non-finite guard is decided over all ranks. Tests replace `sample_noise` to feed the noise
+global batch and the global latent depth and sliced to this rank's rows and
+depth slab, so W ranks draw what one process draws for the whole batch; the
+frozen critic and the ``exact_d_fake`` regeneration go to the networks
+themselves, and the non-finite guard is decided over all ranks. With the
+mesh's ``space`` axis (`CausalState.space`) the train step runs the trio, D
+and every loss on depth slabs over the space group (`parallel.spatial`), as
+the flagship's does: the encoder's and the PET decoder's self-attentions
+gather K and V, the perceptual term gathers both volumes, and each loss is
+the whole volume's on every rank of the group; a batch whose depth the group
+does not divide reaches its ranks whole and runs unsharded on each
+(`spatial.space_for`). Tests replace `sample_noise` to feed the noise
 that the JAX package draws. The unpacked, un-rematted function: the JAX
 package's space-to-depth packing and remat policies are TPU layout and memory
 devices that do not change the result, and are not ported.
@@ -45,6 +52,7 @@ from cips_tpu_torch.models.autoencoder_kl import Decoder
 from cips_tpu_torch.models.decoder import DiffusionModelDecoder
 from cips_tpu_torch.models.discriminator import PatchDiscriminator
 from cips_tpu_torch.models.encoder import DiffusionModelEncoder
+from cips_tpu_torch.parallel import spatial
 from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
 
@@ -55,14 +63,18 @@ class CausalGenerator(nn.ModuleDict):
     """The trio (encoder, t1_decoder, pet_decoder) as one module, whose forward is
     the generator step's: DDP wraps the three together."""
 
-    def forward(self, t1: torch.Tensor, info: torch.Tensor, noise: Callable[[torch.Tensor], torch.Tensor]):
+    space: Optional[spatial.SpaceGroup] = None
+
+    def forward(self, t1: torch.Tensor, info: torch.Tensor,
+                noise: Callable[[torch.Tensor, Optional[int]], torch.Tensor]):
         """(z_mu, z_sigma, the T1 reconstruction, the PET synthesis, eps_pet):
-        ``noise(z_sigma)`` draws eps_t1, then eps_pet."""
-        z_mu, z_sigma = split_latent(self["encoder"](t1))
-        eps_t1 = noise(z_sigma)
-        t1_rec = self["t1_decoder"](z_mu + eps_t1 * z_sigma)
-        eps_pet = noise(z_sigma)
-        rec_pet = self["pet_decoder"](z_mu + eps_pet * z_sigma, info)
+        ``noise(z_sigma, depth)`` draws eps_t1, then eps_pet, ``depth`` being the
+        latent's global depth over a space group (None without one)."""
+        z_mu, z_sigma, depth = _encode(self, t1)
+        eps_t1 = noise(z_sigma, depth)
+        t1_rec = self["t1_decoder"](z_mu + eps_t1 * z_sigma, depth=depth)
+        eps_pet = noise(z_sigma, depth)
+        rec_pet = self["pet_decoder"](z_mu + eps_pet * z_sigma, info, depth=depth)
         return z_mu, z_sigma, t1_rec, rec_pet, eps_pet
 
 
@@ -71,7 +83,8 @@ class CausalState:
     """The trio (``gen``: encoder, t1_decoder, pet_decoder), D, the frozen
     perceptual net (None when its weight is 0), the two Adams and the step count.
     ``gen_dp`` and ``d_dp`` are the trio and D as the step trains them: their
-    DDP wrappers across ranks, else themselves."""
+    DDP wrappers across ranks, else themselves. ``space``: the space group whose
+    ranks hold depth slabs of this rank's rows (None: whole volumes)."""
 
     gen: CausalGenerator
     d: PatchDiscriminator
@@ -81,6 +94,7 @@ class CausalState:
     step: int = 0
     gen_dp: Optional[nn.Module] = field(default=None, repr=False)
     d_dp: Optional[nn.Module] = field(default=None, repr=False)
+    space: Optional[spatial.SpaceGroup] = field(default=None, repr=False)
 
     def __post_init__(self):
         self.gen_dp = self.gen if self.gen_dp is None else self.gen_dp
@@ -123,7 +137,8 @@ def init_state(
     train_cfg: Mapping[str, Any],
     mesh: Optional[Mesh] = None,
 ) -> CausalState:
-    """The state; across ranks the trio and D are wrapped for data-parallel training."""
+    """The state; across ranks the trio and D are wrapped for data-parallel
+    training, and the mesh's space group, if any, shards the train step's volumes."""
     gen = CausalGenerator(dict(zip(GENERATOR_PARTS, (encoder, t1_decoder, pet_decoder))))
     return CausalState(
         gen=gen,
@@ -133,6 +148,7 @@ def init_state(
         opt_d=adam(discriminator.parameters(), train_cfg.get("disc_lr", 1e-3)),
         gen_dp=data_parallel(gen, mesh),
         d_dp=data_parallel(discriminator, mesh),
+        space=mesh.space if mesh is not None else None,
     )
 
 
@@ -148,27 +164,35 @@ def split_latent(latent: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return latent.chunk(2, dim=-1)
 
 
-def _encode(gen: nn.ModuleDict, t1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    return split_latent(gen["encoder"](t1))
+def _encode(gen: nn.ModuleDict, t1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Optional[int]]:
+    """(z_mu, z_sigma, the latent's global depth over the encoder's space group, None without one)."""
+    encoder = gen["encoder"]
+    depth = None if encoder.space is None else encoder.output_depth(t1.shape[1] * encoder.space.size)
+    return (*split_latent(encoder(t1)), depth)
 
 
-def _noise_like(z: torch.Tensor, generator: torch.Generator,
-                rows: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
-    """Noise shaped like ``z``; with ``rows`` = (n, s), drawn for n rows and cut to rows s."""
-    if rows is None:
-        return sample_noise(z.shape, z.dtype, z.device, generator)
-    n, s = rows
-    return sample_noise((n, *z.shape[1:]), z.dtype, z.device, generator)[s]
+def _noise_like(z: torch.Tensor, generator: torch.Generator, rows: Optional[Tuple[int, slice]] = None,
+                space: Optional[spatial.SpaceGroup] = None, depth: Optional[int] = None) -> torch.Tensor:
+    """Noise shaped like ``z``; with ``rows`` = (n, s), drawn for n rows and cut to
+    rows s; over ``space``, drawn for the global depth ``depth`` and cut to this
+    rank's slab of it."""
+    n, s = rows if rows is not None else (z.shape[0], slice(None))
+    if space is None:
+        return sample_noise((n, *z.shape[1:]), z.dtype, z.device, generator)[s]
+    eps = sample_noise((n, depth, *z.shape[2:]), z.dtype, z.device, generator)[s]
+    return eps[:, slice(*spatial.slab(depth, space.index, space.size))]
 
 
 def make_train_step(
     train_cfg: Mapping[str, Any], exact_d_fake: Optional[bool] = None, nan_guard: bool = False,
-    mesh: Optional[Mesh] = None, batch_size: Optional[int] = None,
+    mesh: Optional[Mesh] = None, batch_size: Optional[int] = None, volume_depth: Optional[int] = None,
 ) -> Callable[[CausalState, Mapping[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]:
     """One generator step then one D step on a batch {"t1", "pet", "info"} of
     device tensors, the noise drawn from the given generator. Across ranks
     (``mesh``, and ``batch_size`` the batch of one node) the batch is this
-    rank's rows and the noise is the global batch's, cut to them. Updates the
+    rank's rows and the noise is the global batch's, cut to them; over the
+    state's space group, depth slabs of volumes of depth ``volume_depth`` (None:
+    always slabs), or whole volumes where the group does not divide it. Updates the
     state in place and returns the JAX package's metrics (0-d tensors):
     g_loss (g_loss + t1_loss), rec_pet_loss, rec_t1_loss, kl_loss, p_loss and
     adv_loss (each times its weight) and d_loss. With ``nan_guard``, a
@@ -182,19 +206,28 @@ def make_train_step(
     rows = mesh.global_rows(batch_size) if mesh is not None and mesh.distributed and batch_size else None
 
     def train_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
+        space = spatial.space_for(state.space, batch["t1"].shape[1], volume_depth)
+        with spatial.sharded((state.gen, state.d), space):
+            return sharded_step(state, batch, generator, space)
+
+    def sharded_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator,
+                     space: Optional[spatial.SpaceGroup]):
         t1, pet, info = batch["t1"], batch["pet"], batch["info"]
         zero = torch.zeros((), device=t1.device)
         gen = state.gen
 
+        def noise(z: torch.Tensor, depth: Optional[int]) -> torch.Tensor:
+            return _noise_like(z, generator, rows, space, depth)
+
         state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
-            z_mu, z_sigma, t1_rec, rec_pet, eps_pet = state.gen_dp(t1, info, lambda z: _noise_like(z, generator, rows))
-            rec_pet_loss = l1_loss(rec_pet, pet)
-            rec_t1_loss = l1_loss(t1_rec, t1)
-            kl = kl_divergence(z_mu, z_sigma)
-            p = state.perceptual(rec_pet, pet) if pw > 0 and state.perceptual is not None else zero
-            adv = (patch_adversarial_loss(state.d(rec_pet)[-1], target_is_real=True, for_discriminator=False)
-                   if aw > 0 else zero)
+            z_mu, z_sigma, t1_rec, rec_pet, eps_pet = state.gen_dp(t1, info, noise)
+            rec_pet_loss = l1_loss(rec_pet, pet, space)
+            rec_t1_loss = l1_loss(t1_rec, t1, space)
+            kl = kl_divergence(z_mu, z_sigma, space)
+            p = state.perceptual(rec_pet, pet, space=space) if pw > 0 and state.perceptual is not None else zero
+            adv = (patch_adversarial_loss(state.d(rec_pet)[-1], target_is_real=True, for_discriminator=False,
+                                          space=space) if aw > 0 else zero)
             total = rec_pet_loss + pw * p + aw * adv + rec_t1_loss + kw * kl
             total.backward()
         metrics = {"g_loss": total.detach(), "rec_pet_loss": rec_pet_loss.detach(),
@@ -212,12 +245,12 @@ def make_train_step(
             fake = rec_pet
             if exact_d_fake:  # the updated generator's fake, with the PET step's noise (JAX's r_pet)
                 with torch.no_grad():
-                    z_mu, z_sigma = _encode(gen, t1)
-                    fake = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info)
+                    z_mu, z_sigma, depth = _encode(gen, t1)
+                    fake = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info, depth=depth)
             fake = fake.detach()
             state.opt_d.zero_grad(set_to_none=True)
             logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
-            d_loss = lsgan_discriminator_loss(logits_fake, logits_real)
+            d_loss = lsgan_discriminator_loss(logits_fake, logits_real, space)
             d_loss.backward()
             state.opt_d.step()
             metrics["d_loss"] = d_loss.detach()
@@ -236,7 +269,7 @@ def make_eval_step() -> Callable[[CausalState, Mapping[str, torch.Tensor], torch
     def eval_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
         gen = state.gen
         with torch.inference_mode():
-            z_mu, z_sigma = _encode(gen, batch["t1"])
+            z_mu, z_sigma, _ = _encode(gen, batch["t1"])
             z = z_mu + _noise_like(z_sigma, generator) * z_sigma
             t1_rec = gen["t1_decoder"](z)
             fake = gen["pet_decoder"](z, batch["info"])

@@ -24,8 +24,11 @@ mesh's ``space`` axis (`GANState.space`) the train step runs G, D and the
 losses on depth slabs over the space group (`parallel.spatial`): every loss is
 the whole volume's on each rank of the group, and with the backward's sums over
 the group and DDP's mean over the world, every rank's gradient is the
-one-process gradient of the global batch. The eval step and serving take whole
-volumes. The JAX package's remat policies and ``d_remat`` are HBM
+one-process gradient of the global batch. A batch whose depth the group does
+not divide reaches its ranks whole (the mesh's rule, JAX's `shard_batch`) and
+runs unsharded on each (`spatial.space_for`): each rank's gradient is then the
+sample's whole one, and DDP's mean gives the same. The eval step and serving
+take whole volumes. The JAX package's remat policies and ``d_remat`` are HBM
 devices that do not change the result; they are not ported.
 """
 
@@ -151,10 +154,12 @@ def make_train_step(
     split_d: Optional[bool] = None,
     nan_guard: bool = False,
     mesh: Optional[Mesh] = None,
+    volume_depth: Optional[int] = None,
 ) -> Callable[[GANState, Mapping[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """One G step then one D step on a batch {"t1", "pet", "info"} of device
-    tensors (this rank's rows of it across ranks, depth slabs of them over
-    ``state.space``). Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
+    tensors (this rank's rows of it across ranks; over ``state.space``, depth
+    slabs of volumes of depth ``volume_depth`` (None: always slabs), or whole
+    volumes where the group does not divide it). Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
     JAX reports it), adv_loss and d_loss, the last two times adv_weight. With
     ``nan_guard``, a non-finite g_loss skips both optimiser steps (the step
     count stays) and the metrics gain ``skipped_nonfinite``."""
@@ -165,8 +170,9 @@ def make_train_step(
         split_d = bool(train_cfg.get("split_d", False))
 
     def train_step(state: GANState, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        with spatial.sharded((state.g, state.d), state.space):
-            return sharded_step(state, batch, state.space)
+        space = spatial.space_for(state.space, batch["t1"].shape[1], volume_depth)
+        with spatial.sharded((state.g, state.d), space):
+            return sharded_step(state, batch, space)
 
     def sharded_step(state: GANState, batch: Mapping[str, torch.Tensor],
                      space: Optional[spatial.SpaceGroup]) -> Dict[str, torch.Tensor]:

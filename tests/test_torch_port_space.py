@@ -133,17 +133,20 @@ def test_make_mesh_refuses_a_space_count_that_does_not_divide_the_ranks(monkeypa
         make_mesh("cpu", n_space=2)
 
 
-@pytest.mark.parametrize("n,task,full,want", [
-    (2, "flagship", False, 2), (3, "flagship", False, 1), (4, "flagship", False, 2),  # JAX's tiny mesh
-    (8, "flagship", True, 4), (3, "flagship", True, 3),  # JAX's full volume: data 2 (1 when odd) x the rest
-    (4, "causal", False, 1),  # the causal trio's space axis is not ported
+@pytest.mark.parametrize("n,task,full,data,want", [
+    # JAX's tiny mesh
+    (2, "flagship", False, None, 2), (3, "flagship", False, None, 1), (4, "flagship", False, None, 2),
+    # JAX's full volume: data 2 (1 when odd) x the rest
+    (8, "flagship", True, None, 4), (3, "flagship", True, None, 3),
+    (4, "causal", False, None, 2),  # JAX's _run_causal: space 2 at an even count, as the flagship's
+    (8, "causal", True, "4", 2),  # the causal trio's full volume: data CIPS_DRYRUN_DATA x space the rest
 ])
-def test_dry_run_takes_jax_mesh_and_refuses_the_causal_trio_on_space(n, task, full, want, monkeypatch):
+def test_dry_run_takes_jax_mesh_for_both_tasks(n, task, full, data, want, monkeypatch):
+    if data is None:
+        monkeypatch.delenv("CIPS_DRYRUN_DATA", raising=False)
+    else:
+        monkeypatch.setenv("CIPS_DRYRUN_DATA", data)
     assert dryrun.default_n_space(n, task, full) == want
-    if task == "causal":
-        monkeypatch.setenv("CIPS_DRYRUN_TASK", "causal")
-        with pytest.raises(NotImplementedError, match="the causal trio on the space axis"):
-            dryrun.main([str(n), "--device", "cpu", "--n_space", "2"])
 
 
 def test_n_space_one_builds_no_group_and_runs_no_collective(monkeypatch):
