@@ -10,7 +10,9 @@ Phases (any failure raises and the script exits non-zero):
                 (-Xptxas -v) of the bf16 dQ, the fp32 (3xTF32) forward, dQ and
                 dK/dV and the Hopper phase conv kernels (csrc/phase_conv_sm90.cu,
                 and the fp32 ones, 3xTF32, csrc/phase_conv_tf32.cu), with the
-                dynamic shared memory of the bf16 dQ and phase conv kernels;
+                dynamic shared memory of the bf16 dQ and phase conv kernels; then
+                g++ builds the native NIfTI runtime (cips_tpu_torch/runtime/), its
+                compiler, build time and the zlib it links printed;
   3. kernels  — the forward kernel and the dQ and dK/dV backward kernels
                 against their plain PyTorch versions at the paths' shapes,
                 ragged L (1, 17, 127, 129, 1000, 2305), Lq != Lk, Dh 64 and
@@ -40,14 +42,23 @@ Phases (any failure raises and the script exits non-zero):
                 generator forward (--dtype f32 serving) at the full volume and
                 batch 2 (CUDA events) and its device time by kernel kind, the
                 fp32 flash forward's share among them;
-  6. training — cips_tpu_torch.cli.train_unet at full width and volume in
+  6. training — the native prefetch pool's decode rate; then
+                cips_tpu_torch.cli.train_unet at full width and volume in
                 bf16, batch 2, for a few epochs with eval and a checkpoint per
                 epoch; checks losses, checkpoints and that every train step
-                launched 6 forward, 6 dQ and 6 dK/dV kernels; then --resume,
-                then output_predict serves the trained checkpoint;
+                launched 6 forward, 6 dQ and 6 dK/dV kernels; then --resume
+                --streaming, which decodes through the pool (6/6/6 a step, the
+                wait of each step for its batch printed), then output_predict
+                serves the trained checkpoint; then that checkpoint, written as
+                the reference writes one (module. names), goes through
+                cli.import_torch_ckpt into a fresh experiment and is served with
+                --epoch N (6, 0, 0 launches; its volumes against the trained run's);
   7. step     — the train step's time (CUDA events) and peak memory, one
                 profiled step by kernel kind, and the rec loss falling over
-                steps on one fixed batch;
+                steps on one fixed batch; then one step with remat and d_remat
+                beside one without, from the same weights on the same batch:
+                losses, gradients and updated parameters compared, both peaks
+                and step times printed;
   8. grads    — one fp32 train step from the same random weights on the card
                 and on the CPU at the reduced crop: G and D gradients compared;
   9. causal serving — cips_tpu_torch.cli.gen_test_causal with the causal generator
@@ -62,7 +73,9 @@ Phases (any failure raises and the script exits non-zero):
                 launching 7 forward, 7 dQ and 7 dK/dV kernels; --resume; the
                 trained checkpoint served and gen_latents on it; the train step's
                 time, peak memory and profile on one fixed batch, an exact_d_fake
-                step (7 forwards more); one fp32 step's gradients, card vs CPU;
+                step (7 forwards more), a step with remat (the trio's resnets
+                recomputed: its time, peak memory and 7/7/7 launches); one fp32
+                step's gradients, card vs CPU;
  11. classifier — cips_tpu_torch.cli.train_classifier (configs/training_atten.json) at full
                 width and the full volume in bf16, batch 2, PET + T1 + covariates, on the same
                 8 subjects with a converter CSV of both classes, for 2 epochs with eval and
@@ -86,8 +99,8 @@ Phases (any failure raises and the script exits non-zero):
                 own level-0 conv on that conv's input; each variant's device
                 time (torch.profiler; its eager time beside it) beside its
                 bound, its plain version's time and its one-call library
-                counterpart's device time, with the cuDNN yardsticks, at three
-                shapes; the fp32 kernels that the `stages` probe runs (full,
+                counterpart's device time, with the cuDNN yardsticks, at two
+                shapes (PHASE_TIMED; pc 256 is checked, not timed); the fp32 kernels that the `stages` probe runs (full,
                 one_tap, shift, copy) the same way at the probe shape and the TPU
                 probe's own (1, 8, 16, 8, 128), TF32 off, their bound at the
                 3xTF32 rate with the FMA figure beside it; then the slice's main
@@ -188,6 +201,8 @@ TRAIN_BATCH = 2
 TRAIN_EPOCHS = 3  # 4 steps each over 8 subjects: step 10's loss record falls inside
 N_EVAL = 2  # subjects of the per-epoch eval
 STEPS_TIMED = 14  # train steps clocked after 2 warm-up steps, on one fixed batch
+REMAT_STEPS_TIMED = 3  # remat and plain flagship steps (phase 7), each after 1 warm-up, one batch
+POOL_THREADS = 2  # the native prefetch pool of --streaming (StreamingLoader's default)
 # The causal generator (configs/training_causal.json) at full width and the full volume. A
 # generator forward launches 7 flash forwards: the encoder's level 2 (24x32x24 = 18,432 tokens)
 # has 2 transformers whose attn1 and attn2 both attend to their own tokens (the encoder gets no
@@ -241,6 +256,9 @@ SEG_SHAPE = (256, 256, 256)  # FastSurfer's conformed space
 # Phase conv shapes, packed (B, Z, Y, X, 8C): the TPU probes' level-0 shape (C = 16), their
 # 32-channel case, and the flagship's own level 0 at batch 2.
 PHASE_SHAPES = ((8, 48, 64, 48, 128), (8, 48, 64, 48, 256), (2, 48, 64, 48, 128))
+# Timed at two of them: the 256-channel shape is checked only (PERF.md keeps its earlier times),
+# which pays for the streamed resume, the import and the remat steps of phases 6-7 and 10.
+PHASE_TIMED = (PHASE_SHAPES[0], PHASE_SHAPES[2])
 PHASE_CHECKS = ((PHASE_SHAPES[0], torch.bfloat16), (PHASE_SHAPES[1], torch.bfloat16),
                 ((2, 8, 16, 8, 128), torch.float32), ((1, 5, 7, 9, 128), torch.bfloat16),
                 ((1, 5, 7, 9, 128), torch.float32),  # ragged on every axis
@@ -1303,11 +1321,11 @@ def cpu_noise():
         causal_task.sample_noise = sample_noise
 
 
-def causal_models(cfg: dict, states: dict, dtype, device: str) -> tuple:
+def causal_models(cfg: dict, states: dict, dtype, device: str, remat: bool = False) -> tuple:
     """The causal trio, D and the perceptual net (seed 0) with ``states`` loaded."""
     from cips_tpu_torch.training import causal_task
 
-    models = causal_task.build_models(cfg, FLAGSHIP_K, dtype=dtype, device=device)
+    models = causal_task.build_models(cfg, FLAGSHIP_K, dtype=dtype, device=device, remat=remat)
     for name, model in zip(CAUSAL_PARTS + ("discriminator",), models):
         model.load_state_dict(states[name])
     return models
@@ -1396,6 +1414,170 @@ def causal_serving(fa, cfg: dict, states: dict, tree: dict, args: list, tmp: str
         check(all(e <= TOL_MODEL_REL for e in errs) and all(torch.isfinite(t).all().item() for t in outs["cuda"]),
               "the causal trio's card and CPU forwards disagree")
     return launched, fwd_ms
+
+
+def runtime_build() -> None:
+    """Phase 2: the native NIfTI runtime built from its source in the checkout (g++, at first use
+    elsewhere; forced here so that its build time is this run's); the compiler, the build time
+    and the zlib the library links."""
+    from cips_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    native.build(force=True)
+    seconds = time.perf_counter() - t0
+    compiler = subprocess.run([native.CXX, "--version"], capture_output=True, text=True, check=False).stdout
+    ldd = subprocess.run(["ldd", native.LIBRARY], capture_output=True, text=True, check=False).stdout
+    libz = [line.strip() for line in ldd.splitlines() if "libz." in line]
+    print(f"runtime: {native.LIBRARY} built by {compiler.splitlines()[0]} in {seconds:.3f} s "
+          f"({' '.join(native.CXX_FLAGS)}, no -march=native), compiled against zlib.h, linked {libz}")
+    check(len(libz) == 1, f"the runtime does not link the system zlib: {ldd}")
+
+
+def pool_rate(tree: dict, csv_path: str) -> float:
+    """Phase 6: the native pool's decode rate in volumes a second (two gzipped volumes a sample,
+    normalised at CROP, POOL_THREADS threads), every subject of the tree decoded once, nothing
+    consuming but the drain itself."""
+    from cips_tpu_torch.data.dataset import PairedVolumeDataset
+    from cips_tpu_torch.runtime import native
+
+    ds = PairedVolumeDataset(csv_path, pet_dir=tree["pet"], t1_dir=tree["t1"], crop_size=CROP)
+    pool = native.NativePrefetcher([p[0] for p in ds.paths], [p[1] for p in ds.paths], CROP, n_threads=POOL_THREADS,
+                                   capacity=len(ds))
+    t0 = time.perf_counter()
+    pool.submit(range(len(ds)))
+    got = [pool.next()[0] for _ in ds.paths]
+    elapsed = time.perf_counter() - t0
+    pool.close()
+    check(sorted(got) == list(range(len(ds))), f"the pool returned {got}")
+    return 2 * len(ds) / elapsed
+
+
+@contextlib.contextmanager
+def recorded_loaders(made: list):
+    """The (train, eval) loaders each trainer builds inside the block (`cli.common.make_loaders`)."""
+    from cips_tpu_torch.cli import common
+
+    make_loaders = common.make_loaders
+
+    def recording(*args, **kwargs):
+        made.append(make_loaders(*args, **kwargs))
+        return made[-1]
+
+    common.make_loaders = recording
+    try:
+        yield made
+    finally:
+        common.make_loaders = make_loaders
+
+
+def import_phase(fa, base: str, trained_pred: str, serve, serve_args: list, tmp: str) -> dict:
+    """After phase 6: the trained checkpoint written as the reference writes one (DDP's
+    ``module.`` names), imported by `cli.import_torch_ckpt` into a fresh experiment directory
+    and served by output_predict --epoch N; its weights and served volumes against the trained
+    run's (``trained_pred``). Returns the launches of the serving run."""
+    from cips_tpu_torch.cli import import_torch_ckpt
+    from cips_tpu_torch.data import nifti
+    from cips_tpu_torch.training.common import CheckpointManager
+
+    manager = CheckpointManager(os.path.join(base, "ckpt"))
+    epoch = manager.latest_epoch()
+    payload = manager.restore(epoch=epoch)
+    reference = os.path.join(tmp, "reference_epoch.ckpt")
+    torch.save({"unet": {f"module.{k}": v for k, v in payload["unet"].items()},
+                "discriminator": {f"module.{k}": v for k, v in payload["discriminator"].items()},
+                "epoch": epoch, "eval_loss": 0.5}, reference)
+    imported_exp = os.path.join(tmp, "imported_exp")
+    t0 = time.perf_counter()
+    ckpt_dir = import_torch_ckpt.main(["--torch_ckpt", reference, "--exp_dir", imported_exp, "--use_condition",
+                                       "--crop_size", *map(str, CROP)])
+    import_s = time.perf_counter() - t0
+    restored = CheckpointManager(ckpt_dir).restore(epoch=epoch)
+    check(all(torch.equal(restored["unet"][k], v) for k, v in payload["unet"].items()) and
+          all(torch.equal(restored["discriminator"][k], v) for k, v in payload["discriminator"].items()),
+          "the imported weights differ from the trained ones")
+    out_dir = os.path.join(tmp, "pred_imported")
+    with uncounted(fa):
+        set_counts(fa, (0, 0, 0))
+        results, _ = serve(serve_args + ["--exp_dir", imported_exp, "--epoch", str(epoch)], out_dir)
+        launched = counts(fa)
+    check(launched == (6, 0, 0), f"serving the imported checkpoint: launches {launched}")
+    pairs = []
+    for dp, _, fs in os.walk(trained_pred):
+        for f in fs:
+            if f == "rec.nii.gz":
+                rel = os.path.relpath(os.path.join(dp, f), trained_pred)
+                pairs.append((nifti.read_array(os.path.join(dp, f)), nifti.read_array(os.path.join(out_dir, rel))))
+    check(len(pairs) == N_EVAL, f"expected {N_EVAL} served pairs, found {len(pairs)}")
+    diffs = [float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-12)) for a, b in pairs]
+    exact = all(np.array_equal(a, b) for a, b in pairs)
+    print(f"import: the trained epoch {epoch} written with module. names, imported in {import_s:.3f} s, served with "
+          f"--epoch {epoch}: launches {launched}; volumes {'bit for bit equal to' if exact else 'within'} the trained "
+          f"run's (max |diff| / max |vol| {max(diffs):.3e}, tol {TOL_BF16_OUT_REL:g}); metrics {results.summary()}")
+    check(max(diffs) <= TOL_BF16_OUT_REL, f"the imported checkpoint serves other volumes: {diffs}")
+    return {"launches": launched, "exact": exact}
+
+
+def remat_flagship_steps(cfg: dict, g_state: dict, batch: dict, card: str) -> None:
+    """Phase 7: one bf16 flagship step at batch 2 with remat (G's blocks) and d_remat (D and
+    LPIPS in the G step) beside the same step without them, from the same weights (G's
+    ``g_state``, D's seeded init) on the same
+    batch: the losses within TOL_BF16_OUT_REL, G's and D's gradients within TOL_BF16_GRAD_REL
+    of each network's max|grad|, the updated parameters within two Adam steps (2 lr); each
+    variant's peak memory and step time (CUDA events over REMAT_STEPS_TIMED steps after one)."""
+    from cips_tpu_torch.training import unet_synthesis
+
+    runs = {}
+    for remat in (False, True):
+        train_cfg = dict(cfg["training"], d_remat=remat)
+        g, d, _ = unet_synthesis.build_models(cfg, FLAGSHIP_K, dtype=torch.bfloat16, device="cuda", remat=remat)
+        g.load_state_dict(g_state)  # every weight drawn: a zero output conv would stop G's gradients
+        gan = unet_synthesis.init_state(g, d, train_cfg)
+        step_fn = unet_synthesis.make_train_step(train_cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first = {k: float(v) for k, v in step_fn(gan, batch).items()}
+        grads = {f"{net}.{k}": p.grad.float().clone() for net, m in (("g", g), ("d", d))
+                 for k, p in m.named_parameters() if p.grad is not None}
+        params = {f"{net}.{k}": p.detach().float().clone() for net, m in (("g", g), ("d", d))
+                  for k, p in m.named_parameters()}
+        ms = cuda_ms(lambda: step_fn(gan, batch), REMAT_STEPS_TIMED, warmup=0)
+        runs[remat] = (first, grads, params, ms, torch.cuda.max_memory_allocated() / 2**30)
+        del g, d, gan
+    (m0, g0, p0, ms0, peak0), (m1, g1, p1, ms1, peak1) = runs[False], runs[True]
+    loss_rel = max(abs(m1[k] - v) / max(abs(v), 1e-12) for k, v in m0.items())
+    grad_rel = max(max((g1[k] - g0[k]).abs().max().item() for k in g0 if k.startswith(net)) /
+                   max(g0[k].abs().max().item() for k in g0 if k.startswith(net)) for net in ("g.", "d."))
+    lr = max(cfg["training"].get("base_lr", 5e-4), cfg["training"].get("disc_lr", 1e-4))
+    param_abs = max((p1[k] - p0[k]).abs().max().item() for k in p0)
+    exact = all(torch.equal(p1[k], p0[k]) for k in p0)
+    print(f"remat step: with remat and d_remat {ms1:.3f} ms, peak {peak1:.2f} GiB; without {ms0:.3f} ms, peak "
+          f"{peak0:.2f} GiB (CUDA events over {REMAT_STEPS_TIMED} steps after the compared one, batch {TRAIN_BATCH}, "
+          f"bf16); losses within {loss_rel:.3e} (tol {TOL_BF16_OUT_REL:g}), gradients {grad_rel:.3e} of max|grad| "
+          f"(tol {TOL_BF16_GRAD_REL:g}), updated parameters {param_abs:.3e} apart ({'bit for bit' if exact else 'tol'} "
+          f"{2 * lr:g}); {card}")
+    check(loss_rel <= TOL_BF16_OUT_REL and grad_rel <= TOL_BF16_GRAD_REL and param_abs <= 2 * lr,
+          "the remat step disagrees with the plain step")
+
+
+def remat_causal_step(fa, cfg: dict, states: dict, batch: dict) -> tuple:
+    """Phase 10: one causal train step at batch 2, bf16, with remat (the trio's resnets; the
+    attentions outside, so 7/7/7 launches as without): (ms over 2 steps after one, peak GiB,
+    the first step's launches)."""
+    from cips_tpu_torch.training import causal_task
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = causal_task.init_state(*causal_models(cfg, states, torch.bfloat16, "cuda", remat=True), cfg["training"])
+    step_fn = causal_task.make_train_step(cfg["training"])
+    g = torch.Generator("cuda").manual_seed(1)
+    before = counts(fa)
+    metrics = step_fn(state, batch, g)
+    launched = tuple(a - b for a, b in zip(counts(fa), before))
+    check(all(np.isfinite(float(v)) for v in metrics.values()), "non-finite causal remat metrics")
+    ms = cuda_ms(lambda: step_fn(state, batch, g), 2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    return ms, peak, launched
 
 
 def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args: list, tmp: str,
@@ -1502,6 +1684,11 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
         print(f"causal train step: with exact_d_fake, launches {exact}")
         check(exact == (2 * n, n, n), f"an exact_d_fake step launched {exact}, expected {(2 * n, n, n)}")
         del state, timed
+        remat_ms, remat_peak, remat_launches = remat_causal_step(fa, cfg, states, batch)
+        print(f"causal train step with remat (the trio's resnets recomputed, attention outside): {remat_ms:.3f} ms, "
+              f"peak memory {remat_peak:.2f} GiB of 80 beside {peak:.2f} GiB without; launches {remat_launches}; "
+              f"batch {CAUSAL_TRAIN_BATCH} bf16; {card}")
+        check(remat_launches == (n, n, n), f"the causal remat step launched {remat_launches}, expected {(n, n, n)}")
 
         got = {}
         small = synthetic_batch(PARITY_CROP, 1, "cpu", seed=9)
@@ -2736,6 +2923,7 @@ def main() -> int:
     print(report.getvalue(), end="")
     print(f"kernel library built in {time.perf_counter() - t0:.1f} s")
     sm90_kernel_report(report.getvalue(), fa, pc)
+    runtime_build()
 
     phase("3 kernels")
     with uncounted(fa):
@@ -2867,6 +3055,10 @@ def main() -> int:
         phase("6 training")
         train_exp = os.path.join(tmp, "train_exp")
         eval_csv = subset_manifest(tree["csv"], os.path.join(tmp, "eval.csv"), N_EVAL)
+        rate = pool_rate(tree, tree["csv"])
+        print(f"streaming: the native pool decodes {rate:.2f} volumes/s ({POOL_THREADS} threads, {N_SUBJECTS} pairs of "
+              f"gzipped {CROP} volumes, normalised, nothing else running) = {rate / 2 / TRAIN_BATCH:.2f} batches of "
+              f"{TRAIN_BATCH} a second; {card}")
         train_args = data_args + [
             "--exp_dir", train_exp, "--training_info_csv", tree["csv"], "--eval_info_csv", eval_csv,
             "--dtype", "bf16", "--batch_size", str(TRAIN_BATCH), "--save_every", "1",
@@ -2904,14 +3096,27 @@ def main() -> int:
                   f"no eval dump of epoch {e}")
         del trained
 
-        with uncounted(fa):
+        # the resume decodes through the native pool (--streaming) instead of the packed store
+        resume_steps, made = [], []
+        with uncounted(fa), step_launches(fa, resume_steps, unet_synthesis), recorded_loaders(made):
             set_counts(fa, (0, 0, 0))
-            resumed = train_unet.main(train_args + ["--epochs", str(TRAIN_EPOCHS + 1), "--resume"])
+            t0 = time.perf_counter()
+            resumed = train_unet.main(train_args + ["--epochs", str(TRAIN_EPOCHS + 1), "--resume", "--streaming"])
+            torch.cuda.synchronize()
+            resume_wall = time.perf_counter() - t0
             resume_counts = counts(fa)
         expected = (6 * (steps_per_epoch + N_EVAL), 6 * steps_per_epoch, 6 * steps_per_epoch)
-        print(f"training: --resume ran epoch {TRAIN_EPOCHS} to step {resumed.step}; launches {resume_counts}")
-        check(resumed.step == steps + steps_per_epoch and resume_counts == expected,
-              f"resume: step {resumed.step}, launches {resume_counts}, expected {expected}")
+        (stream_train, stream_eval), = made
+        waits = [round(w * 1e3, 3) for w in stream_train.waits]
+        print(f"training: --resume --streaming ran epoch {TRAIN_EPOCHS} to step {resumed.step} in {resume_wall:.3f} s; "
+              f"launches {resume_counts}, per step {resume_steps}; the pool decoded {stream_train.decoded} training "
+              f"and {stream_eval.decoded} eval samples; each step waited {waits} ms for its batch (the first: the "
+              f"pool's start); {card}")
+        check(type(stream_train).__name__ == "StreamingLoader"
+              and stream_train.decoded == steps_per_epoch * TRAIN_BATCH, f"the resume did not stream its {steps_per_epoch * TRAIN_BATCH} samples through the pool")
+        check(resumed.step == steps + steps_per_epoch and resume_counts == expected
+              and resume_steps == [(6, 6, 6)] * steps_per_epoch,
+              f"resume: step {resumed.step}, launches {resume_counts} ({resume_steps}), expected {expected}")
         check(CheckpointManager(os.path.join(base, "ckpt")).latest_epoch() == TRAIN_EPOCHS, "resume saved no epoch")
         del resumed
 
@@ -2923,6 +3128,8 @@ def main() -> int:
             check(counts(fa) == (6, 0, 0), f"serving the trained checkpoint: launches {counts(fa)}")
         check_served(results, trained_pred, N_EVAL)
         print(f"training: the trained checkpoint served {N_EVAL} subjects, metrics {results.summary()}")
+        imported = import_phase(fa, base, trained_pred, serve, data_args + [
+            "--eval_info_csv", eval_csv, "--dtype", "bf16", "--batch_size", str(SERVING_BATCH)], tmp)
 
         phase("7 train step")
         step_fn = unet_synthesis.make_train_step(train_cfg)
@@ -2949,6 +3156,7 @@ def main() -> int:
             check(losses[-1] < losses[0], "the rec loss did not fall on a fixed batch")
             profile_window(lambda: step_fn(gan, batch), "train step")
             del gan, g_bf16, d_bf16, timed
+            remat_flagship_steps(cfg, state, batch, card)
 
         phase("8 grads (card vs CPU, fp32 train step)")
         got = {}
@@ -3004,7 +3212,7 @@ def main() -> int:
             t0 = time.perf_counter()
             phase_err = phase_conv_checks(pc)
             phase_err["full"] = max(phase_err["full"], phase_conv_flagship(cfg, state))
-            phase_timing = {shape: phase_conv_timing(pc, shape) for shape in PHASE_SHAPES}
+            phase_timing = {shape: phase_conv_timing(pc, shape) for shape in PHASE_TIMED}
             phase_timing_f32 = {shape: phase_conv_timing(pc, shape, torch.float32, PHASE_F32_VARIANTS)
                                 for shape in PHASE_F32_SHAPES}
             print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
@@ -3050,6 +3258,10 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "design": DESIGNS[kind],
                         "design_f32": DESIGNS_F32[kind],
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
+                        # phase 6's --resume --streaming (the native pool; 6/6/6 a step) and the imported
+                        # reference-style checkpoint served by output_predict --epoch N (6, 0, 0)
+                        "launches_streamed_resume": resume_counts[i],
+                        "launches_imported_serving": imported["launches"][i],
                         # the causal generator's paths (phases 9 and 10), each counted from 0
                         "launches_causal_serving": causal_serving_counts[i],
                         "launches_causal_training": causal_train_counts[i],
@@ -3090,7 +3302,7 @@ def main() -> int:
                              "max_abs_err": phase_err[v],
                              "at": {"x".join(map(str, shape)): {k: round(t, 6) if isinstance(t, float) else t
                                                                for k, t in phase_timing[shape][v].items()}
-                                    for shape in PHASE_SHAPES},
+                                    for shape in PHASE_TIMED},
                              # the fp32 kernel (source_f32), TF32 off
                              **({"at_f32": {"x".join(map(str, shape)): {
                                  k: round(t, 6) if isinstance(t, float) else t

@@ -89,7 +89,8 @@ def make_loaders(args, need_values, mesh: Optional[Mesh] = None, split_eval: boo
     ``--eval_packed_dir`` are reused when they hold a store, else the pairs are
     packed there, or into ``{exp_dir}/packed_{train,eval}`` when not given.
     ``--random_crop_size`` crops the training batches. ``--streaming`` decodes
-    the NIfTIs in fp32 as it goes (`StreamingLoader`) instead; its training
+    the NIfTIs in fp32 as it goes, through the native prefetch pool
+    (`StreamingLoader`), instead; its training
     dataset crops each sample, corners drawn from a generator seeded with
     ``--seed``.
 

@@ -1,20 +1,23 @@
 """Paired T1/PET volume dataset, the packed-array store and the two batch
-loaders, and the MCI classifier's dataset, store and loader (port of the
-NIfTI-backed datasets, `pack_pairs`, `PackedDataset`, `BatchLoader`,
-`StreamingLoader`, `MCIClassificationDataset`, `pack_mci`, `PackedMCIDataset`
-and `MCIBatchLoader` in cips_tpu/data/dataset.py).
+loaders, the latent dataset, and the MCI classifier's dataset, store and
+loader (port of the NIfTI-backed datasets, `pack_pairs`, `PackedDataset`,
+`BatchLoader`, `StreamingLoader`, `PairedLatentDataset`,
+`MCIClassificationDataset`, `pack_mci`, `PackedMCIDataset` and
+`MCIBatchLoader` in cips_tpu/data/dataset.py).
 
 The trainers' default path decodes every pair once: `pack_pairs` writes a
 memory-mapped float16 store (N, 2, D, H, W) and `BatchLoader` serves shuffled
 batches from it, so training sees the fp16-rounded volumes, as the JAX
 package's does. The store's files are the JAX package's, so a store packed by
 either package loads in the other (the classifier's `pack_mci` store too).
-`StreamingLoader` (``--streaming``) decodes the NIfTIs as it goes. Decoding is
-the pure-numpy NIfTI reader; the JAX package's C++ decode runtime and its
-prefetch pool are not ported yet, and there is no fallback between the two:
-the port's streaming path is the JAX package's synchronous one, random crop
-included (JAX's native prefetch pool decodes at ``crop_size`` and skips the
-crop).
+`StreamingLoader` (``--streaming``) decodes the NIfTIs as it goes, through the
+native prefetch pool (`runtime.native.NativePrefetcher`), in the synchronous
+path's order, random crop included.
+
+Every volume is decoded by the native runtime (`runtime.native.decode`: one
+pass of decode, pad/crop and max-normalise); the numpy reader (`data.nifti`,
+`pad_crop_np`, `max_normalize_np`) is the plain version the tests hold it to.
+A runtime that does not build is an error: nothing falls back.
 
 Across ranks (`cips_tpu_torch.parallel.mesh`) each loader takes JAX's
 ``process_index`` and ``process_count``, the node's place, and serves only this
@@ -25,20 +28,23 @@ batch: every rank's rows are those of JAX's one-process loader.
 
 from __future__ import annotations
 
+import collections
 import csv
 import json
 import os
+import time
+import warnings
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from cips_tpu_torch.data import nifti
 from cips_tpu_torch.data.covariates import covariate_vector
 from cips_tpu_torch.data.manifest import PairRow, read_manifest
 from cips_tpu_torch.ops.resample import resize_trilinear
 from cips_tpu_torch.parallel.mesh import shard_rows
+from cips_tpu_torch.runtime import native
 
 CROP_SIZE = (96, 128, 96)  # the working volume (reference train_unet.py:111)
 
@@ -74,12 +80,14 @@ def _first_file(folder: str) -> Optional[str]:
 def _load(
     path: str, crop_size: Sequence[int], normalize: bool = True, resize_size: Optional[Sequence[int]] = None
 ) -> np.ndarray:
-    """Decode, pad/center-crop to ``crop_size``, linearly resize to ``resize_size``
-    (the reference's optional MONAI Resize, dataset.py:88-90; on the host, as
-    `ops.resample.resize_trilinear` computes it) and (``normalize``) max-normalise."""
-    vol = pad_crop_np(nifti.read_array(path).astype(np.float32), crop_size)
-    if resize_size is not None:
-        vol = resize_trilinear(torch.from_numpy(np.ascontiguousarray(vol)), resize_size).numpy()
+    """Decode and pad/center-crop to ``crop_size`` (the native runtime), linearly
+    resize to ``resize_size`` (the reference's optional MONAI Resize,
+    dataset.py:88-90; on the host, as `ops.resample.resize_trilinear` computes
+    it) and (``normalize``) max-normalise."""
+    if resize_size is None:
+        return native.decode(path, crop_size, normalize=normalize)
+    vol = native.decode(path, crop_size, normalize=False)
+    vol = resize_trilinear(torch.from_numpy(vol), resize_size).numpy()
     return max_normalize_np(vol) if normalize else vol
 
 
@@ -149,29 +157,58 @@ class PairedVolumeDataset:
     def load(self, index: int, corner: Optional[Sequence[int]] = None) -> Sample:
         """Sample ``index``, cut at ``corner`` when the dataset crops at random
         (a corner from `draw_corner`)."""
-        row = self.rows[index]
-        t1, pet = (_load(path, self.crop_size, normalize=self.random_crop_size is None, resize_size=self.resize_size)
+        t1, pet = (self.finish(native.decode(path, self.crop_size, normalize=self.decode_normalizes), corner)
                    for path in self.paths[index])
+        row = self.rows[index]
+        return Sample(t1, pet, self.info(index), row.subject, row.t1_date, row.pet_date)
+
+    @property
+    def decode_normalizes(self) -> bool:
+        """Whether a volume is max-normalised as it is decoded: without a resize
+        or a random crop, which normalise after them (`finish`)."""
+        return self.resize_size is None and self.random_crop_size is None
+
+    def finish(self, vol: np.ndarray, corner: Optional[Sequence[int]] = None) -> np.ndarray:
+        """A volume decoded at ``crop_size`` (normalised when `decode_normalizes`)
+        as the sample holds it: resized, cut at ``corner`` and max-normalised."""
+        if self.resize_size is not None:
+            vol = resize_trilinear(torch.from_numpy(vol), self.resize_size).numpy()
         if self.random_crop_size is not None:
             window = tuple(slice(o, o + r) for o, r in zip(corner, self.random_crop_size))
-            t1, pet = (max_normalize_np(np.ascontiguousarray(v[window])) for v in (t1, pet))
+            vol = np.ascontiguousarray(vol[window])
+        return vol if self.decode_normalizes else max_normalize_np(vol)
+
+    def info(self, index: int) -> np.ndarray:
+        """Sample ``index``'s covariate row (K,), empty without ``need_values``."""
         if self.need_values:
-            info = covariate_vector(row, self.need_values, self.min_and_max)
-        else:
-            info = np.zeros((0,), np.float32)
-        return Sample(t1, pet, info, row.subject, row.t1_date, row.pet_date)
+            return covariate_vector(self.rows[index], self.need_values, self.min_and_max)
+        return np.zeros((0,), np.float32)
 
 
 class StreamingLoader:
-    """Epoch iterator that decodes the dataset's NIfTIs as it goes.
+    """Epoch iterator that decodes the dataset's NIfTIs as it goes, through the
+    native prefetch pool.
 
-    The order is the JAX package's: ``np.random.default_rng(seed + epoch)``
-    shuffles the indices (when ``shuffle``), node ``process_index`` of
+    The order is the JAX package's synchronous one: ``np.random.default_rng(seed
+    + epoch)`` shuffles the indices (when ``shuffle``), node ``process_index`` of
     ``process_count`` takes every ``process_count``-th of them, ``drop_last``
-    drops a short last batch. A random-cropping dataset draws the corners of
-    the whole node batch in order; this rank decodes only its share of the rows
+    drops a short last batch. A random-cropping dataset draws the corners of the
+    whole node batch in order; this rank decodes only its share of the rows
     (``shard_index`` of ``shard_count``). Yields numpy batches {"t1": (B, D, H,
     W, 1), "pet": (B, D, H, W, 1), "info": (B, 1, K)}.
+
+    Each epoch starts a `runtime.native.NativePrefetcher` of ``n_threads``
+    threads (closed when the epoch ends or is left) and keeps up to
+    max(2 batch, 8) of this rank's samples submitted ahead, whole batches at a
+    time, so the next batches decode while a step runs. The pool hands samples
+    back as they finish; the loader holds early ones until their
+    turn, so every batch holds the rows, order and crop corners of the
+    synchronous path (`PairedVolumeDataset.load`) whatever the threads' timing.
+    A sample whose decode fails is left out of its batch with a warning (a batch
+    left empty is skipped). A batch's corners are drawn when it is submitted, so
+    an epoch left before its end has drawn those of the batches already given
+    to the pool. ``waits`` holds, for each batch served, the seconds the loader
+    waited for the pool; ``decoded`` counts the samples it handed back.
     """
 
     def __init__(
@@ -186,6 +223,7 @@ class StreamingLoader:
         process_count: int = 1,
         shard_index: int = 0,
         shard_count: int = 1,
+        n_threads: int = 2,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -196,8 +234,14 @@ class StreamingLoader:
         self.process_count = process_count
         self.shard_index = shard_index
         self.shard_count = shard_count
+        self.n_threads = n_threads
+        self.capacity = max(2 * batch_size, 8)
+        self.waits: List[float] = []
+        self.decoded = 0
 
-    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+    def plan(self, epoch: int) -> Iterator[Tuple[List[int], List[Optional[List[int]]]]]:
+        """Each batch's (this rank's indices, their crop corners), drawing the
+        corners of the node batch as the batch is planned."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
@@ -208,12 +252,101 @@ class StreamingLoader:
                 break
             corners = [self.dataset.draw_corner() for _ in idx]
             rows = shard_rows(len(idx), self.shard_index, self.shard_count)
-            samples = [self.dataset.load(int(i), c) for i, c in zip(idx[rows], corners[rows])]
-            yield {
-                "t1": np.stack([s.t1 for s in samples])[..., None],
-                "pet": np.stack([s.pet for s in samples])[..., None],
-                "info": np.stack([s.info for s in samples])[:, None, :],
-            }
+            yield [int(i) for i in idx[rows]], corners[rows]
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        ds = self.dataset
+        plan = self.plan(epoch)
+        pool = native.NativePrefetcher([p[0] for p in ds.paths], [p[1] for p in ds.paths], ds.crop_size,
+                                       normalize=ds.decode_normalizes, n_threads=self.n_threads,
+                                       capacity=self.capacity)
+        try:
+            submitted: collections.deque = collections.deque()
+            ahead = 0  # samples submitted and not yet taken
+            held: Dict[int, Optional[np.ndarray]] = {}
+
+            def top_up() -> None:
+                nonlocal ahead
+                while ahead < self.capacity:
+                    planned = next(plan, None)
+                    if planned is None:
+                        return
+                    submitted.append(planned)
+                    pool.submit(planned[0])
+                    ahead += len(planned[0])
+
+            top_up()
+            while submitted:
+                idx, corners = submitted.popleft()
+                t0 = time.perf_counter()
+                for i in idx:
+                    while i not in held:
+                        j, sample = pool.next()
+                        if j < 0:
+                            raise RuntimeError(f"the prefetch pool drained before sample {i} came back")
+                        held[j] = sample
+                self.waits.append(time.perf_counter() - t0)
+                ahead -= len(idx)
+                samples = [(i, held.pop(i), c) for i, c in zip(idx, corners)]
+                top_up()
+                kept = []
+                for i, vols, corner in samples:
+                    if vols is None:
+                        warnings.warn(f"skipping unreadable sample {ds.paths[i]}")
+                        continue
+                    self.decoded += 1
+                    kept.append((i, ds.finish(vols[0], corner), ds.finish(vols[1], corner)))
+                if not kept:
+                    continue
+                yield {"t1": np.stack([t1 for _, t1, _ in kept])[..., None],
+                       "pet": np.stack([pet for _, _, pet in kept])[..., None],
+                       "info": np.stack([ds.info(i) for i, _, _ in kept])[:, None, :]}
+        finally:
+            pool.close()
+
+
+class PairedLatentDataset:
+    """T1 volumes paired with precomputed PET latents stored as .npy (the
+    reference's pair_PETlatent_T1_dataset; what `cli.gen_latents` writes:
+    ``{latent_dir}/{Subject}/{pet_date}/{latent_name}``). Rows without a T1
+    folder or a latent file are skipped. Each sample is (t1 (D, H, W) float32,
+    padded/center-cropped to ``crop_size`` and max-normalised; the latent as
+    saved; info (K,); subject; t1_date; pet_date)."""
+
+    def __init__(
+        self,
+        info_csv: str,
+        latent_dir: str,
+        t1_dir: str,
+        crop_size: Sequence[int] = CROP_SIZE,
+        need_values: Sequence[str] = (),
+        min_and_max: Optional[Mapping[str, Tuple[float, float]]] = None,
+        latent_name: str = "latent.npy",
+    ):
+        self.crop_size = tuple(crop_size)
+        self.need_values = list(need_values)
+        self.min_and_max = dict(min_and_max or {})
+        self.rows: List[PairRow] = []
+        self.paths: List[Tuple[str, str]] = []
+        for row in read_manifest(info_csv):
+            t1_path = _first_file(os.path.join(t1_dir, row.subject, row.t1_date))
+            latent_path = os.path.join(latent_dir, row.subject, row.pet_date, latent_name)
+            if t1_path is None or not os.path.isfile(latent_path):
+                continue
+            self.rows.append(row)
+            self.paths.append((t1_path, latent_path))
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, index: int):
+        row = self.rows[index]
+        t1_path, latent_path = self.paths[index]
+        if self.need_values:
+            info = covariate_vector(row, self.need_values, self.min_and_max)
+        else:
+            info = np.zeros((0,), np.float32)
+        return _load(t1_path, self.crop_size), np.load(latent_path), info, row.subject, row.t1_date, row.pet_date
 
 
 def pack_pairs(dataset: PairedVolumeDataset, out_dir: str, dtype=np.float16) -> str:

@@ -9,7 +9,9 @@ networks: `encoder_from_jax_params` inverts `import_diffusion_encoder` (the
 spatial head, which that importer does not read, keeps its flax names
 ``out_norm`` and ``conv_out``), `vae_decoder_from_jax_params` inverts
 `import_vae_decoder` and `diffusion_decoder_from_jax_params` inverts
-`import_diffusion_decoder`. `perceptual_from_jax_params` maps the LPIPS
+`import_diffusion_decoder`; `vae_encoder_from_jax_params` and
+`autoencoder_kl_from_jax_params` map the whole KL-VAE's (its Encoder in the
+same flat ``blocks`` scheme as the Decoder). `perceptual_from_jax_params` maps the LPIPS
 network's tree, whose names the port keeps. BMGAN's:
 `bmgan_generator_from_jax_params` and `bmgan_encoder_from_jax_params` invert
 `import_bmgan_generator` and `import_bmgan_encoder` (whose instance norms are
@@ -199,6 +201,45 @@ def vae_decoder_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, tor
         return _with_rest(f"blocks.{index[module[0]]}", module).replace("skip_connection", "nin_shortcut")
 
     return convert_tree(tree, 1, names)
+
+
+def _vae_encoder_rank(key: str) -> tuple:
+    """Construction order of the VAE Encoder's flax modules (its ``blocks`` list)."""
+    if key == "conv_in":
+        return (0,)
+    m = re.fullmatch(r"down_(\d+)_(?:res_(\d+)|ds)", key)
+    if m:
+        return (1, int(m.group(1)), 0 if m.group(2) is not None else 1, int(m.group(2) or 0))
+    if key in ("mid_res_1", "mid_attn", "mid_res_2"):
+        return (2, ("mid_res_1", "mid_attn", "mid_res_2").index(key))
+    return (3,)  # out_norm
+
+
+def vae_encoder_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax VAE Encoder params -> the port's ``Encoder`` ``state_dict``: each
+    module up to ``out_norm`` becomes ``blocks.{k}`` in construction order (a
+    downsampling conv ``down_{i}_ds`` is ``blocks.{k}.conv``, a resnet's
+    ``skip`` is ``nin_shortcut``); ``conv_mu`` and ``conv_log_var`` keep their names."""
+    tree = flax_params.get("params", flax_params)
+    heads = ("conv_mu", "conv_log_var")
+    index = {key: k for k, key in enumerate(sorted((t for t in tree if t not in heads), key=_vae_encoder_rank))}
+
+    def names(module: tuple) -> str:
+        if not module or module[0] in heads:
+            return _module_name(module)
+        head = f"blocks.{index[module[0]]}" + (".conv" if module[0].endswith("_ds") else "")
+        return _with_rest(head, module).replace("skip_connection", "nin_shortcut")
+
+    return convert_tree(tree, 1, names)
+
+
+def autoencoder_kl_from_jax_params(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax AutoencoderKL params -> the port's ``AutoencoderKL`` ``state_dict``
+    (``encoder.*`` and ``decoder.*``)."""
+    tree = flax_params.get("params", flax_params)
+    state = {f"encoder.{k}": v for k, v in vae_encoder_from_jax_params(tree["encoder"]).items()}
+    state.update({f"decoder.{k}": v for k, v in vae_decoder_from_jax_params(tree["decoder"]).items()})
+    return state
 
 
 def diffusion_decoder_from_jax_params(

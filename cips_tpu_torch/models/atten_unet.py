@@ -4,7 +4,12 @@ The unpacked model: a 3-D UNet whose attention levels cross-attend from the
 flattened voxel tokens to the covariate row. Constructor keywords follow the
 reference's JSON config schema (``configs/training.json:atten_unet_def``);
 ``upcast_attention`` is accepted for that schema and changes nothing, because
-attention scores are always fp32 here (see ``ops/attention.py``).
+attention scores are always fp32 here (see ``ops/attention.py``). ``remat``
+recomputes each down, middle and up block in the backward, as the JAX model's
+block-level remat does (`blocks.set_remat`; ``remat_policy`` takes JAX's
+save-policy names, and the whole block is recomputed, its attention's flash
+forward included). Off by default: on an 80 GB card the flagship's batch-2
+step needs no remat.
 ``forward`` takes and returns channels-last (N, D, H, W, C) volumes, like
 the JAX model; inside, the layout is NCDHW. Over a ``space`` group
 (`parallel.spatial.sharded`) it takes and returns an equal depth slab; a
@@ -31,6 +36,7 @@ from cips_tpu_torch.models.blocks import (
     UpBlock,
     attention_mode,
     output_depth,
+    set_remat,
 )
 from cips_tpu_torch.parallel.spatial import SpaceGroup
 
@@ -60,6 +66,8 @@ class AttenUNet(nn.Module):
         transformer_num_layers: int = 1,
         cross_attention_dim: Optional[int] = None,
         upcast_attention: bool = False,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -123,6 +131,8 @@ class AttenUNet(nn.Module):
             nn.SiLU(),
             Conv(spatial_dims, num_channels[0], out_channels, 3, zero_init=True),
         )
+        if remat:
+            set_remat(self, (DownBlock, MidBlock, UpBlock), remat_policy)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, *S, C_in) channels-last volume and (B, 1, K) context -> (N, *S, C_out)."""

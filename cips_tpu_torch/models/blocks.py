@@ -1,8 +1,13 @@
 """Building blocks of the AttenUNet family (port of cips_tpu/models/blocks.py).
 
-The unpacked math only: the space-to-depth packing and the remat policies of
-the JAX package are TPU layout and memory devices whose results equal the
-plain function (docs/DESIGN.md §4), and are not ported.
+The unpacked math only: the space-to-depth packing of the JAX package is a TPU
+layout device whose results equal the plain function (docs/DESIGN.md §4), and
+is not ported. Remat is: a `Remat` module whose ``remat`` is set (`set_remat`)
+runs its forward under ``torch.utils.checkpoint`` and recomputes it, whole, in
+the backward. JAX's save-policy names (``conv``, ``conv12``, ``conv2``,
+``conv_all``; its `blocks.conv_save_policy`) are accepted and change nothing
+here: PyTorch's checkpoint saves the block's inputs only. It trades one more
+forward of each block for its activations and does not change the result.
 
 Activations are NCDHW inside the model. Parameters are stored in fp32 and
 cast to the activation's dtype where they are used, as flax's
@@ -29,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from cips_tpu_torch.ops.attention import merge_heads, multi_head_attention, split_heads
@@ -36,6 +42,39 @@ from cips_tpu_torch.parallel import spatial
 
 _CONV_FN = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_CLS = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
+
+
+REMAT_POLICIES = ("conv", "conv12", "conv2", "conv_all")  # the JAX package's save-policy names
+
+
+class Remat:
+    """Mixin for an ``nn.Module``: with ``remat`` set, a call under autograd runs
+    the forward through ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``,
+    which keeps the inputs and recomputes the forward in the backward. The
+    recomputation repeats what the forward did in the same order on every rank,
+    its collectives (halo and K/V exchanges over a space group) included."""
+
+    remat: bool = False
+
+    def __call__(self, *args, **kwargs):
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(super().__call__, *args, use_reentrant=False, **kwargs)
+        return super().__call__(*args, **kwargs)
+
+
+def check_remat_policy(policy: Optional[str]) -> None:
+    """A ValueError unless ``policy`` is one of JAX's save-policy names or None."""
+    if policy is not None and policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; expected one of {REMAT_POLICIES} or None")
+
+
+def set_remat(model: nn.Module, kinds: Tuple[type, ...], policy: Optional[str] = None) -> None:
+    """Sets ``remat`` on every submodule of ``model`` that is one of ``kinds``.
+    ``policy`` (`check_remat_policy`) changes nothing: the whole block is recomputed."""
+    check_remat_policy(policy)
+    for module in model.modules():
+        if isinstance(module, kinds):
+            module.remat = True
 
 
 def heads_for(channels: int, num_head_channels: Optional[int]) -> Tuple[int, int]:
@@ -173,7 +212,7 @@ def _depth(module: nn.Module, x: torch.Tensor, depth: Optional[int]) -> Optional
     return None if module.space is None else spatial.depth_of(x, module.space, depth)
 
 
-class Downsample(nn.Module):
+class Downsample(Remat, nn.Module):
     """Stride-2 conv (use_conv) or 2x average-pool downsampling."""
 
     space: Optional[spatial.SpaceGroup] = None
@@ -207,7 +246,7 @@ class Upsample(nn.Module):
         return x if self.conv is None else self.conv(x, output_depth(self, depth))
 
 
-class ResnetBlock(nn.Module):
+class ResnetBlock(Remat, nn.Module):
     """GN -> SiLU -> (up/down) -> conv -> GN -> SiLU -> zero-conv, + skip.
 
     With ``up``/``down`` the 2x resample is applied to both the input and the
@@ -444,7 +483,7 @@ def _apply_attention(attn: nn.Module, h: torch.Tensor, context: Optional[torch.T
     return attn(h, context=context, depth=depth) if isinstance(attn, SpatialTransformer) else attn(h, depth)
 
 
-class DownBlock(nn.Module):
+class DownBlock(Remat, nn.Module):
     """Resnets (each followed by attention where the level has it) and a downsampler.
 
     ``forward`` returns the new hidden state and the residuals for the skips.
@@ -501,7 +540,7 @@ class DownBlock(nn.Module):
         return h, outputs
 
 
-class MidBlock(nn.Module):
+class MidBlock(Remat, nn.Module):
     """resnet -> (cross|self) attention -> resnet."""
 
     def __init__(
@@ -524,7 +563,7 @@ class MidBlock(nn.Module):
         return self.resnet_2(h, depth)
 
 
-class UpBlock(nn.Module):
+class UpBlock(Remat, nn.Module):
     """Pop a skip per resnet, concat [h, skip] on channels, resnet (+ attention), upsample.
 
     ``skip_channels`` lists the channel counts of the skips in the order they

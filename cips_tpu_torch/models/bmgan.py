@@ -17,9 +17,12 @@ InstanceNorm and LeakyReLU 0.2.
 
 The unpacked math. The JAX model's space-to-depth stem and head, its packed
 strided residual units, its kernel-sliced concat convs (`_CatConv`), its
-sub-pixel transposed conv (``CIPS_BMGAN_TCONV``) and its remat names are TPU
-layout and memory devices that compute the same function; here the concats
-are `torch.cat` and the up convs `ConvTranspose3d(k4, s2, p1)`.
+sub-pixel transposed conv (``CIPS_BMGAN_TCONV``) are TPU layout devices that
+compute the same function; here the concats are `torch.cat` and the up convs
+`ConvTranspose3d(k4, s2, p1)`. The generator's ``remat`` recomputes each dense
+block in the backward, as the JAX model's does (``torch.utils.checkpoint``;
+``remat_policy`` takes JAX's names and the whole block is recomputed); off by
+default.
 
 Parameter names are the reference's torch ``state_dict`` names that
 `cips_tpu/data/torch_import.py:import_bmgan_generator` and
@@ -37,13 +40,14 @@ models do.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from cips_tpu_torch.models.blocks import Linear
+from cips_tpu_torch.models.blocks import Linear, check_remat_policy
 from cips_tpu_torch.models.discriminator import InstanceNorm, PatchDiscriminator
 
 LATENT_DIM = 8
@@ -157,9 +161,13 @@ class DenseUNetGenerator(nn.Module):
         down_channels: Sequence[int] = (128, 256, 256, 512),
         middle_channels: int = 512,
         up_channels: Sequence[int] = (512, 256, 256, 256, 128),
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        check_remat_policy(remat_policy)
+        self.remat = remat
         if len(up_channels) != len(down_channels) + 1:
             raise ValueError("up_channels needs one level more than down_channels (the stem's skip)")
         self.dtype = dtype
@@ -194,12 +202,19 @@ class DenseUNetGenerator(nn.Module):
         h = self.input_layer(torch.cat([h, lat], dim=1))
         skips = [h]
         for layer in self.down_layers:
-            h = layer(h)
+            h = self._dense_then_rest(layer, h)
             skips.append(h)
-        h = self.middle_layers(h)
+        h = self._dense_then_rest(self.middle_layers, h)
         for i, layer in enumerate(self.up_layers):
-            h = layer(torch.cat([h, skips[-1 - i]], dim=1))
+            h = self._dense_then_rest(layer, torch.cat([h, skips[-1 - i]], dim=1))
         return torch.tanh(self.output_layer(h)).movedim(1, -1)
+
+    def _dense_then_rest(self, layer: nn.Sequential, h: torch.Tensor) -> torch.Tensor:
+        """A level's Sequential: its dense block (the first eight slots), recomputed
+        in the backward with ``remat``, then the rest (the resampling conv and its norm)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return layer(h)
+        return layer[8:](torch.utils.checkpoint.checkpoint(layer[:8], h, use_reentrant=False))
 
 
 class ResNetEncoder(nn.Module):

@@ -17,6 +17,10 @@ Over a ``space`` group (`parallel.spatial.sharded`) it takes a depth slab of
 a latent of global depth ``depth`` (by default equal slabs) and returns this
 rank's slab of the output: the self-attentions gather K and V, and the
 cross-attention to the covariate row, which every rank holds whole, stays local.
+
+``remat`` recomputes the resnets (the mid block's two included) in the
+backward, as the JAX model's does; the transformers stay outside remat
+(`blocks.set_remat`; ``remat_policy`` takes JAX's names). Off by default.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from cips_tpu_torch.models.blocks import (
     Upsample,
     heads_for,
     output_depth,
+    set_remat,
 )
 from cips_tpu_torch.models.encoder import tuplify
 from cips_tpu_torch.parallel import spatial
@@ -79,6 +84,8 @@ class DiffusionModelDecoder(nn.Module):
         transformer_num_layers: int = 1,
         cross_attention_dim: Optional[int] = None,
         upcast_attention: bool = False,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
     ):
         """``upcast_attention`` is taken for the config's schema: attention scores
@@ -118,6 +125,8 @@ class DiffusionModelDecoder(nn.Module):
             GroupNorm(norm_num_groups, prev, norm_eps), nn.SiLU(),
             Conv(spatial_dims, prev, out_channels, 3, zero_init=True),
         )
+        if remat:
+            set_remat(self, (ResnetBlock,), remat_policy)
 
     def forward(self, z: torch.Tensor, context: Optional[torch.Tensor] = None,
                 depth: Optional[int] = None) -> torch.Tensor:

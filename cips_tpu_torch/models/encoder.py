@@ -26,6 +26,10 @@ Parameter names are the reference's torch ``state_dict`` names that
 `import_diffusion_encoder` reads (``conv_in``, ``down_blocks.I.*``, the mlp
 head's ``out.0`` and ``out.3``); the spatial head, which that importer does
 not read, is ``out_norm`` and ``conv_out``.
+
+``remat`` recomputes the resnets and downsamplers in the backward, as the JAX
+model's does; its attentions stay outside remat, so no flash forward runs
+twice (`blocks.set_remat`; ``remat_policy`` takes JAX's names). Off by default.
 """
 
 from __future__ import annotations
@@ -37,7 +41,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cips_tpu_torch.models.blocks import Conv, DownBlock, GroupNorm, Linear, attention_mode, output_depth
+from cips_tpu_torch.models.blocks import (
+    Conv,
+    Downsample,
+    DownBlock,
+    GroupNorm,
+    Linear,
+    ResnetBlock,
+    attention_mode,
+    output_depth,
+    set_remat,
+)
 from cips_tpu_torch.parallel.spatial import SpaceGroup
 
 
@@ -71,6 +85,8 @@ class DiffusionModelEncoder(nn.Module):
         head_hidden: int = 512,
         head_dropout: float = 0.1,
         input_shape: Optional[Sequence[int]] = None,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -95,6 +111,8 @@ class DiffusionModelEncoder(nn.Module):
                 cross_attention_dim=cross_attention_dim,
             ))
             prev = num_channels[i]
+        if remat:
+            set_remat(self, (ResnetBlock, Downsample), remat_policy)
         if head == "spatial":
             self.out_norm = GroupNorm(norm_num_groups, prev, norm_eps)
             self.conv_out = Conv(spatial_dims, prev, out_channels, 3)

@@ -11,8 +11,11 @@ MONAI-generative's ``PerceptualLoss`` with richzhang LPIPS's pieces:
     calibration to a scalar map, spatial mean; the taps summed;
   * a 3-D volume is evaluated 2.5-D: along each axis every k-th slice
     (k = round(1 / fake_3d_ratio)) is folded into the batch, the LPIPS mean
-    over those slices is the axis loss, and the three axis losses are summed.
-    The JAX package's random slice subset (its ``rng`` argument) is not ported.
+    over those slices is the axis loss, and the three axis losses are summed;
+    or, given a ``generator`` (JAX's ``rng``: MONAI's per-call random subset),
+    a random subset of int(m * fake_3d_ratio) of the m slices of the folded
+    batch x slice axis, drawn per axis by `slice_subsets` (``subsets`` takes
+    the indices themselves).
 
 Depth-sharded volumes (the mesh's ``space`` axis): the 2.5-D slices cross
 the depth axis, so `PerceptualLoss` gathers both volumes whole on every rank
@@ -36,7 +39,7 @@ flax tree's, joined by dots (``lpips.net.fire3.squeeze.weight``, ``lpips.lin0``)
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -164,6 +167,19 @@ class LPIPS(nn.Module):
         return total
 
 
+def slice_subsets(shape: Sequence[int], ratio: float, generator: torch.Generator) -> List[torch.Tensor]:
+    """For a volume batch of spatial ``shape`` (N, D, H, W), one index tensor per
+    axis (D, H, W) over the folded batch x slice axis of that axis's m = N * size
+    slices: the first max(1, int(m * ratio)) of a ``torch.randperm(m)`` drawn
+    from ``generator`` (on its device), axis after axis."""
+    n, *sizes = shape
+    subsets = []
+    for size in sizes:
+        m = n * size
+        subsets.append(torch.randperm(m, generator=generator, device=generator.device)[:max(1, int(m * ratio))])
+    return subsets
+
+
 class PerceptualLoss(nn.Module):
     """MONAI-generative PerceptualLoss: 2.5-D LPIPS for (N, D, H, W, C) channels-last
     volumes (``spatial_dims`` 3), or LPIPS on (N, H, W, C) images (2)."""
@@ -176,25 +192,33 @@ class PerceptualLoss(nn.Module):
         if spatial_dims == 3 and not is_fake_3d:
             raise NotImplementedError("true-3D perceptual networks are not part of the reference workloads")
         self.spatial_dims = spatial_dims
+        self.fake_3d_ratio = fake_3d_ratio
         self.stride = max(1, round(1.0 / fake_3d_ratio))
         self.lpips = LPIPS(network_type, dtype)
         self.requires_grad_(False)
 
-    def forward(self, pred: torch.Tensor, target: torch.Tensor, space: Optional[SpaceGroup] = None) -> torch.Tensor:
-        """The loss of a pair of volumes, or of depth slabs of them over ``space``."""
+    def forward(self, pred: torch.Tensor, target: torch.Tensor, space: Optional[SpaceGroup] = None,
+                generator: Optional[torch.Generator] = None,
+                subsets: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The loss of a pair of volumes, or of depth slabs of them over ``space``.
+        With ``generator`` (or the drawn ``subsets``, `slice_subsets`), each axis
+        takes a random subset of its slices in place of every k-th."""
         if space is not None:
             pred, target = gather(pred, space, 1, "volume"), gather(target, space, 1, "volume")
         if self.spatial_dims == 2:
             return self.lpips(pred.movedim(-1, 1), target.movedim(-1, 1)).mean()
-        s = self.stride
+        if subsets is None and generator is not None:
+            subsets = slice_subsets(pred.shape[:4], self.fake_3d_ratio, generator)
+        s = 1 if subsets is not None else self.stride
         total = torch.zeros((), device=pred.device)
-        for axis in (2, 3, 4):  # D, H, W of (N, C, D, H, W): slices folded into the batch, channel second
+        for k, axis in enumerate((2, 3, 4)):  # D, H, W of (N, C, D, H, W): slices folded into the batch
             order = (0, axis, 1) + tuple(a for a in (2, 3, 4) if a != axis)
             views = []
             for x in (pred, target):
                 x = x.movedim(-1, 1)
                 x = x[(slice(None),) * axis + (slice(None, None, s),)].permute(order)
-                views.append(x.reshape(-1, *x.shape[2:]))
+                x = x.reshape(-1, *x.shape[2:])
+                views.append(x if subsets is None else x.index_select(0, subsets[k].to(x.device)))
             total = total + self.lpips(*views).mean()
         return total
 

@@ -16,13 +16,19 @@ from the caller's ``torch.Generator``; tests replace it to feed the latent
 that the JAX package draws. Across ranks (``mesh``) G, E and D train under DDP,
 each through its wrapper in its own step only (the frozen critic in the G
 step and the ``exact_d_fake`` regeneration go to the networks themselves),
-and z is drawn for the global batch and cut to this rank's rows. The JAX package's ``d_remat`` is an HBM device
-that does not change the result, and is not ported.
+and z is drawn for the global batch and cut to this rank's rows.
+
+Remat, as in the JAX package: `build_models`' ``remat`` recomputes the
+generator's dense blocks in the backward, and ``d_remat`` (`make_train_step`'s
+argument, else ``CIPS_D_REMAT=1``) recomputes the frozen D and the LPIPS call
+inside the G step's backward. Neither changes the result; both are off by
+default (the batch-2 step peaks at 18.39 GiB of the H100's 80, PERF.md §5).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+import os
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -32,7 +38,7 @@ from cips_tpu_torch.losses import kl_divergence, l1_loss, lsgan_discriminator_lo
 from cips_tpu_torch.models import bmgan
 from cips_tpu_torch.models import perceptual as lpips
 from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
-from cips_tpu_torch.training.common import adam, frozen, init_models
+from cips_tpu_torch.training.common import adam, frozen, init_models, rematted
 
 
 @dataclass
@@ -66,13 +72,16 @@ def build_models(
     input_shape: Sequence[int] = bmgan.VOLUME_SHAPE,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
+    remat: bool = False,
+    remat_policy: str = "conv_all",
 ) -> Tuple[bmgan.DenseUNetGenerator, bmgan.ResNetEncoder, bmgan.BMGANDiscriminator, lpips.PerceptualLoss]:
     """(generator, encoder, discriminator, perceptual) at the reference's widths,
     the encoder's heads sized for ``input_shape`` volumes; the perceptual net is
     LPIPS alex. Weights from one generator seeded with ``seed``, in that order
-    (load real LPIPS weights with `lpips.params_from_npz`)."""
+    (load real LPIPS weights with `lpips.params_from_npz`). ``remat`` recomputes
+    the generator's dense blocks in the backward (``remat_policy``: JAX's names)."""
     with torch.device("meta"):
-        models = (bmgan.DenseUNetGenerator(latent_dim=latent_dim, dtype=dtype),
+        models = (bmgan.DenseUNetGenerator(latent_dim=latent_dim, remat=remat, remat_policy=remat_policy, dtype=dtype),
                   bmgan.ResNetEncoder(latent_dim=latent_dim, input_shape=input_shape, dtype=dtype),
                   bmgan.BMGANDiscriminator(dtype=dtype),
                   lpips.PerceptualLoss(spatial_dims=3, network_type="alex", dtype=dtype))
@@ -119,12 +128,16 @@ def make_train_step(
     exact_d_fake: bool = False,
     mesh: Optional[Mesh] = None,
     batch_size: Optional[int] = None,
+    d_remat: Optional[bool] = None,
 ) -> Callable[[BMGANState, Mapping[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]:
     """One G, one E and one D step on a batch {"t1", "pet"} of device tensors,
     z drawn from the given generator (across ranks, ``mesh`` and ``batch_size``
     the batch of one node: this rank's rows, z the global batch's cut to them). Updates the state in place and returns
     the JAX package's metrics (0-d tensors): g_loss, l1_loss, adv_loss, p_loss
-    (the last three unweighted), e_loss and d_loss."""
+    (the last three unweighted), e_loss and d_loss. ``d_remat`` (None: ``CIPS_D_REMAT=1``)
+    recomputes D and LPIPS in the G step's backward."""
+    if d_remat is None:
+        d_remat = os.environ.get("CIPS_D_REMAT", "") == "1"
 
     rows = mesh.global_rows(batch_size) if mesh is not None and mesh.distributed and batch_size else None
 
@@ -135,10 +148,11 @@ def make_train_step(
         state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
             fake = state.g_dp(t1, z)
-            adv = patch_adversarial_loss(state.d(fake), target_is_real=True, for_discriminator=False)
+            adv = patch_adversarial_loss(rematted(state.d, fake, d_remat), target_is_real=True,
+                                         for_discriminator=False)
             rec = l1_loss(fake, pet)
-            p = (state.perceptual(fake, pet) if lamda_perceptual > 0 and state.perceptual is not None
-                 else torch.zeros((), device=t1.device))
+            p = (rematted(lambda f: state.perceptual(f, pet), fake, d_remat)
+                 if lamda_perceptual > 0 and state.perceptual is not None else torch.zeros((), device=t1.device))
             g_loss = adv + lamda_l1 * rec + lamda_perceptual * p
             g_loss.backward()
         state.opt_g.step()

@@ -32,9 +32,18 @@ gather K and V, the perceptual term gathers both volumes, and each loss is
 the whole volume's on every rank of the group; a batch whose depth the group
 does not divide reaches its ranks whole and runs unsharded on each
 (`spatial.space_for`). Tests replace `sample_noise` to feed the noise
-that the JAX package draws. The unpacked, un-rematted function: the JAX
-package's space-to-depth packing and remat policies are TPU layout and memory
-devices that do not change the result, and are not ported.
+that the JAX package draws. The unpacked function: the JAX package's
+space-to-depth packing is a TPU layout device that does not change the
+result, and is not ported.
+
+Remat, as in the JAX package: ``remat`` (and ``remat_policy``) in the
+encoder's, the T1 decoder's and the PET decoder's defs, or `build_models`'
+argument, recomputes their resnets in the backward, the attentions staying
+outside it; ``d_remat`` (the training config's key, or ``CIPS_D_REMAT=1``)
+recomputes the frozen D and the LPIPS call inside the generator step's
+backward. Neither changes the result. Off by default: JAX turns remat on
+because the trio's backward does not fit a TPU's 16 GB at the working volume;
+the port's batch-2 step peaks at 22.80 GiB of the H100's 80 (PERF.md §5).
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ from cips_tpu_torch.models.discriminator import PatchDiscriminator
 from cips_tpu_torch.models.encoder import DiffusionModelEncoder
 from cips_tpu_torch.parallel import spatial
 from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
-from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
+from cips_tpu_torch.training.common import adam, d_remat_from, frozen, guard_nonfinite, init_models, rematted
 
 GENERATOR_PARTS = ("encoder", "t1_decoder", "pet_decoder")
 
@@ -107,20 +116,25 @@ def build_models(
     dtype: torch.dtype = torch.bfloat16,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
+    remat: bool = False,
 ) -> Tuple[DiffusionModelEncoder, Decoder, DiffusionModelDecoder, PatchDiscriminator, lpips.PerceptualLoss]:
     """(encoder, t1_decoder, pet_decoder, discriminator, perceptual) from a
     reference-schema config dict. The PET decoder cross-attends to
     max(n_covariates, 1) features; the encoder gets no context, so its
     transformers attend to their own tokens in both attentions. Weights are
-    drawn in that order from one generator seeded with ``seed``."""
+    drawn in that order from one generator seeded with ``seed``. ``remat`` is the
+    default of each def's ``remat`` key, as in JAX (off here)."""
     enc_def = dict(model_cfg["t1_autoencoder_def"]["atten_encoder"])
     enc_def.pop("cross_attention_dim", None)
+    t1_def = dict(model_cfg["t1_autoencoder_def"]["decoder"])
     pet_def = dict(model_cfg["pet_decoder_def"])
     pet_def["cross_attention_dim"] = max(n_covariates, 1)
+    for part in (enc_def, t1_def, pet_def):
+        part.setdefault("remat", remat)
     with torch.device("meta"):
         models = (
             DiffusionModelEncoder(head="spatial", dtype=dtype, **enc_def),
-            Decoder(dtype=dtype, **model_cfg["t1_autoencoder_def"]["decoder"]),
+            Decoder(dtype=dtype, **t1_def),
             DiffusionModelDecoder(dtype=dtype, **pet_def),
             PatchDiscriminator(dtype=dtype, **model_cfg.get("discriminator", {})),
             lpips.PerceptualLoss(dtype=dtype, **model_cfg.get("perceptual_network", {})),
@@ -197,8 +211,10 @@ def make_train_step(
     g_loss (g_loss + t1_loss), rec_pet_loss, rec_t1_loss, kl_loss, p_loss and
     adv_loss (each times its weight) and d_loss. With ``nan_guard``, a
     non-finite total skips both optimiser steps (the step count stays) and the
-    metrics gain ``skipped_nonfinite``."""
+    metrics gain ``skipped_nonfinite``. ``d_remat`` (`common.d_remat_from`)
+    recomputes D and LPIPS in the generator step's backward."""
     pw = float(train_cfg.get("perceptual_weight", 0.02))
+    d_remat = d_remat_from(train_cfg)
     aw = float(train_cfg.get("adv_weight", 0.005))
     kw = float(train_cfg.get("kl_weight", 0.001))
     if exact_d_fake is None:
@@ -225,9 +241,10 @@ def make_train_step(
             rec_pet_loss = l1_loss(rec_pet, pet, space)
             rec_t1_loss = l1_loss(t1_rec, t1, space)
             kl = kl_divergence(z_mu, z_sigma, space)
-            p = state.perceptual(rec_pet, pet, space=space) if pw > 0 and state.perceptual is not None else zero
-            adv = (patch_adversarial_loss(state.d(rec_pet)[-1], target_is_real=True, for_discriminator=False,
-                                          space=space) if aw > 0 else zero)
+            p = (rematted(lambda f: state.perceptual(f, pet, space=space), rec_pet, d_remat)
+                 if pw > 0 and state.perceptual is not None else zero)
+            adv = (patch_adversarial_loss(rematted(lambda f: state.d(f)[-1], rec_pet, d_remat), target_is_real=True,
+                                          for_discriminator=False, space=space) if aw > 0 else zero)
             total = rec_pet_loss + pw * p + aw * adv + rec_t1_loss + kw * kl
             total.backward()
         metrics = {"g_loss": total.detach(), "rec_pet_loss": rec_pet_loss.detach(),

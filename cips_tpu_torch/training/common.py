@@ -30,11 +30,22 @@ from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Seque
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.utils.checkpoint
 from torch import nn
 
 from cips_tpu_torch import default_device
 from cips_tpu_torch.models import perceptual as lpips
 from cips_tpu_torch.parallel.mesh import Mesh
+
+
+def rematted(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``fn(x)``, with ``remat`` through ``torch.utils.checkpoint`` (recomputed in the backward)."""
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+
+
+def d_remat_from(train_cfg: Mapping[str, Any]) -> bool:
+    """``d_remat`` from the training config, else ``CIPS_D_REMAT=1``, as JAX reads it."""
+    return bool(train_cfg.get("d_remat", os.environ.get("CIPS_D_REMAT", "") == "1"))
 
 
 def adam(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.Adam:

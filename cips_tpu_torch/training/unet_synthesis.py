@@ -28,8 +28,17 @@ one-process gradient of the global batch. A batch whose depth the group does
 not divide reaches its ranks whole (the mesh's rule, JAX's `shard_batch`) and
 runs unsharded on each (`spatial.space_for`): each rank's gradient is then the
 sample's whole one, and DDP's mean gives the same. The eval step and serving
-take whole volumes. The JAX package's remat policies and ``d_remat`` are HBM
-devices that do not change the result; they are not ported.
+take whole volumes.
+
+Remat, as in the JAX package: ``remat`` in ``atten_unet_def`` (or
+`build_models`' argument) recomputes G's blocks in the backward (`AttenUNet`),
+and ``d_remat`` (the training config's key, or ``CIPS_D_REMAT=1``) recomputes
+the frozen D tower and the LPIPS call inside the G step's backward
+(``torch.utils.checkpoint``, as JAX's ``jax.checkpoint(d_apply)`` and
+``jax.checkpoint(p_apply)``). Both trade a forward for activation memory and
+leave the result as it is. Both are off by default: JAX turns remat on because
+the full backward does not fit a TPU's 16 GB of HBM at the working volume; the
+port's batch-2 step peaks at 9.39 GiB of the H100's 80 (PERF.md §5).
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from cips_tpu_torch.models.atten_unet import AttenUNet, init_params
 from cips_tpu_torch.models.discriminator import PatchDiscriminator
 from cips_tpu_torch.parallel import spatial
 from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
-from cips_tpu_torch.training.common import adam, frozen, guard_nonfinite, init_models
+from cips_tpu_torch.training.common import adam, d_remat_from, frozen, guard_nonfinite, init_models, rematted
 
 VOLUME_SHAPE = (96, 128, 96)
 
@@ -80,6 +89,8 @@ def build_models(
     dtype: torch.dtype = torch.bfloat16,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
 ) -> Tuple[AttenUNet, PatchDiscriminator, Optional[lpips.PerceptualLoss]]:
     """(generator, discriminator, perceptual) from a reference-schema config dict,
     with cross_attention_dim := max(number of covariates, 1). The perceptual
@@ -87,10 +98,13 @@ def build_models(
     built only when ``training.perceptual_weight`` is above 0, else None.
     Weights are drawn from one generator seeded with ``seed``: G's, D's, then
     the perceptual network's fallback (load real LPIPS weights with
-    `lpips.params_from_npz`)."""
+    `lpips.params_from_npz`). ``remat`` and ``remat_policy`` are the defaults
+    of the config's ``atten_unet_def`` keys of those names, as in JAX (off here)."""
     unet_def = dict(model_cfg["atten_unet_def"])
     unet_def["cross_attention_dim"] = max(n_covariates, 1)
     unet_def["with_conditioning"] = True
+    unet_def.setdefault("remat", remat)
+    unet_def.setdefault("remat_policy", remat_policy if unet_def["remat"] else None)
     with_perceptual = float(model_cfg.get("training", {}).get("perceptual_weight", 0.0)) > 0
     with torch.device("meta"):
         models = [AttenUNet(dtype=dtype, **unet_def),
@@ -140,10 +154,10 @@ def _weights(train_cfg: Mapping[str, Any]) -> Tuple[float, float]:
 
 
 def _perceptual(state: GANState, pw: float, fake: torch.Tensor, pet: torch.Tensor,
-                space: Optional[spatial.SpaceGroup] = None) -> torch.Tensor:
-    """The LPIPS term (unweighted), or 0 without a weight."""
+                space: Optional[spatial.SpaceGroup] = None, remat: bool = False) -> torch.Tensor:
+    """The LPIPS term (unweighted), or 0 without a weight; recomputed in the backward with ``remat``."""
     if pw > 0:
-        return state.perceptual(fake, pet, space=space)
+        return rematted(lambda f: state.perceptual(f, pet, space=space), fake, remat)
     return torch.zeros((), device=fake.device)
 
 
@@ -162,8 +176,10 @@ def make_train_step(
     volumes where the group does not divide it). Metrics (0-d tensors): g_loss, rec_loss, p_loss (unweighted, as
     JAX reports it), adv_loss and d_loss, the last two times adv_weight. With
     ``nan_guard``, a non-finite g_loss skips both optimiser steps (the step
-    count stays) and the metrics gain ``skipped_nonfinite``."""
+    count stays) and the metrics gain ``skipped_nonfinite``. ``d_remat``
+    (`common.d_remat_from`) recomputes D and LPIPS in the G step's backward."""
     pw, aw = _weights(train_cfg)
+    d_remat = d_remat_from(train_cfg)
     if exact_d_fake is None:
         exact_d_fake = bool(train_cfg.get("exact_d_fake", False))
     if split_d is None:
@@ -184,9 +200,9 @@ def make_train_step(
         with frozen(state.d):
             fake = state.g_dp(t1, cond)
             rec = l1_loss(fake, pet, space)
-            p = _perceptual(state, pw, fake, pet, space)
-            adv = (patch_adversarial_loss(state.d(fake)[-1], target_is_real=True, for_discriminator=False,
-                                          space=space) if aw > 0 else zero)
+            p = _perceptual(state, pw, fake, pet, space, d_remat)
+            adv = (patch_adversarial_loss(rematted(lambda f: state.d(f)[-1], fake, d_remat), target_is_real=True,
+                                          for_discriminator=False, space=space) if aw > 0 else zero)
             g_loss = rec + pw * p + aw * adv
             g_loss.backward()
         metrics = {"g_loss": g_loss.detach(), "rec_loss": rec.detach(), "p_loss": p.detach(),

@@ -53,6 +53,28 @@ def test_port_has_files_to_scan():
             "pair_metrics.py", "cohort.py", "metrics.py", "postprocess.py"} <= names
 
 
+def test_runtime_and_utils_are_the_ports_own():
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"cips_tpu_torch/runtime/native.py", "cips_tpu_torch/runtime/__init__.py",
+            "cips_tpu_torch/utils/__init__.py", "cips_tpu_torch/data/torch_import.py",
+            "cips_tpu_torch/cli/import_torch_ckpt.py"} <= scanned
+    # the runtime builds its own copy of the C++ source, never the JAX package's
+    from cips_tpu_torch.runtime import native
+
+    assert pathlib.Path(native.SOURCE).resolve() == ROOT / "cips_tpu_torch" / "runtime" / "nifti_loader.cpp"
+    # utils re-exports the port's counterpart of every name the JAX package's utils re-exports
+    jax_utils = ast.parse((ROOT / "cips_tpu" / "utils" / "__init__.py").read_text(encoding="utf-8"))
+    names = {alias.asname or alias.name for node in ast.walk(jax_utils) if isinstance(node, ast.ImportFrom)
+             for alias in node.names}
+    import cips_tpu_torch.utils as utils
+
+    assert names and names <= set(dir(utils))
+    for name in names:
+        obj = getattr(utils, name)
+        home = obj.__name__ if isinstance(obj, type(utils)) else obj.__module__
+        assert home.startswith("cips_tpu_torch."), (name, home)
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):

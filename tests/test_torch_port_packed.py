@@ -4,7 +4,8 @@ JAX package's on the CPU.
 Without ``--streaming`` both packages pack every pair once into a float16
 store and train on batches read back from it. On one fabricated tree the
 port's default loaders must give the JAX package's default batches bit for bit.
-The JAX side decodes with its numpy path: its C++ decode runtime is not ported.
+The JAX side decodes with its numpy path, which the port's native runtime equals
+bit for bit (JAX's own C++ copy normalises by a reciprocal, an ulp apart).
 """
 
 import argparse

@@ -15,8 +15,10 @@ fails the test instead of hanging the suite). What is held:
     then the tiny flagship step at data 2 x space 2, plain and with
     ``split_d`` / ``exact_d_fake``;
   * one spawn of 2 ranks (data 1 x space 2): the tiny flagship step, with
-    ``perceptual_weight`` > 0 and with ``split_d`` / ``exact_d_fake``, and a NaN
-    in one rank's slab (both skip);
+    ``perceptual_weight`` > 0, with ``split_d`` / ``exact_d_fake``, and with
+    remat and ``d_remat`` as well as LPIPS (the recomputed blocks exchange their
+    halos and K/V again in the backward, in the same order on both ranks), and a
+    NaN in one rank's slab (both skip);
   * every flagship step against the port's one-process step on the global
     batch (`dryrun.compare_grads` within ``TOL_GRADS``, `dryrun.compare_params`
     within ``TOL_ONE_PROCESS``), the plain one also against the JAX step on its
@@ -58,6 +60,8 @@ K = dryrun.N_COVARIATES
 LEVELS = 2
 AV45 = ["ABETA", "Age", "Sex", "APOE4", "PTEDUCAT"]
 PERCEPTUAL_CFG = {**CFG, "training": {**CFG["training"], "perceptual_weight": 0.5}}
+REMAT_CFG = {**PERCEPTUAL_CFG, "atten_unet_def": {**CFG["atten_unet_def"], "remat": True},
+             "training": {**PERCEPTUAL_CFG["training"], "d_remat": True}}
 # A sharded module against the unsharded one, fp32, relative to max|value| of the
 # unsharded output or gradient: the same sums in other orders (a slab's partial sums,
 # then the all-reduce or the owner's sum of halo gradients).
@@ -219,7 +223,7 @@ def _flagship_runs(spec, mesh, cases):
     each step's exchanged bytes by kind)}."""
     out = {}
     for case in cases:
-        cfg = PERCEPTUAL_CFG if case == "perceptual" else CFG
+        cfg = {"perceptual": PERCEPTUAL_CFG, "remat": REMAT_CFG}.get(case, CFG)
         kw = dict(split_d=True, exact_d_fake=True) if case == "split_exact" else {}
         state = _state(spec, cfg, mesh)
         step = unet_synthesis.make_train_step(cfg["training"], mesh=mesh, **kw)
@@ -252,7 +256,7 @@ def _rank_modules(mesh, spec):
 
 def _rank_flagship(mesh, spec):
     """Data 1 x space 2: the flagship cases, then a NaN in rank 1's slab only."""
-    out = {"flagship": _flagship_runs(spec, mesh, ("plain", "perceptual", "split_exact"))}
+    out = {"flagship": _flagship_runs(spec, mesh, ("plain", "perceptual", "split_exact", "remat"))}
     state = _state(spec, CFG, mesh)
     before = _params(_nets(state))
     batch = {k: v.copy() for k, v in spec["batches"][0].items()}
@@ -383,7 +387,7 @@ def _check_flagship(ranks, one, cases, world):
                 np.testing.assert_allclose(got_m[key], value, rtol=1e-5, atol=1e-7, err_msg=f"{case} {key}")
         bytes_ = ranks[0]["flagship"][case][3][0]
         assert all(bytes_[kind] > 0 for kind in ("halo", "norm", "kv", "mean")), bytes_
-        assert (bytes_["volume"] > 0) == (case == "perceptual"), bytes_
+        assert (bytes_["volume"] > 0) == (case in ("perceptual", "remat")), bytes_
 
 
 def _jax_steps(spec, n_data):
@@ -460,7 +464,7 @@ def test_sharded_modules_and_steps_match_unsharded_one_process_and_jax(flagship_
     four = dryrun.start(_rank_modules, 4, spec, device="cpu", n_space=2, timeout=TIMEOUT)
     two = dryrun.start(_rank_flagship, 2, spec, device="cpu", n_space=2, timeout=TIMEOUT)
     # while the ranks run: the one-process steps and the JAX steps on (1, 2) and (2, 2) meshes
-    one = _flagship_runs(spec, None, ("plain", "perceptual", "split_exact"))
+    one = _flagship_runs(spec, None, ("plain", "perceptual", "split_exact", "remat"))
     jax_runs = {n_data: _jax_steps(flagship_spec, n_data) for n_data in (1, 2)}
 
     ranks4 = four.join()
@@ -469,7 +473,10 @@ def test_sharded_modules_and_steps_match_unsharded_one_process_and_jax(flagship_
     _check_jax(ranks4, *jax_runs[2], "data 2 x space 2")
 
     ranks2 = two.join()
-    _check_flagship(ranks2, one, ("plain", "perceptual", "split_exact"), "data 1 x space 2")
+    _check_flagship(ranks2, one, ("plain", "perceptual", "split_exact", "remat"), "data 1 x space 2")
+    for a, b in ((ranks2[0]["flagship"]["remat"], ranks2[0]["flagship"]["perceptual"]), (one["remat"], one["perceptual"])):
+        for key, value in b[0].items():  # remat and d_remat change nothing, sharded or not
+            assert torch.equal(a[0][key], value), key
     _check_jax(ranks2, *jax_runs[1], "data 1 x space 2")
     # the NaN in rank 1's slab: the loss is the whole volume's on both, so both skip both updates
     assert [r["nan_guard"] for r in ranks2] == [(1.0, 0, True)] * 2

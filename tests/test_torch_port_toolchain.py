@@ -280,8 +280,8 @@ def test_cohort_functions_match_jax(tree, tmp_path, monkeypatch):
 
 
 def test_preprocess_host_subcommands_match_jax(tree, tmp_path, monkeypatch):
-    # the JAX package's numpy decode, which the port copies (its C++ decode, not
-    # ported yet, max-normalises in another order: the float16 store then differs by an ulp)
+    # the JAX package's numpy decode, which the port's native runtime equals bit for bit (JAX's
+    # C++ decode max-normalises by a reciprocal: the float16 store then differs by an ulp)
     monkeypatch.setattr(jax_dataset, "_native", lambda: None)
     outs = {}
     for name, main in (("port", port_pre.main), ("jax", jax_pre.main)):
