@@ -686,29 +686,34 @@ def flash_timing(fa, shape, plain: bool, dtype=torch.bfloat16, lk=None) -> dict:
     return rows
 
 
-def counts(fa) -> tuple:
+FLASH_COUNTS = ("flash.fwd.launches", "flash.dq.launches", "flash.dkv.launches")
+
+
+def counts() -> tuple:
     """(forward, dQ, dK/dV) launch counts."""
-    return (fa.flash_attention_forward.launches, fa.flash_attention_bwd_dq.launches,
-            fa.flash_attention_bwd_dkv.launches)
+    from cips_tpu_torch import profiling
+
+    return tuple(profiling.COUNTERS[k] for k in FLASH_COUNTS)
 
 
-def set_counts(fa, values) -> None:
-    (fa.flash_attention_forward.launches, fa.flash_attention_bwd_dq.launches,
-     fa.flash_attention_bwd_dkv.launches) = values
+def set_counts(values) -> None:
+    from cips_tpu_torch import profiling
+
+    profiling.COUNTERS.update(dict(zip(FLASH_COUNTS, values)))
 
 
 @contextlib.contextmanager
-def uncounted(fa):
+def uncounted():
     """Launches inside the block (checks, timing) leave the counts as they were."""
-    saved = counts(fa)
+    saved = counts()
     try:
         yield
     finally:
-        set_counts(fa, saved)
+        set_counts(saved)
 
 
 @contextlib.contextmanager
-def step_launches(fa, record: list, task):
+def step_launches(record: list, task):
     """Each train step that a train CLI runs inside the block appends its own
     (forward, dQ, dK/dV) launches to ``record``: wraps the step that
     ``task.make_train_step`` returns (``task``: `unet_synthesis` or `causal_task`)."""
@@ -718,9 +723,9 @@ def step_launches(fa, record: list, task):
         step = make_train_step(*args, **kwargs)
 
         def counted(*step_args):
-            before = counts(fa)
+            before = counts()
             out = step(*step_args)
-            record.append(tuple(a - b for a, b in zip(counts(fa), before)))
+            record.append(tuple(a - b for a, b in zip(counts(), before)))
             return out
 
         return counted
@@ -1016,20 +1021,20 @@ def phase_conv_timing(pc, shape, dtype=torch.bfloat16, variants=PHASE_VARIANTS) 
     return rows
 
 
-def phase_conv_entry(pc) -> dict:
+def phase_conv_entry() -> dict:
     """The slice's main paths: each subcommand of the probe entry, through its
     `main`, with the launch counts set to 0 just before it and read just after;
     every variant of the row must have launched. Returns {row: {variant: launches}}."""
     from cips_tpu_torch.scripts import probe_phase_conv
+    from cips_tpu_torch import profiling
 
     runs = {}
     for name, _, command, variants in PHASE_ROWS:
-        pc.phase_conv_stage.launches.clear()
-        pc.lane_select.launches = 0
+        profiling.reset("phase_conv.launches.")
         t0 = time.perf_counter()
         probe_phase_conv.main([command])
         torch.cuda.synchronize()
-        launched = {v: pc.lane_select.launches if v == "select" else pc.phase_conv_stage.launches[v] for v in variants}
+        launched = {v: profiling.COUNTERS[f"phase_conv.launches.{v}"] for v in variants}
         print(f"entry `probe_phase_conv {command}` in {time.perf_counter() - t0:.1f} s: launches {launched}")
         check(all(n > 0 for n in launched.values()), f"`probe_phase_conv {command}` did not launch every kernel "
                                                      f"of {name}: {launched}")
@@ -1169,10 +1174,10 @@ def f32_forward(cfg: dict, state: dict, card: str) -> float:
         with torch.inference_mode():
             return generator(x, ctx)
 
-    with uncounted(fa):
-        before = fa.flash_attention_forward.launches
+    with uncounted():
+        before = counts()[0]
         out = forward()
-        launched = fa.flash_attention_forward.launches - before
+        launched = counts()[0] - before
         check(launched == 6 and out.dtype == torch.float32 and torch.isfinite(out).all().item(),
               f"the fp32 generator forward launched {launched} flash forwards (6 expected) or gave a bad output")
         torch.cuda.reset_peak_memory_stats()
@@ -1357,13 +1362,13 @@ def causal_serving(fa, cfg: dict, states: dict, tree: dict, args: list, tmp: str
     CheckpointManager(os.path.join(exp_dir, "conditional", "AV45", "ckpt")).save({**states, "epoch": 0}, epoch=0)
     out_dir = os.path.join(tmp, "causal_gen")
     forwards = -(-N_SUBJECTS // SERVING_BATCH)
-    set_counts(fa, (0, 0, 0))
+    set_counts((0, 0, 0))
     t0 = time.perf_counter()
     results = gen_test_causal.main(args + ["--exp_dir", exp_dir, "--eval_info_csv", tree["csv"], "--dtype", "bf16",
                                            "--batch_size", str(SERVING_BATCH), "--output_dir", out_dir])
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launched = counts(fa)  # the causal serving path's run
+    launched = counts()  # the causal serving path's run
     print(f"causal serving: gen_test_causal, {N_SUBJECTS} volumes in {elapsed:.3f} s = {N_SUBJECTS / elapsed:.3f} "
           f"vol/s end to end (set-up, the first forward and the NIfTI writes included); batch {SERVING_BATCH}, "
           f"bf16; launches (forward, dQ, dK/dV) {launched} over {forwards} generator forwards; metrics "
@@ -1372,14 +1377,14 @@ def causal_serving(fa, cfg: dict, states: dict, tree: dict, args: list, tmp: str
     check(all(np.isfinite(v) for v in results.summary().values()), "non-finite causal metrics")
     check_causal_outputs(out_dir, N_SUBJECTS)
 
-    with uncounted(fa):
+    with uncounted():
         enc, _, pet_dec, _, _ = causal_models(cfg, states, torch.bfloat16, "cuda")
         generate = causal_task.make_generate_fn(enc, pet_dec)
         batch = synthetic_batch(CROP, SERVING_BATCH, "cuda", seed=7)
         g = torch.Generator("cuda").manual_seed(0)
-        before = counts(fa)[0]
+        before = counts()[0]
         out = generate(batch, g)
-        per_forward = counts(fa)[0] - before
+        per_forward = counts()[0] - before
         check(per_forward == CAUSAL_FLASH and out.shape == (SERVING_BATCH, *CROP, 1)
               and torch.isfinite(out).all().item() and out.float().std().item() > 0,
               f"the causal generator forward launched {per_forward} flash forwards or gave a bad output")
@@ -1401,13 +1406,13 @@ def causal_serving(fa, cfg: dict, states: dict, tree: dict, args: list, tmp: str
         outs = {}
         for dev in ("cuda", "cpu"):
             enc, t1_dec, pet_dec, _, _ = causal_models(cfg, states, torch.float32, dev)
-            before = counts(fa)[0]
+            before = counts()[0]
             with torch.inference_mode():
                 latent = enc(x.to(dev))
                 z_mu, z_sigma = causal_task.split_latent(latent)
                 z = z_mu + torch.randn(z_sigma.shape, generator=torch.Generator().manual_seed(4)).to(dev) * z_sigma
                 outs[dev] = [t.cpu() for t in (latent, t1_dec(z), pet_dec(z, info.to(dev)))]
-            check(counts(fa)[0] - before == (CAUSAL_FLASH if dev == "cuda" else 0), f"{dev}: fp32 trio launches")
+            check(counts()[0] - before == (CAUSAL_FLASH if dev == "cuda" else 0), f"{dev}: fp32 trio launches")
         errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(outs["cuda"], outs["cpu"])]
         print(f"causal parity: fp32 trio {PARITY_CROP} card vs CPU, max abs err / max|out|: encoder {errs[0]:.3e}, "
               f"T1 decoder {errs[1]:.3e}, PET decoder {errs[2]:.3e} (tol {TOL_MODEL_REL:g})")
@@ -1496,10 +1501,10 @@ def import_phase(fa, base: str, trained_pred: str, serve, serve_args: list, tmp:
           all(torch.equal(restored["discriminator"][k], v) for k, v in payload["discriminator"].items()),
           "the imported weights differ from the trained ones")
     out_dir = os.path.join(tmp, "pred_imported")
-    with uncounted(fa):
-        set_counts(fa, (0, 0, 0))
+    with uncounted():
+        set_counts((0, 0, 0))
         results, _ = serve(serve_args + ["--exp_dir", imported_exp, "--epoch", str(epoch)], out_dir)
-        launched = counts(fa)
+        launched = counts()
     check(launched == (6, 0, 0), f"serving the imported checkpoint: launches {launched}")
     pairs = []
     for dp, _, fs in os.walk(trained_pred):
@@ -1570,9 +1575,9 @@ def remat_causal_step(fa, cfg: dict, states: dict, batch: dict) -> tuple:
     state = causal_task.init_state(*causal_models(cfg, states, torch.bfloat16, "cuda", remat=True), cfg["training"])
     step_fn = causal_task.make_train_step(cfg["training"])
     g = torch.Generator("cuda").manual_seed(1)
-    before = counts(fa)
+    before = counts()
     metrics = step_fn(state, batch, g)
-    launched = tuple(a - b for a, b in zip(counts(fa), before))
+    launched = tuple(a - b for a, b in zip(counts(), before))
     check(all(np.isfinite(float(v)) for v in metrics.values()), "non-finite causal remat metrics")
     ms = cuda_ms(lambda: step_fn(state, batch, g), 2, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1596,13 +1601,13 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
                          "--dtype", "bf16", "--batch_size", str(CAUSAL_TRAIN_BATCH), "--save_every", "1"]
     steps_per_epoch = N_SUBJECTS // CAUSAL_TRAIN_BATCH
     per_step = []
-    set_counts(fa, (0, 0, 0))
+    set_counts((0, 0, 0))
     t0 = time.perf_counter()
-    with step_launches(fa, per_step, causal_task):
+    with step_launches(per_step, causal_task):
         trained = train_causal.main(train_args + ["--epochs", str(CAUSAL_EPOCHS)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = counts(fa)  # the causal training path's run
+    launched = counts()  # the causal training path's run
     steps = trained.step
     n = CAUSAL_FLASH
     expected = (n * (steps + CAUSAL_EPOCHS * N_EVAL), n * steps, n * steps)  # eval: one trio forward a subject
@@ -1624,10 +1629,10 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
     check(meta["last_epoch"] == CAUSAL_EPOCHS - 1 and np.isfinite(meta["best_metric"]), f"bad meta.json {meta}")
     del trained
 
-    with uncounted(fa):
-        set_counts(fa, (0, 0, 0))
+    with uncounted():
+        set_counts((0, 0, 0))
         resumed = train_causal.main(train_args + ["--epochs", str(CAUSAL_EPOCHS + 1), "--resume"])
-        resume_counts = counts(fa)
+        resume_counts = counts()
         want = (n * (steps_per_epoch + N_EVAL), n * steps_per_epoch, n * steps_per_epoch)
         print(f"causal training: --resume ran epoch {CAUSAL_EPOCHS} to step {resumed.step}; launches {resume_counts}")
         check(resumed.step == steps + steps_per_epoch and resume_counts == want,
@@ -1635,34 +1640,34 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
         check(CheckpointManager(os.path.join(base, "ckpt")).latest_epoch() == CAUSAL_EPOCHS, "resume saved no epoch")
         del resumed
 
-        set_counts(fa, (0, 0, 0))
+        set_counts((0, 0, 0))
         out_dir = os.path.join(tmp, "causal_gen_trained")
         results = gen_test_causal.main(args + ["--exp_dir", exp_dir, "--eval_info_csv", eval_csv, "--dtype", "bf16",
                                                "--batch_size", str(SERVING_BATCH), "--output_dir", out_dir])
-        check(counts(fa) == (n * -(-N_EVAL // SERVING_BATCH), 0, 0), f"serving the trained trio: {counts(fa)}")
+        check(counts() == (n * -(-N_EVAL // SERVING_BATCH), 0, 0), f"serving the trained trio: {counts()}")
         check_causal_outputs(out_dir, N_EVAL)
         print(f"causal training: the trained checkpoint served {N_EVAL} subjects, metrics {results.summary()}")
 
-        set_counts(fa, (0, 0, 0))
+        set_counts((0, 0, 0))
         lat_dir = os.path.join(tmp, "latents")
         written = gen_latents.main(args + ["--exp_dir", exp_dir, "--eval_info_csv", eval_csv, "--dtype", "bf16",
                                            "--out_dir", lat_dir])
         latents = [np.load(os.path.join(dp, f)) for dp, _, fs in os.walk(lat_dir) for f in fs if f == "latent.npy"]
         latent_shape = (*(c // 4 for c in CROP), 6)
         print(f"causal training: gen_latents wrote {written} latents {[a.shape for a in latents]}; launches "
-              f"{counts(fa)}")
+              f"{counts()}")
         check(written == len(latents) == N_EVAL and all(a.shape == latent_shape and np.isfinite(a).all()
                                                          for a in latents), "bad latents")
-        check(counts(fa) == (CAUSAL_ENCODER_FLASH * N_EVAL, 0, 0), f"gen_latents launches {counts(fa)}")
+        check(counts() == (CAUSAL_ENCODER_FLASH * N_EVAL, 0, 0), f"gen_latents launches {counts()}")
 
         step_fn = causal_task.make_train_step(cfg["training"])
         batch = synthetic_batch(CROP, CAUSAL_TRAIN_BATCH, "cuda", seed=8)
         state = causal_task.init_state(*causal_models(cfg, states, torch.bfloat16, "cuda"), cfg["training"])
         g = torch.Generator("cuda").manual_seed(1)
         torch.cuda.reset_peak_memory_stats()
-        before = counts(fa)
+        before = counts()
         step_fn(state, batch, g)
-        check(tuple(a - b for a, b in zip(counts(fa), before)) == (n, n, n), "the causal step's launches")
+        check(tuple(a - b for a, b in zip(counts(), before)) == (n, n, n), "the causal step's launches")
         step_fn(state, batch, g)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1678,9 +1683,9 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
               f"{ {k: round(float(v), 6) for k, v in timed[-1].items()} }; {card}")
         check(all(np.isfinite(float(v)) for m in timed for v in m.values()), "non-finite causal train-step metrics")
         profile_window(lambda: step_fn(state, batch, g), "causal train step")
-        before = counts(fa)
+        before = counts()
         causal_task.make_train_step(cfg["training"], exact_d_fake=True)(state, batch, g)
-        exact = tuple(a - b for a, b in zip(counts(fa), before))
+        exact = tuple(a - b for a, b in zip(counts(), before))
         print(f"causal train step: with exact_d_fake, launches {exact}")
         check(exact == (2 * n, n, n), f"an exact_d_fake step launched {exact}, expected {(2 * n, n, n)}")
         del state, timed
@@ -1696,9 +1701,9 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
             for run, (dev, dtype) in (("cuda", ("cuda", torch.float32)), ("cpu", ("cpu", torch.float32)),
                                       ("cpu f64", ("cpu", torch.float64))):
                 state = causal_task.init_state(*causal_models(cfg, states, dtype, dev), cfg["training"])
-                before = counts(fa)
+                before = counts()
                 metrics = step_fn(state, {k: v.to(dev) for k, v in small.items()}, torch.Generator().manual_seed(3))
-                grown = tuple(a - b for a, b in zip(counts(fa), before))
+                grown = tuple(a - b for a, b in zip(counts(), before))
                 check(grown == ((n, n, n) if dev == "cuda" else (0, 0, 0)), f"{run} causal step launches {grown}")
                 got[run] = ({k: float(v) for k, v in metrics.items()},
                             {**{f"{part}.{k}": p.grad.cpu() for part in CAUSAL_PARTS
@@ -1751,15 +1756,15 @@ def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str,
             "--converter_csv", write_converters(os.path.join(tmp, "mci_converters.csv")), "--use_T1",
             "--use_tabular_info"]
     per_step = []
-    set_counts(fa, (0, 0, 0))
+    set_counts((0, 0, 0))
     t0 = time.perf_counter()
-    with step_launches(fa, per_step, classifier_task):
+    with step_launches(per_step, classifier_task):
         trained = train_classifier.main(args + ["--exp_dir", exp_dir, "--training_info_csv", tree["csv"],
                                                 "--eval_info_csv", eval_csv, "--epochs", str(CLASSIFIER_EPOCHS),
                                                 "--save_every", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = counts(fa)  # the classifier's training path
+    launched = counts()  # the classifier's training path
     steps = trained.step
     evals = CLASSIFIER_EPOCHS * -(-N_EVAL // CLASSIFIER_BATCH)  # eval forwards
     expected = (n * (steps + evals), n * steps, n * steps)
@@ -1783,11 +1788,11 @@ def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str,
 
     tested = {}
     for name, extra in (("real", []), ("synthesized", ["--test_fake_pet", "--fake_pet_dir", fake_pet_dir])):
-        set_counts(fa, (0, 0, 0))
+        set_counts((0, 0, 0))
         t0 = time.perf_counter()
         m = test_mci.main(args + ["--exp_dir", run, "--eval_info_csv", tree["csv"], "--best", *extra])
         torch.cuda.synchronize()
-        tested[name] = counts(fa)  # the test path on real, then synthesized PET
+        tested[name] = counts()  # the test path on real, then synthesized PET
         print(f"classifier test ({name} PET): test_mci --best over {N_SUBJECTS} sessions in "
               f"{time.perf_counter() - t0:.3f} s, metrics {m}; launches {tested[name]}")
         check(tested[name] == (n * N_SUBJECTS, 0, 0), f"test_mci on {name} PET launched {tested[name]}")
@@ -1800,13 +1805,13 @@ def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str,
         return classifier_task.build_model(cfg, in_channels=2, input_shape=shape, n_covariates=FLAGSHIP_K,
                                            dtype=dtype, device=device, seed=5)
 
-    with uncounted(fa):
+    with uncounted():
         model = build(CROP, torch.bfloat16, "cuda")
         batch = classifier_batch(CROP, CLASSIFIER_BATCH, "cuda", seed=11)
         predict = classifier_task.make_predict_fn(model, use_tabular=True)
-        before = counts(fa)[0]
+        before = counts()[0]
         logits = predict(batch)
-        check(counts(fa)[0] - before == n and logits.shape == (CLASSIFIER_BATCH, 2)
+        check(counts()[0] - before == n and logits.shape == (CLASSIFIER_BATCH, 2)
               and torch.isfinite(logits).all().item(), "the classifier forward's launches or logits")
         torch.cuda.reset_peak_memory_stats()
         fwd_ms = cuda_ms(lambda: predict(batch), 5, warmup=2)
@@ -1819,9 +1824,9 @@ def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str,
         state = classifier_task.init_state(model, cfg["training"]["base_lr"])
         step_fn = classifier_task.make_train_step(use_tabular=True)
         torch.cuda.reset_peak_memory_stats()
-        before = counts(fa)
+        before = counts()
         step_fn(state, batch)
-        check(tuple(a - b for a, b in zip(counts(fa), before)) == (n, n, n), "the classifier step's launches")
+        check(tuple(a - b for a, b in zip(counts(), before)) == (n, n, n), "the classifier step's launches")
         timed = []
         step_ms = cuda_ms(lambda: timed.append(step_fn(state, batch)), CLASSIFIER_STEPS_TIMED, warmup=1)
         timed = timed[1:]
@@ -1844,11 +1849,11 @@ def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str,
             model = build(PARITY_CROP, dtype, dev)
             model.load_state_dict(weights)
             on_dev = {k: v.to(dev) for k, v in small.items()}
-            before = counts(fa)
+            before = counts()
             logits = classifier_task.make_predict_fn(model, use_tabular=True)(on_dev).cpu()
             state = classifier_task.init_state(model)
             metrics = classifier_task.make_train_step(use_tabular=True, dropout=False)(state, on_dev)
-            grown = tuple(a - b for a, b in zip(counts(fa), before))
+            grown = tuple(a - b for a, b in zip(counts(), before))
             check(grown == ((2 * n, n, n) if dev == "cuda" else (0, 0, 0)), f"{run_name} classifier launches {grown}")
             got[run_name] = (logits, float(metrics["ce_loss"]),
                              {k: p.grad.cpu() for k, p in state.model.named_parameters()})
@@ -1895,7 +1900,7 @@ def bmgan_phase(fa, tree: dict, eval_csv: str, tmp: str, card: str) -> dict:
             "--dtype", "bf16", "--batch_size", str(BMGAN_BATCH), "--exp_dir", exp_dir]
     train_args = args + ["--training_info_csv", tree["csv"], "--eval_info_csv", eval_csv, "--save_every", "1"]
     steps_per_epoch = N_SUBJECTS // BMGAN_BATCH
-    set_counts(fa, (0, 0, 0))
+    set_counts((0, 0, 0))
     t0 = time.perf_counter()
     trained = train_bmgan.main(train_args + ["--epochs", str(BMGAN_EPOCHS)])
     torch.cuda.synchronize()
@@ -1904,8 +1909,8 @@ def bmgan_phase(fa, tree: dict, eval_csv: str, tmp: str, card: str) -> dict:
     print(f"bmgan training: train_bmgan, {steps} steps and {BMGAN_EPOCHS} evals of {N_EVAL} subjects in {wall:.3f} s "
           f"({steps / wall:.3f} steps/s end to end: packing, eval and checkpoints of "
           f"{sum(p.numel() for p in trained.g.parameters()) / 1e6:.1f}M generator parameters included); batch "
-          f"{BMGAN_BATCH}, bf16; launches {counts(fa)} (no attention); {card}")
-    check(steps == BMGAN_EPOCHS * steps_per_epoch and counts(fa) == (0, 0, 0), f"bmgan steps {steps}, {counts(fa)}")
+          f"{BMGAN_BATCH}, bf16; launches {counts()} (no attention); {card}")
+    check(steps == BMGAN_EPOCHS * steps_per_epoch and counts() == (0, 0, 0), f"bmgan steps {steps}, {counts()}")
     records = [json.loads(line) for line in open(os.path.join(exp_dir, "log", "metrics.jsonl"), encoding="utf-8")]
     with open(os.path.join(exp_dir, "ckpt", "meta.json"), encoding="utf-8") as f:
         meta = json.load(f)
@@ -2361,8 +2366,11 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
     from cips_tpu_torch.cli import train_unet
     from cips_tpu_torch.ops import flash_attention as fa
     from cips_tpu_torch.parallel import mesh as pm
+    from cips_tpu_torch.parallel import spatial
     from cips_tpu_torch.parallel.dryrun import max_rank_difference
-    from cips_tpu_torch.training import profiling, unet_synthesis
+    from cips_tpu_torch import profiling
+    from cips_tpu_torch.training import unet_synthesis
+    from cips_tpu_torch.training.profiling import device_memory_report
     from cips_tpu_torch.training.common import CheckpointManager
 
     mesh = pm.make_mesh("cuda")  # the world's group; train_unet's own mesh adds any space groups
@@ -2378,18 +2386,17 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
 
         def recorded(*step_args):
             space = step_args[0].space  # the GANState's space group, None without one
-            pm.data_parallel.reduced_bytes = 0
-            if space is not None:
-                space.reset()
-            before, first = counts(fa), len(launched)
+            profiling.reset("ddp.reduced_bytes")
+            profiling.reset("space.exchanged.")
+            before, first = counts(), len(launched)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             out = step(*step_args)
             end.record()
             end.synchronize()
-            steps.append({"launches": [a - b for a, b in zip(counts(fa), before)], "ms": start.elapsed_time(end),
-                          "reduced_bytes": pm.data_parallel.reduced_bytes,
-                          "space_bytes": dict(space.exchanged) if space is not None else {},
+            steps.append({"launches": [a - b for a, b in zip(counts(), before)], "ms": start.elapsed_time(end),
+                          "reduced_bytes": profiling.COUNTERS["ddp.reduced_bytes"],
+                          "space_bytes": spatial.exchanged() if space is not None else {},
                           "flash_shapes": sorted(set(launched[first:])),
                           "metrics": {k: float(v) for k, v in out.items()}})
             return out
@@ -2403,7 +2410,7 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
     unet_synthesis.make_train_step, CheckpointManager._write_meta, fa._launch = recorded_make, recorded_meta, \
         recorded_launch
     try:
-        set_counts(fa, (0, 0, 0))
+        set_counts((0, 0, 0))
         torch.cuda.reset_peak_memory_stats()
         state = train_unet.main(argv)
         torch.cuda.synchronize()
@@ -2411,10 +2418,10 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
                   for k, v in m.state_dict().items()}
         record = {
             "rank": mesh.rank, "world": mesh.world_size, "device": str(mesh.device), "steps": steps,
-            "launches": list(counts(fa)), "meta_writes": len(meta_writes),
+            "launches": list(counts()), "meta_writes": len(meta_writes),
             "grad_bytes": sum(p.numel() * p.element_size() for m in (state.g, state.d) for p in m.parameters()),
             "max_rank_diff": max_rank_difference(mesh, params) if mesh.distributed else 0.0,
-            "memory": profiling.device_memory_report()[mesh.device.index],
+            "memory": device_memory_report()[mesh.device.index],
         }
         with open(out_pattern.format(rank=mesh.rank), "w", encoding="utf-8") as f:
             json.dump(record, f)
@@ -2506,7 +2513,7 @@ def data_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str, 
     print(f"{line}; {card}")
 
     exp = os.path.join(tmp, f"dp_{n}_{multi[1]}")
-    with uncounted(fa):
+    with uncounted():
         resumed = train_unet.main(args(exp)[:-2] + ["--epochs", "2", "--resume"])
     check(resumed.step == 2 * DP_STEPS and CheckpointManager(
         os.path.join(exp, "conditional", "AV45", "ckpt")).latest_epoch() == 1,
@@ -2588,12 +2595,12 @@ def recorded_dryrun_rank(mesh, task: str, full: bool, crop, dtype_name: str, ste
 
     fa._launch = recorded_launch
     try:
-        set_counts(fa, (0, 0, 0))
+        set_counts((0, 0, 0))
         torch.cuda.reset_peak_memory_stats(mesh.device)
-        with step_launches(fa, per_step, causal_task if task == "causal" else unet_synthesis):
+        with step_launches(per_step, causal_task if task == "causal" else unet_synthesis):
             payload = dryrun.dryrun_rank(mesh, task, full, crop, dtype_name, steps)
         return {"rank": mesh.rank, "device": str(mesh.device), "payload": payload, "steps": per_step,
-                "launches": list(counts(fa)), "flash_shapes": sorted(set(launched)),
+                "launches": list(counts()), "flash_shapes": sorted(set(launched)),
                 "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)}
     finally:
         fa._launch = launch
@@ -2759,7 +2766,7 @@ def space_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str,
           f"DDP {recs[0]['steps'][-1]['reduced_bytes']}"
           + ("; one card: the mechanism's cost through gloo, not a speed-up" if cards == 1 else "") + f"; {card}")
 
-    with uncounted(fa):
+    with uncounted():
         resumed = train_unet.main(args(exp, "--epochs", "2", "--resume"))
     check(resumed.step == 2 * DP_STEPS and CheckpointManager(
         os.path.join(exp, "conditional", "AV45", "ckpt")).latest_epoch() == 1,
@@ -2767,7 +2774,7 @@ def space_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str,
     print(f"space parallel: the {layout} checkpoint resumed at 1 rank, step {resumed.step}")
     del resumed
 
-    with uncounted(fa):
+    with uncounted():
         t0 = time.perf_counter()
         space_kernel_checks(fa)
         timing = {"x".join(map(str, SPACE_ATTN[0])) + f" Lk {SPACE_LK}": flash_timing(fa, SPACE_ATTN[0], True,
@@ -2818,7 +2825,7 @@ def space_uneven_case(fa, card: str) -> dict:
           f"{payload['space_bytes_per_step']}, step {payload['step_ms']} ms, replicas apart by "
           f"{payload['max_rank_diff']}; {card}")
     check(all(np.isfinite(v) for m in payload["metrics"] for v in m.values()), "non-finite uneven metrics")
-    with uncounted(fa):
+    with uncounted():
         space_kernel_checks(fa, SPACE_UNEVEN_ATTN, SPACE_UNEVEN_LK)
     return {"launches_per_rank": [r["launches"] for r in recs]}
 
@@ -2864,7 +2871,7 @@ def causal_space_phase(fa, card: str, fp32: dict) -> dict:
           f"step by rank 0 {exchanged[-1]} (total {sum(exchanged[-1].values())}) against the prediction "
           f"{CAUSAL_SPACE_PREDICTED}; DDP {payload['reduced_bytes_per_step']} = gradients {payload['grad_bytes']}; "
           f"replicas apart by {payload['max_rank_diff']}; {card}")
-    with uncounted(fa):
+    with uncounted():
         one = dryrun.run_steps(None, "causal", dryrun._config("causal", True), CROP, torch.bfloat16, 1,
                                payload["global_batch"], torch.device("cuda"))
     want = one["metrics"][0]
@@ -2876,7 +2883,7 @@ def causal_space_phase(fa, card: str, fp32: dict) -> dict:
     check(all(v <= TOL_SPACE_LOSS_REL for v in rel.values()), "the sharded causal step's losses part from 1 rank's")
     del one
 
-    with uncounted(fa):
+    with uncounted():
         t0 = time.perf_counter()
         space_kernel_checks(fa, CAUSAL_SPACE_ATTN, CAUSAL_SPACE_LK)
         timing = {"x".join(map(str, shape)) + f" Lk {CAUSAL_SPACE_LK}": flash_timing(fa, shape, True,
@@ -2926,7 +2933,7 @@ def main() -> int:
     runtime_build()
 
     phase("3 kernels")
-    with uncounted(fa):
+    with uncounted():
         fwd_err = kernel_checks(fa)
         bwd_err = bwd_kernel_checks(fa)
         flash_at = {"x".join(map(str, TRAIN_ATTN)): flash_timing(fa, TRAIN_ATTN, plain=True),
@@ -2972,9 +2979,9 @@ def main() -> int:
             return recs
 
         pred_dir = os.path.join(tmp, "pred")
-        set_counts(fa, (0, 0, 0))
+        set_counts((0, 0, 0))
         results, elapsed = serve(serve_args, pred_dir)  # the serving path's run
-        serving_counts = counts(fa)
+        serving_counts = counts()
         summary = results.summary()
         print(f"serving: launches (forward, dQ, dK/dV) {serving_counts} over {forwards} generator forwards; "
               f"metrics {summary}")
@@ -2983,7 +2990,7 @@ def main() -> int:
         print(f"serving run 1: {N_SUBJECTS} volumes in {elapsed:.3f} s = {N_SUBJECTS / elapsed:.3f} vol/s "
               f"end to end, set-up and the process's first forward included; batch {SERVING_BATCH}, bf16, {card}")
 
-        with uncounted(fa):
+        with uncounted():
             # The same CLI run again, each stage clocked; set-up (model build and
             # checkpoint restore) is reported apart from the per-volume work.
             for run in range(2, 2 + STAGED_RUNS):
@@ -3029,11 +3036,11 @@ def main() -> int:
         rng = np.random.default_rng(1)
         x = torch.from_numpy(rng.random((1, *PARITY_CROP, 1), dtype=np.float32))
         ctx = torch.from_numpy(rng.random((1, 1, FLAGSHIP_K), dtype=np.float32))
-        before = counts(fa)
-        with uncounted(fa), torch.inference_mode():
+        before = counts()
+        with uncounted(), torch.inference_mode():
             out_gpu = models["cuda"](x.cuda(), ctx.cuda()).cpu()
             out_cpu = models["cpu"](x, ctx)
-            check(counts(fa)[0] - before[0] == 6, "card forward did not run the kernel 6 times")
+            check(counts()[0] - before[0] == 6, "card forward did not run the kernel 6 times")
         rel = ((out_gpu - out_cpu).abs().max() / out_cpu.abs().max()).item()
         del models
         print(f"parity: fp32 generator {PARITY_CROP} card vs CPU max abs err / max |out| = {rel:.3e} "
@@ -3065,13 +3072,13 @@ def main() -> int:
         ]
         steps_per_epoch = N_SUBJECTS // TRAIN_BATCH
         per_step = []
-        set_counts(fa, (0, 0, 0))
+        set_counts((0, 0, 0))
         t0 = time.perf_counter()
-        with step_launches(fa, per_step, unet_synthesis):
+        with step_launches(per_step, unet_synthesis):
             trained = train_unet.main(train_args + ["--epochs", str(TRAIN_EPOCHS)])
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
-        train_counts = counts(fa)  # the training path's run
+        train_counts = counts()  # the training path's run
         steps = trained.step
         expected = (6 * (steps + TRAIN_EPOCHS * N_EVAL), 6 * steps, 6 * steps)  # eval: one forward per subject
         print(f"training: {steps} steps and {TRAIN_EPOCHS} evals of {N_EVAL} subjects in {train_wall:.3f} s "
@@ -3098,13 +3105,13 @@ def main() -> int:
 
         # the resume decodes through the native pool (--streaming) instead of the packed store
         resume_steps, made = [], []
-        with uncounted(fa), step_launches(fa, resume_steps, unet_synthesis), recorded_loaders(made):
-            set_counts(fa, (0, 0, 0))
+        with uncounted(), step_launches(resume_steps, unet_synthesis), recorded_loaders(made):
+            set_counts((0, 0, 0))
             t0 = time.perf_counter()
             resumed = train_unet.main(train_args + ["--epochs", str(TRAIN_EPOCHS + 1), "--resume", "--streaming"])
             torch.cuda.synchronize()
             resume_wall = time.perf_counter() - t0
-            resume_counts = counts(fa)
+            resume_counts = counts()
         expected = (6 * (steps_per_epoch + N_EVAL), 6 * steps_per_epoch, 6 * steps_per_epoch)
         (stream_train, stream_eval), = made
         waits = [round(w * 1e3, 3) for w in stream_train.waits]
@@ -3120,12 +3127,12 @@ def main() -> int:
         check(CheckpointManager(os.path.join(base, "ckpt")).latest_epoch() == TRAIN_EPOCHS, "resume saved no epoch")
         del resumed
 
-        with uncounted(fa):
-            set_counts(fa, (0, 0, 0))
+        with uncounted():
+            set_counts((0, 0, 0))
             trained_pred = os.path.join(tmp, "pred_trained")
             results, _ = serve(data_args + ["--exp_dir", train_exp, "--eval_info_csv", eval_csv, "--dtype", "bf16",
                                             "--batch_size", str(SERVING_BATCH)], trained_pred)
-            check(counts(fa) == (6, 0, 0), f"serving the trained checkpoint: launches {counts(fa)}")
+            check(counts() == (6, 0, 0), f"serving the trained checkpoint: launches {counts()}")
         check_served(results, trained_pred, N_EVAL)
         print(f"training: the trained checkpoint served {N_EVAL} subjects, metrics {results.summary()}")
         imported = import_phase(fa, base, trained_pred, serve, data_args + [
@@ -3134,7 +3141,7 @@ def main() -> int:
         phase("7 train step")
         step_fn = unet_synthesis.make_train_step(train_cfg)
         batch = synthetic_batch(CROP, TRAIN_BATCH, "cuda", seed=3)
-        with uncounted(fa):
+        with uncounted():
             g_bf16, d_bf16, _ = unet_synthesis.build_models(cfg, FLAGSHIP_K, dtype=torch.bfloat16, device="cuda")
             gan = unet_synthesis.init_state(g_bf16, d_bf16, train_cfg)
             torch.cuda.reset_peak_memory_stats()
@@ -3166,10 +3173,10 @@ def main() -> int:
             g32.load_state_dict(state)
             d32.load_state_dict(d_state)
             gan = unet_synthesis.init_state(g32, d32, train_cfg)
-            before = counts(fa)
-            with uncounted(fa):
+            before = counts()
+            with uncounted():
                 step_metrics = step_fn(gan, {k: v.to(dev) for k, v in small.items()})
-                launched = tuple(a - b for a, b in zip(counts(fa), before))
+                launched = tuple(a - b for a, b in zip(counts(), before))
             check(launched == ((6, 6, 6) if dev == "cuda" else (0, 0, 0)), f"{dev} step launches {launched}")
             got[dev] = ({k: float(v) for k, v in step_metrics.items()},
                         {n: p.grad.cpu() for n, p in g32.named_parameters()},
@@ -3208,7 +3215,7 @@ def main() -> int:
               f"full volume; {card}")
 
         phase("13 phase conv")
-        with uncounted(fa):
+        with uncounted():
             t0 = time.perf_counter()
             phase_err = phase_conv_checks(pc)
             phase_err["full"] = max(phase_err["full"], phase_conv_flagship(cfg, state))
@@ -3216,14 +3223,14 @@ def main() -> int:
             phase_timing_f32 = {shape: phase_conv_timing(pc, shape, torch.float32, PHASE_F32_VARIANTS)
                                 for shape in PHASE_F32_SHAPES}
             print(f"phase conv checks and timing in {time.perf_counter() - t0:.1f} s")
-            entry_launches = phase_conv_entry(pc)
+            entry_launches = phase_conv_entry()
 
         phase("14 tool-chain")
         t0 = time.perf_counter()
-        with uncounted(fa):
-            set_counts(fa, (0, 0, 0))
+        with uncounted():
+            set_counts((0, 0, 0))
             toolchain_phase(pred_dir, tree["csv"], tmp, card)
-            check(counts(fa) == (0, 0, 0), f"the tool-chain launched flash kernels: {counts(fa)}")
+            check(counts() == (0, 0, 0), f"the tool-chain launched flash kernels: {counts()}")
         print(f"tool-chain phase in {time.perf_counter() - t0:.1f} s (no kernel of this port on its path); {card}")
 
         phase("15 data parallel")

@@ -45,6 +45,7 @@ from cips_tpu_torch.data.manifest import PairRow, read_manifest
 from cips_tpu_torch.ops.resample import resize_trilinear
 from cips_tpu_torch.parallel.mesh import shard_rows
 from cips_tpu_torch.runtime import native
+from cips_tpu_torch import profiling
 
 CROP_SIZE = (96, 128, 96)  # the working volume (reference train_unet.py:111)
 
@@ -407,7 +408,10 @@ class BatchLoader:
     the offsets of the whole node batch are drawn. This rank reads only its
     share of each batch's rows (``shard_index`` of ``shard_count``). Yields
     numpy batches {"t1": (B, D, H, W, 1), "pet": (B, D, H, W, 1),
-    "info": (B, 1, K)}.
+    "info": (B, 1, K)}. Spans ``data.gather`` (the read from the store) and
+    ``data.widen`` (fp32, the crop) and counters ``data.bytes_read`` and
+    ``data.bytes_widened`` (`cips_tpu_torch.profiling`), the batch's number since
+    epoch 0 its ``seq``.
     """
 
     def __init__(
@@ -464,11 +468,17 @@ class BatchLoader:
             rows = shard_rows(len(idx), self.shard_index, self.shard_count)
             offsets = self._offsets(len(idx), rng) if self.random_crop_size is not None else None
             idx = idx[rows]
-            vols = self.packed.volumes[idx].astype(np.float32)
-            if offsets is not None:
-                vols = self._crop(vols, offsets[rows])
-            yield {"t1": vols[:, 0][..., None], "pet": vols[:, 1][..., None],
-                   "info": self.packed.covariates[idx][:, None, :]}
+            seq = epoch * num_batches + b
+            with profiling.span("data.gather", seq):
+                stored, info = self.packed.volumes[idx], self.packed.covariates[idx]
+            with profiling.span("data.widen", seq):
+                vols = stored.astype(np.float32)
+                if offsets is not None:
+                    vols = self._crop(vols, offsets[rows])
+            profiling.COUNTERS["data.bytes_read"] += stored.nbytes + info.nbytes
+            profiling.COUNTERS["data.bytes_widened"] += vols.nbytes
+            del stored  # not held across the yield
+            yield {"t1": vols[:, 0][..., None], "pet": vols[:, 1][..., None], "info": info[:, None, :]}
 
     def steps_per_epoch(self) -> int:
         n = len(self.packed) // self.process_count

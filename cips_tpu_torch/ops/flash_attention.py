@@ -12,8 +12,8 @@ Their sources note what bounds them on an H100 and what the design does about
 that. They are built into the port's one kernel library (`cuda_library`).
 
 Each kernel wrapper takes the plain version only for tensors on the CPU. For
-CUDA tensors it launches the kernel or raises; there is no fallback. Its
-`launches` attribute counts kernel launches.
+CUDA tensors it launches the kernel or raises; there is no fallback. Launches
+are counted in `cips_tpu_torch.profiling.COUNTERS` as ``flash.{fwd,dq,dkv}.launches``.
 
 fp32 inputs take kernels whose products are 3xTF32 on the tensor cores; their
 rounding models are `flash_attention_tf32x3_reference` (forward) and
@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from cips_tpu_torch.ops import cuda_library
+from cips_tpu_torch import profiling
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -254,7 +255,7 @@ def flash_attention_forward(
     k, scale, _ = _positive_scale(k, scale)
     _launch("cips_flash_attention_fwd", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), scale=scale)
-    flash_attention_forward.launches += 1
+    profiling.COUNTERS["flash.fwd.launches"] += 1
     return out, lse
 
 
@@ -273,7 +274,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Ten
     dq = torch.empty_like(q)
     _launch("cips_flash_attention_bwd_dq", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), scale=scale)
-    flash_attention_bwd_dq.launches += 1
+    profiling.COUNTERS["flash.dq.launches"] += 1
     return dq
 
 
@@ -292,15 +293,10 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float) -> Tuple[to
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("cips_flash_attention_bwd_dkv", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), scale=scale)
-    flash_attention_bwd_dkv.launches += 1
+    profiling.COUNTERS["flash.dkv.launches"] += 1
     if dk_sign != 1.0:
         dk.mul_(dk_sign)
     return dk, dv
-
-
-flash_attention_forward.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -34,12 +34,12 @@ kernels keep their weights in shared memory and take 8C = 128 or 256.
 Each wrapper takes the plain version only for tensors on the CPU. For CUDA tensors
 it launches the kernel or raises; there is no fallback. The JAX function has no
 VJP, so a CUDA tensor that requires grad raises NotImplementedError. Launches are
-counted in `phase_conv_stage.launches` (by variant) and `lane_select.launches`.
+counted in `cips_tpu_torch.profiling.COUNTERS` as ``phase_conv.launches.<variant>``
+(``select`` for `lane_select`).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import List, Optional
@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from cips_tpu_torch.ops import cuda_library
 from cips_tpu_torch.ops.flash_attention import tf32_split
 from cips_tpu_torch.ops.s2d import _phase_shift_input, pack_conv_kernel_phase
+from cips_tpu_torch import profiling
 
 # variant -> the kernel's variant code (csrc/phase_conv.cu, enum Variant)
 VARIANTS = {"full": 0, "noshift": 1, "one_tap": 2, "dot": 3, "shift": 4, "copy": 5}
@@ -229,7 +230,7 @@ def phase_conv_stage(x: torch.Tensor, wp: Optional[torch.Tensor], variant: str) 
         raise ValueError(f"the bf16 {variant} kernel takes {RESIDENT_BF16_CHANNELS} packed channels, "
                          f"got {x.shape[-1]}")
     out = _launch(x, wp, VARIANTS[variant])
-    phase_conv_stage.launches[variant] += 1
+    profiling.COUNTERS[f"phase_conv.launches.{variant}"] += 1
     return out
 
 
@@ -243,12 +244,8 @@ def lane_select(x: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x, None):
         return lane_select_reference(x)
     out = _launch(x, None, _SELECT)
-    lane_select.launches += 1
+    profiling.COUNTERS["phase_conv.launches.select"] += 1
     return out
-
-
-phase_conv_stage.launches = collections.Counter()
-lane_select.launches = 0
 
 
 def phase_conv_apply(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:

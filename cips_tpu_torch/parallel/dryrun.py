@@ -23,7 +23,7 @@ the port counts the bytes that DDP all-reduces in each step (a communication
 hook on its buckets) and asserts that they equal the trained parameters'
 gradient bytes, and that every rank's parameters are identical after the
 steps (the largest difference, all-reduced, is 0); it reports the bytes each
-rank exchanged over its space group a step, by kind (`SpaceGroup.exchanged`).
+rank exchanged over its space group a step, by kind (`spatial.exchanged`).
 In fp32 it also asserts
 that rank 0's repeat of the steps in one process on the whole global batch
 agrees: the first step's gradients within ``TOL_GRADS`` of each tensor's
@@ -51,6 +51,7 @@ import torch.distributed as dist
 
 from cips_tpu_torch.parallel import mesh as pm
 from cips_tpu_torch.parallel import spatial
+from cips_tpu_torch import profiling
 from cips_tpu_torch.training.common import mean_over_ranks
 
 N_COVARIATES = 5
@@ -225,16 +226,14 @@ def run_steps(mesh: Optional[pm.Mesh], task: str, cfg: dict, crop, dtype: torch.
     gradients and parameters after each step (on the CPU, fp32), and each
     step's time (CUDA events on a card, else the host clock)."""
     state, step, nets = _build(task, cfg, dtype, device, mesh, n, crop[0])
-    space = mesh.space if mesh is not None else None
     out: Dict[str, Any] = {"metrics": [], "reduced_bytes": [], "space_bytes": [], "step_ms": []}
     for i in range(steps):
         batch = global_batch(n, crop, seed=100 + i)
         if mesh is not None:
             batch = pm.shard_batch(mesh, batch, spatial_axis=1)
         batch = {k: v.to(device) for k, v in batch.items()}
-        pm.data_parallel.reduced_bytes = 0
-        if space is not None:
-            space.reset()
+        profiling.reset("ddp.reduced_bytes")
+        profiling.reset("space.exchanged.")
         t0 = time.perf_counter()
         if device.type == "cuda":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -246,8 +245,8 @@ def run_steps(mesh: Optional[pm.Mesh], task: str, cfg: dict, crop, dtype: torch.
             out["step_ms"].append(start.elapsed_time(end))
         else:
             out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        out["reduced_bytes"].append(pm.data_parallel.reduced_bytes)
-        out["space_bytes"].append(dict(space.exchanged) if space is not None else dict.fromkeys(spatial.KINDS, 0))
+        out["reduced_bytes"].append(profiling.COUNTERS["ddp.reduced_bytes"])
+        out["space_bytes"].append(spatial.exchanged())
         out["metrics"].append(mean_over_ranks(metrics, mesh))
         out.setdefault("grads", []).append({f"{net}.{k}": _copy(p.grad) for net, m in nets.items()
                                             for k, p in m.named_parameters() if p.grad is not None})

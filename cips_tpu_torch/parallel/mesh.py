@@ -43,6 +43,7 @@ from torch import nn
 
 from cips_tpu_torch import default_device
 from cips_tpu_torch.parallel.spatial import SpaceGroup, new_group, slab
+from cips_tpu_torch import profiling
 
 
 def shard_rows(n: int, index: int, count: int) -> slice:
@@ -268,11 +269,11 @@ def replicate(mesh: Mesh, obj):
 
 def _counting_allreduce(process_group, bucket):
     """DDP's own all-reduce (each rank's gradients over the world size, summed),
-    counting the bucket's bytes in `data_parallel.reduced_bytes`."""
+    counting the bucket's bytes as ``ddp.reduced_bytes`` (`cips_tpu_torch.profiling.COUNTERS`)."""
     from torch.distributed.algorithms.ddp_comm_hooks.default_hooks import allreduce_hook
 
     buf = bucket.buffer()
-    data_parallel.reduced_bytes += buf.numel() * buf.element_size()
+    profiling.COUNTERS["ddp.reduced_bytes"] += buf.numel() * buf.element_size()
     return allreduce_hook(process_group, bucket)
 
 
@@ -282,16 +283,13 @@ def data_parallel(module: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     wrap, and the backward of each forward through the wrapper all-reduces the
     gradients (the mean over ranks); every such forward must be followed by
     one backward that reaches every parameter. The bytes all-reduced are
-    counted in ``data_parallel.reduced_bytes``."""
+    counted as ``ddp.reduced_bytes``."""
     if mesh is None or not mesh.distributed:
         return module
     ids = [mesh.device.index] if mesh.device.type == "cuda" else None
     wrapped = nn.parallel.DistributedDataParallel(module, device_ids=ids)
     wrapped.register_comm_hook(None, _counting_allreduce)
     return wrapped
-
-
-data_parallel.reduced_bytes = 0
 
 
 def gather(mesh: Mesh, items: list) -> list:
@@ -316,12 +314,18 @@ def device_prefetch(iterator: Iterable[Mapping[str, Any]], mesh: Mesh, depth: in
     side stream; the compute stream waits on the copy's event before it gets
     the batch, and ``record_stream`` keeps the allocator from reusing a
     buffer before that stream is done with it. On the CPU it is a plain
-    conversion, in order."""
+    conversion, in order. Spans ``prefetch.pin`` (the batch as contiguous host
+    tensors, page-locked on a card) and ``prefetch.copy`` (the side stream's
+    copies and their event) and counter ``prefetch.bytes_copied`` (the bytes
+    pinned and copied; `cips_tpu_torch.profiling`), the batch's number in
+    ``iterator`` its ``seq``."""
     device = mesh.device
     iterator = (shard_space(mesh, batch, spatial_axis) for batch in iterator)
     if device.type != "cuda":
-        for batch in iterator:
-            yield {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        for seq, batch in enumerate(iterator):
+            with profiling.span("prefetch.pin", seq):
+                host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+            yield host
         return
     side = torch.cuda.Stream(device)
     queue: collections.deque = collections.deque()
@@ -334,12 +338,14 @@ def device_prefetch(iterator: Iterable[Mapping[str, Any]], mesh: Mesh, depth: in
             t.record_stream(compute)
         return tensors
 
-    for batch in iterator:
-        host = {k: _pinned(v) for k, v in batch.items()}
-        with torch.cuda.stream(side):
+    for seq, batch in enumerate(iterator):
+        with profiling.span("prefetch.pin", seq):
+            host = {k: _pinned(v) for k, v in batch.items()}
+        with profiling.span("prefetch.copy", seq), torch.cuda.stream(side):
             tensors = {k: t.to(device, non_blocking=True) for k, t in host.items()}
             event = torch.cuda.Event()
             event.record(side)
+        profiling.COUNTERS["prefetch.bytes_copied"] += sum(t.nbytes for t in host.values())
         queue.append((tensors, event))
         if len(queue) > depth:
             yield ready(queue.popleft())

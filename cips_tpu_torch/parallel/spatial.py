@@ -46,7 +46,8 @@ Transport: NCCL's point-to-point sends and all-reduce on card tensors. Gloo
 ``all_reduce`` on CUDA tensors, so its point-to-point messages go through host
 copies. Every rank of a group runs the same exchanges in the same order; a
 rank with no plane runs them too. The bytes a rank sends (point-to-point) or
-all-reduces are counted by kind in its group's ``exchanged``.
+all-reduces are counted by kind as ``space.exchanged.<kind>``
+(`cips_tpu_torch.profiling.COUNTERS`; `exchanged` reads them).
 """
 
 from __future__ import annotations
@@ -59,28 +60,30 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from cips_tpu_torch import profiling
+
 KINDS = ("halo", "norm", "kv", "volume", "mean", "resample")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SpaceGroup:
     """The ranks holding one sample's depth slabs: their global ranks in slab
-    order, this rank's place among them, the process group and its backend;
-    ``exchanged``: the bytes this rank sent or all-reduced over the group since
-    `reset`, by kind (`KINDS`)."""
+    order, this rank's place among them, the process group and its backend."""
 
     ranks: Tuple[int, ...]
     index: int
     group: Any
     backend: str
-    exchanged: Dict[str, int] = dataclasses.field(default_factory=lambda: dict.fromkeys(KINDS, 0))
 
     @property
     def size(self) -> int:
         return len(self.ranks)
 
-    def reset(self) -> None:
-        self.exchanged.update(dict.fromkeys(KINDS, 0))
+
+def exchanged() -> Dict[str, int]:
+    """The bytes this rank sent or all-reduced over its space group, by kind
+    (`KINDS`), since ``profiling.reset("space.exchanged.")``."""
+    return dict.fromkeys(KINDS, 0) | profiling.counters("space.exchanged.")
 
 
 def new_group(ranks: Sequence[int], **kwargs) -> Optional[SpaceGroup]:
@@ -155,8 +158,8 @@ def _overlap(a: Tuple[int, int], b: Tuple[int, int]) -> Optional[Tuple[int, int]
 # --- transport -------------------------------------------------------------
 
 
-def _count(space: SpaceGroup, kind: str, t: torch.Tensor) -> None:
-    space.exchanged[kind] += t.numel() * t.element_size()
+def _count(kind: str, t: torch.Tensor) -> None:
+    profiling.COUNTERS[f"space.exchanged.{kind}"] += t.numel() * t.element_size()
 
 
 def _p2p(space: SpaceGroup, sends: List[Tuple[int, torch.Tensor]], recvs: List[Tuple[int, Tuple[int, ...]]],
@@ -169,7 +172,7 @@ def _p2p(space: SpaceGroup, sends: List[Tuple[int, torch.Tensor]], recvs: List[T
     ops, received = [], []
     for peer, t in sends:
         t = t.contiguous()
-        _count(space, kind, t)
+        _count(kind, t)
         ops.append(dist.P2POp(dist.isend, t.cpu() if host else t, space.ranks[peer], space.group))
     for peer, shape in recvs:
         buf = torch.empty(shape, dtype=like.dtype, device="cpu" if host else like.device)
@@ -182,7 +185,7 @@ def _p2p(space: SpaceGroup, sends: List[Tuple[int, torch.Tensor]], recvs: List[T
 
 
 def _all_reduce_(t: torch.Tensor, space: SpaceGroup, kind: str) -> torch.Tensor:
-    _count(space, kind, t)
+    _count(kind, t)
     dist.all_reduce(t, group=space.group)
     return t
 

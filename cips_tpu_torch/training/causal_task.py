@@ -64,6 +64,7 @@ from cips_tpu_torch.models.encoder import DiffusionModelEncoder
 from cips_tpu_torch.parallel import spatial
 from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam, d_remat_from, frozen, guard_nonfinite, init_models, rematted
+from cips_tpu_torch.profiling import span
 
 GENERATOR_PARTS = ("encoder", "t1_decoder", "pet_decoder")
 
@@ -212,7 +213,9 @@ def make_train_step(
     adv_loss (each times its weight) and d_loss. With ``nan_guard``, a
     non-finite total skips both optimiser steps (the step count stays) and the
     metrics gain ``skipped_nonfinite``. ``d_remat`` (`common.d_remat_from`)
-    recomputes D and LPIPS in the generator step's backward."""
+    recomputes D and LPIPS in the generator step's backward. Spans
+    (`cips_tpu_torch.profiling`) as the flagship's: ``step`` and its phases
+    ``step.{g,d}_{forward,backward,optimizer}`` and ``step.guard``, G the trio."""
     pw = float(train_cfg.get("perceptual_weight", 0.02))
     d_remat = d_remat_from(train_cfg)
     aw = float(train_cfg.get("adv_weight", 0.005))
@@ -222,54 +225,64 @@ def make_train_step(
     rows = mesh.global_rows(batch_size) if mesh is not None and mesh.distributed and batch_size else None
 
     def train_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
-        space = spatial.space_for(state.space, batch["t1"].shape[1], volume_depth)
-        with spatial.sharded((state.gen, state.d), space):
-            return sharded_step(state, batch, generator, space)
+        with span("step", state.step):
+            space = spatial.space_for(state.space, batch["t1"].shape[1], volume_depth)
+            with spatial.sharded((state.gen, state.d), space):
+                return sharded_step(state, batch, generator, space)
 
     def sharded_step(state: CausalState, batch: Mapping[str, torch.Tensor], generator: torch.Generator,
                      space: Optional[spatial.SpaceGroup]):
         t1, pet, info = batch["t1"], batch["pet"], batch["info"]
-        zero = torch.zeros((), device=t1.device)
+        dev = t1.device
+        zero = torch.zeros((), device=dev)
         gen = state.gen
 
         def noise(z: torch.Tensor, depth: Optional[int]) -> torch.Tensor:
             return _noise_like(z, generator, rows, space, depth)
 
-        state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
-            z_mu, z_sigma, t1_rec, rec_pet, eps_pet = state.gen_dp(t1, info, noise)
-            rec_pet_loss = l1_loss(rec_pet, pet, space)
-            rec_t1_loss = l1_loss(t1_rec, t1, space)
-            kl = kl_divergence(z_mu, z_sigma, space)
-            p = (rematted(lambda f: state.perceptual(f, pet, space=space), rec_pet, d_remat)
-                 if pw > 0 and state.perceptual is not None else zero)
-            adv = (patch_adversarial_loss(rematted(lambda f: state.d(f)[-1], rec_pet, d_remat), target_is_real=True,
-                                          for_discriminator=False, space=space) if aw > 0 else zero)
-            total = rec_pet_loss + pw * p + aw * adv + rec_t1_loss + kw * kl
-            total.backward()
+            with span("step.g_forward", device=dev):
+                state.opt_g.zero_grad(set_to_none=True)
+                z_mu, z_sigma, t1_rec, rec_pet, eps_pet = state.gen_dp(t1, info, noise)
+                rec_pet_loss = l1_loss(rec_pet, pet, space)
+                rec_t1_loss = l1_loss(t1_rec, t1, space)
+                kl = kl_divergence(z_mu, z_sigma, space)
+                p = (rematted(lambda f: state.perceptual(f, pet, space=space), rec_pet, d_remat)
+                     if pw > 0 and state.perceptual is not None else zero)
+                adv = (patch_adversarial_loss(rematted(lambda f: state.d(f)[-1], rec_pet, d_remat),
+                                              target_is_real=True, for_discriminator=False, space=space)
+                       if aw > 0 else zero)
+                total = rec_pet_loss + pw * p + aw * adv + rec_t1_loss + kw * kl
+            with span("step.g_backward", device=dev):
+                total.backward()
         metrics = {"g_loss": total.detach(), "rec_pet_loss": rec_pet_loss.detach(),
                    "rec_t1_loss": rec_t1_loss.detach(), "kl_loss": kl.detach(), "p_loss": p.detach() * pw,
                    "adv_loss": adv.detach() * aw}
         if nan_guard:
-            ok = guard_nonfinite(total, mesh)
+            with span("step.guard"):
+                ok = guard_nonfinite(total, mesh)
             metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
             if not ok:
                 metrics["d_loss"] = torch.tensor(float("nan"))
                 return metrics
-        state.opt_g.step()
+        with span("step.g_optimizer", device=dev):
+            state.opt_g.step()
 
         if aw > 0:
-            fake = rec_pet
-            if exact_d_fake:  # the updated generator's fake, with the PET step's noise (JAX's r_pet)
-                with torch.no_grad():
-                    z_mu, z_sigma, depth = _encode(gen, t1)
-                    fake = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info, depth=depth)
-            fake = fake.detach()
-            state.opt_d.zero_grad(set_to_none=True)
-            logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
-            d_loss = lsgan_discriminator_loss(logits_fake, logits_real, space)
-            d_loss.backward()
-            state.opt_d.step()
+            with span("step.d_forward", device=dev):
+                fake = rec_pet
+                if exact_d_fake:  # the updated generator's fake, with the PET step's noise (JAX's r_pet)
+                    with torch.no_grad():
+                        z_mu, z_sigma, depth = _encode(gen, t1)
+                        fake = gen["pet_decoder"](z_mu + eps_pet * z_sigma, info, depth=depth)
+                fake = fake.detach()
+                state.opt_d.zero_grad(set_to_none=True)
+                logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
+                d_loss = lsgan_discriminator_loss(logits_fake, logits_real, space)
+            with span("step.d_backward", device=dev):
+                d_loss.backward()
+            with span("step.d_optimizer", device=dev):
+                state.opt_d.step()
             metrics["d_loss"] = d_loss.detach()
         else:
             metrics["d_loss"] = zero

@@ -36,6 +36,7 @@ from torch import nn
 from cips_tpu_torch import default_device
 from cips_tpu_torch.models import perceptual as lpips
 from cips_tpu_torch.parallel.mesh import Mesh
+from cips_tpu_torch.profiling import span
 
 
 def rematted(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, remat: bool) -> torch.Tensor:
@@ -168,13 +169,14 @@ def mean_over_ranks(metrics: Mapping[str, torch.Tensor], mesh: Optional[Mesh] = 
     JAX step returns. The ranks of a space group hold one value (their losses are
     the whole volume's), so the mean is taken over the ranks at this rank's space
     index (``mesh.data_group``; the world without a space axis). Every rank must
-    call it at the same step (one all-reduce)."""
-    if mesh is None or not mesh.distributed:
-        return {k: float(v) for k, v in metrics.items()}
-    stacked = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(mesh.device).reshape(())
-                           for v in metrics.values()])
-    dist.all_reduce(stacked, group=mesh.data_group)
-    return dict(zip(metrics, (stacked / mesh.data_count).tolist()))
+    call it at the same step (one all-reduce). Span ``train.metric_read``."""
+    with span("train.metric_read"):
+        if mesh is None or not mesh.distributed:
+            return {k: float(v) for k, v in metrics.items()}
+        stacked = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(mesh.device).reshape(())
+                               for v in metrics.values()])
+        dist.all_reduce(stacked, group=mesh.data_group)
+        return dict(zip(metrics, (stacked / mesh.data_count).tolist()))
 
 
 def global_mean(values: Sequence[float], mesh: Optional[Mesh] = None) -> float:

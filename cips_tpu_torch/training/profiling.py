@@ -1,9 +1,10 @@
-"""Profiling utilities (port of cips_tpu/training/profiling.py).
+"""Profiling: the operator's trace (port of cips_tpu/training/profiling.py).
 
   * `trace(log_dir)`: a torch.profiler trace of the enclosed block, written as
     ``{log_dir}/trace.json`` (Chrome trace format; Perfetto reads it), the
-    card's kernels included when one is in use;
-  * `timed_steps`: wall-clock per-step statistics with warm-up skipping;
+    card's kernels included when one is in use, and on a "cips spans" track of
+    the same file the block's spans and what each counter of
+    `cips_tpu_torch.profiling` added in the block;
   * `device_memory_report()`: every visible card's allocator statistics, with
     the JAX package's keys.
 """
@@ -11,28 +12,64 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import os
-import time
-from typing import Dict, Iterable, Iterator, List
+from typing import Dict, List
 
 import torch
+
+from cips_tpu_torch.profiling import COUNTERS, Recorder, recording
+
+SPAN_TRACK = "cips spans"
+
+
+def _write_spans(path: str, rec: Recorder, counts: Dict[str, tuple]) -> None:
+    """Add ``rec``'s spans to the Chrome trace at ``path`` as complete events on
+    a process of their own, named `SPAN_TRACK`, on the trace's clock, and each
+    of ``counts`` (a counter's name: its start and end ns, and what it added)
+    as a counter event that steps from 0 to what it added."""
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    events = doc.setdefault("traceEvents", [])
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = 1 + max([e["pid"] for e in events if isinstance(e.get("pid"), int)], default=0)
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0, "args": {"name": SPAN_TRACK}})
+    for i, s in enumerate(rec.spans):
+        events.append({"ph": "X", "cat": "cips", "name": s.name, "pid": pid, "tid": 0,
+                       "ts": (s.start_ns - base) / 1e3, "dur": s.ns / 1e3,
+                       "args": {"id": i, "parent": s.parent, "seq": s.seq, "device_ms": s.device_ms}})
+    for name, (start_ns, end_ns, added) in sorted(counts.items()):
+        for ns, value in ((start_ns, 0), (end_ns, added)):
+            events.append({"ph": "C", "cat": "cips", "name": name, "pid": pid, "tid": 0,
+                           "ts": (ns - base) / 1e3, "args": {"value": value}})
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a torch.profiler trace (host ops, and the card's kernels when CUDA
-    is available) of the enclosed block into ``{log_dir}/trace.json``."""
+    is available) of the enclosed block, and the block's spans and counts, into
+    ``{log_dir}/trace.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     prof = profile(activities=activities)
-    prof.start()
-    try:
-        yield prof
-    finally:
-        prof.stop()
-        os.makedirs(log_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with recording() as rec:
+        prof.start()
+        before, start_ns = dict(COUNTERS), rec.now_ns()
+        try:
+            yield prof
+        finally:
+            end_ns = rec.now_ns()
+            prof.stop()
+            rec.resolve()
+            counts = {k: (start_ns, end_ns, v - before.get(k, 0)) for k, v in COUNTERS.items()
+                      if v != before.get(k, 0)}
+            os.makedirs(log_dir, exist_ok=True)
+            path = os.path.join(log_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            _write_spans(path, rec, counts)
 
 
 def device_memory_report() -> List[Dict]:
@@ -53,37 +90,3 @@ def device_memory_report() -> List[Dict]:
             "bytes_free": free,
         })
     return out
-
-
-class timed_steps:
-    """Wrap a step iterable; collects per-step wall time (the caller makes each
-    step's device work finish inside the loop: a host read or a synchronize).
-
-    t = timed_steps(loader.epoch(e))
-    for batch in t: ...
-    print(t.report())
-    """
-
-    def __init__(self, iterable: Iterable, warmup: int = 2):
-        self._it = iterable
-        self.warmup = warmup
-        self.times: List[float] = []
-
-    def __iter__(self) -> Iterator:
-        last = time.perf_counter()
-        for item in self._it:
-            yield item
-            now = time.perf_counter()
-            self.times.append(now - last)
-            last = now
-
-    def report(self) -> Dict[str, float]:
-        steady = self.times[self.warmup :] or self.times
-        if not steady:
-            return {"steps": 0}
-        return {
-            "steps": len(self.times),
-            "mean_s": sum(steady) / len(steady),
-            "min_s": min(steady),
-            "max_s": max(steady),
-        }

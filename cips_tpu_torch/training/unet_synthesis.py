@@ -56,6 +56,7 @@ from cips_tpu_torch.models.discriminator import PatchDiscriminator
 from cips_tpu_torch.parallel import spatial
 from cips_tpu_torch.parallel.mesh import Mesh, data_parallel
 from cips_tpu_torch.training.common import adam, d_remat_from, frozen, guard_nonfinite, init_models, rematted
+from cips_tpu_torch.profiling import span
 
 VOLUME_SHAPE = (96, 128, 96)
 
@@ -177,7 +178,10 @@ def make_train_step(
     JAX reports it), adv_loss and d_loss, the last two times adv_weight. With
     ``nan_guard``, a non-finite g_loss skips both optimiser steps (the step
     count stays) and the metrics gain ``skipped_nonfinite``. ``d_remat``
-    (`common.d_remat_from`) recomputes D and LPIPS in the G step's backward."""
+    (`common.d_remat_from`) recomputes D and LPIPS in the G step's backward.
+    Spans (`cips_tpu_torch.profiling`): ``step`` (its ``seq`` the step count before
+    it) and its phases ``step.{g,d}_{forward,backward,optimizer}`` and
+    ``step.guard``."""
     pw, aw = _weights(train_cfg)
     d_remat = d_remat_from(train_cfg)
     if exact_d_fake is None:
@@ -186,48 +190,57 @@ def make_train_step(
         split_d = bool(train_cfg.get("split_d", False))
 
     def train_step(state: GANState, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        space = spatial.space_for(state.space, batch["t1"].shape[1], volume_depth)
-        with spatial.sharded((state.g, state.d), space):
-            return sharded_step(state, batch, space)
+        with span("step", state.step):
+            space = spatial.space_for(state.space, batch["t1"].shape[1], volume_depth)
+            with spatial.sharded((state.g, state.d), space):
+                return sharded_step(state, batch, space)
 
     def sharded_step(state: GANState, batch: Mapping[str, torch.Tensor],
                      space: Optional[spatial.SpaceGroup]) -> Dict[str, torch.Tensor]:
         t1, pet = batch["t1"], batch["pet"]
+        dev = t1.device
         cond = _condition(batch, use_condition)
-        zero = torch.zeros((), device=t1.device)
+        zero = torch.zeros((), device=dev)
 
-        state.opt_g.zero_grad(set_to_none=True)
         with frozen(state.d):
-            fake = state.g_dp(t1, cond)
-            rec = l1_loss(fake, pet, space)
-            p = _perceptual(state, pw, fake, pet, space, d_remat)
-            adv = (patch_adversarial_loss(rematted(lambda f: state.d(f)[-1], fake, d_remat), target_is_real=True,
-                                          for_discriminator=False, space=space) if aw > 0 else zero)
-            g_loss = rec + pw * p + aw * adv
-            g_loss.backward()
+            with span("step.g_forward", device=dev):
+                state.opt_g.zero_grad(set_to_none=True)
+                fake = state.g_dp(t1, cond)
+                rec = l1_loss(fake, pet, space)
+                p = _perceptual(state, pw, fake, pet, space, d_remat)
+                adv = (patch_adversarial_loss(rematted(lambda f: state.d(f)[-1], fake, d_remat), target_is_real=True,
+                                              for_discriminator=False, space=space) if aw > 0 else zero)
+                g_loss = rec + pw * p + aw * adv
+            with span("step.g_backward", device=dev):
+                g_loss.backward()
         metrics = {"g_loss": g_loss.detach(), "rec_loss": rec.detach(), "p_loss": p.detach(),
                    "adv_loss": adv.detach() * aw}
         if nan_guard:
-            ok = guard_nonfinite(g_loss, mesh)
+            with span("step.guard"):
+                ok = guard_nonfinite(g_loss, mesh)
             metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
             if not ok:
                 metrics["d_loss"] = torch.tensor(float("nan"))
                 return metrics
-        state.opt_g.step()
+        with span("step.g_optimizer", device=dev):
+            state.opt_g.step()
 
         if aw > 0:
-            if exact_d_fake:
-                with torch.no_grad():
-                    fake = state.g(t1, cond)
-            fake = fake.detach()
-            state.opt_d.zero_grad(set_to_none=True)
-            if split_d:
-                logits_fake, logits_real = state.d_dp(fake)[-1], state.d_dp(pet)[-1]
-            else:
-                logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
-            d_loss = lsgan_discriminator_loss(logits_fake, logits_real, space)
-            d_loss.backward()
-            state.opt_d.step()
+            with span("step.d_forward", device=dev):
+                if exact_d_fake:
+                    with torch.no_grad():
+                        fake = state.g(t1, cond)
+                fake = fake.detach()
+                state.opt_d.zero_grad(set_to_none=True)
+                if split_d:
+                    logits_fake, logits_real = state.d_dp(fake)[-1], state.d_dp(pet)[-1]
+                else:
+                    logits_fake, logits_real = state.d_dp(torch.cat([fake, pet], dim=0))[-1].chunk(2, dim=0)
+                d_loss = lsgan_discriminator_loss(logits_fake, logits_real, space)
+            with span("step.d_backward", device=dev):
+                d_loss.backward()
+            with span("step.d_optimizer", device=dev):
+                state.opt_d.step()
             metrics["d_loss"] = d_loss.detach() * aw
         else:
             metrics["d_loss"] = zero

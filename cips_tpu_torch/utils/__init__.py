@@ -24,4 +24,4 @@ from cips_tpu_torch.training.common import (  # noqa: F401
     StepTimer,
     guard_nonfinite,
 )
-from cips_tpu_torch.training.profiling import device_memory_report, timed_steps, trace  # noqa: F401
+from cips_tpu_torch.training.profiling import device_memory_report, trace  # noqa: F401

@@ -18,6 +18,7 @@ from cips_tpu.ops.pallas.flash_attention import _flash_forward
 from cips_tpu_torch.ops import attention
 from cips_tpu_torch.ops import flash_attention as fa
 from cips_tpu_torch.scripts import time_flash_f32
+from cips_tpu_torch import profiling
 
 
 def _qkv(shape, seed=0, lk=None):
@@ -113,10 +114,10 @@ def test_fp32_forward_timing_copies_edit_the_source():
 
 def test_wrapper_takes_plain_version_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 2, 100, 32), seed=2))
-    before = fa.flash_attention_forward.launches
+    before = profiling.COUNTERS["flash.fwd.launches"]
     out, lse = fa.flash_attention_forward(q, k, v)
     want_out, want_lse = fa.flash_attention_reference(q, k, v, 1.0 / 32**0.5)
-    assert fa.flash_attention_forward.launches == before
+    assert profiling.COUNTERS["flash.fwd.launches"] == before
     assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
     assert out.shape == (1, 2, 100, 32) and lse.shape == (1, 2, 100) and lse.dtype == torch.float32
 
@@ -166,10 +167,10 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol):
         kshape = shape if lk is None else (*shape[:2], lk, shape[3])
         q = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
         k, v = (torch.randn(kshape, device=cuda_device, generator=g).to(dtype) for _ in range(2))
-        before = fa.flash_attention_forward.launches
+        before = profiling.COUNTERS["flash.fwd.launches"]
         out, lse = fa.flash_attention_forward(q, k, v)
         torch.cuda.synchronize()
-        assert fa.flash_attention_forward.launches == before + 1
+        assert profiling.COUNTERS["flash.fwd.launches"] == before + 1
         ref_out, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), shape[-1] ** -0.5)
         assert (out.float() - ref_out).abs().max().item() <= tol * ref_out.abs().max().item()
         assert (lse - ref_lse).abs().max().item() <= 1e-4
@@ -196,9 +197,9 @@ def test_kernel_rejects_bad_inputs_on_card(cuda_device):
         assert (lse - ref_lse).abs().max().item() <= 1e-4
     # Inputs that need a gradient are served: FlashAttention records the backward.
     qg = q.clone().requires_grad_()
-    before = fa.flash_attention_forward.launches
+    before = profiling.COUNTERS["flash.fwd.launches"]
     out, _ = fa.flash_attention_forward(qg, q, q)
-    assert fa.flash_attention_forward.launches == before + 1 and out.shape == q.shape
+    assert profiling.COUNTERS["flash.fwd.launches"] == before + 1 and out.shape == q.shape
     assert fa.FlashAttention.apply(qg, q, q, 32**-0.5).requires_grad
 
 
@@ -218,10 +219,10 @@ def test_fp32_kernel_matches_plain_version_and_model_on_card(cuda_device):
         q = torch.randn(shape, device=cuda_device, generator=g)
         k, v = (torch.randn(kshape, device=cuda_device, generator=g) for _ in range(2))
         scale = shape[-1] ** -0.5 if scale is None else scale
-        before = fa.flash_attention_forward.launches
+        before = profiling.COUNTERS["flash.fwd.launches"]
         out, lse = fa.flash_attention_forward(q, k, v, scale)
         torch.cuda.synchronize()
-        assert fa.flash_attention_forward.launches == before + 1
+        assert profiling.COUNTERS["flash.fwd.launches"] == before + 1
         for ref_out, ref_lse in (fa.flash_attention_reference(q, k, v, scale),
                                  fa.flash_attention_tf32x3_reference(q, k, v, scale)):
             rel = ((out - ref_out).abs().max() / ref_out.abs().max()).item()

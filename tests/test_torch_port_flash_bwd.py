@@ -23,6 +23,7 @@ from cips_tpu.ops.pallas.flash_attention import _flash_backward_pallas, _flash_f
 from cips_tpu_torch.ops import cuda_library as cl
 from cips_tpu_torch.ops import flash_attention as fa
 from cips_tpu_torch.scripts import time_flash_f32
+from cips_tpu_torch import profiling
 
 CASES = [((1, 2, 512, 32), 128, 256), ((2, 1, 256, 64), 64, 128)]
 
@@ -114,12 +115,12 @@ def test_autograd_function_matches_jax_grad(shape):
 
     want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
-    before = (fa.flash_attention_forward.launches, fa.flash_attention_bwd_dq.launches,
-              fa.flash_attention_bwd_dkv.launches)
+    before = (profiling.COUNTERS["flash.fwd.launches"], profiling.COUNTERS["flash.dq.launches"],
+              profiling.COUNTERS["flash.dkv.launches"])
     out = fa.FlashAttention.apply(tq, tk, tv, scale)
     got = torch.autograd.grad(((out - torch.from_numpy(tgt)) ** 2).sum(), (tq, tk, tv))
-    assert (fa.flash_attention_forward.launches, fa.flash_attention_bwd_dq.launches,
-            fa.flash_attention_bwd_dkv.launches) == before  # the CPU takes the plain versions
+    assert (profiling.COUNTERS["flash.fwd.launches"], profiling.COUNTERS["flash.dq.launches"],
+            profiling.COUNTERS["flash.dkv.launches"]) == before  # the CPU takes the plain versions
     for name, w, t in zip(("dq", "dk", "dv"), want, got):
         w = np.asarray(w)
         np.testing.assert_allclose(t.numpy(), w, atol=1e-5 * np.abs(w).max(), rtol=0, err_msg=name)
@@ -289,11 +290,11 @@ def test_bwd_kernels_match_plain_version_on_card(cuda_device, dtype, tol):
         scale = scales[0] if scales else shape[-1] ** -0.5
         out, lse = fa.flash_attention_forward(q, k, v, scale)
         delta = (dout.float() * out.float()).sum(-1)
-        before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+        before = (profiling.COUNTERS["flash.dq.launches"], profiling.COUNTERS["flash.dkv.launches"])
         got = (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale),
                *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale))
         torch.cuda.synchronize()
-        assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (
+        assert (profiling.COUNTERS["flash.dq.launches"], profiling.COUNTERS["flash.dkv.launches"]) == (
             before[0] + 1, before[1] + 1)
         f32 = [t.float() for t in (q, k, v, dout)]
         want = (fa.flash_attention_bwd_dq_reference(*f32, lse, delta, scale),
@@ -313,9 +314,9 @@ def test_bwd_kernels_match_plain_version_on_card(cuda_device, dtype, tol):
 def test_function_launches_the_bwd_kernels_on_card(cuda_device):
     q, k, v = (torch.randn((2, 4, 256, 32), device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
                for _ in range(3))
-    before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    before = (profiling.COUNTERS["flash.dq.launches"], profiling.COUNTERS["flash.dkv.launches"])
     out = fa.FlashAttention.apply(q, k, v, 32**-0.5)
     out.float().square().sum().backward()
-    assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (
+    assert (profiling.COUNTERS["flash.dq.launches"], profiling.COUNTERS["flash.dkv.launches"]) == (
         before[0] + 1, before[1] + 1)
     assert all(t.grad is not None and t.grad.dtype == torch.bfloat16 for t in (q, k, v))

@@ -49,6 +49,7 @@ from cips_tpu_torch.models.blocks import AttentionBlock, GroupNorm, SpatialTrans
 from cips_tpu_torch.models.discriminator import InstanceNorm
 from cips_tpu_torch.parallel import dryrun, spatial
 from cips_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from cips_tpu_torch import profiling
 from cips_tpu_torch.training import unet_synthesis
 from cips_tpu_torch.training.common import CheckpointManager, mean_over_ranks
 
@@ -230,10 +231,10 @@ def _flagship_runs(spec, mesh, cases):
         grads, metrics, exchanged = [], [], []
         for batch in spec["batches"][: 2 if case == "plain" else 1]:
             if state.space is not None:
-                state.space.reset()
+                profiling.reset("space.exchanged.")
             rows = shard_batch(mesh, batch, spatial_axis=1) if mesh is not None else batch
             metrics.append(mean_over_ranks(step(state, _torch(rows)), mesh))
-            exchanged.append(dict(state.space.exchanged) if state.space is not None else {})
+            exchanged.append(spatial.exchanged() if state.space is not None else {})
             grads.append(_grads(_nets(state)))
         out[case] = (_params(_nets(state)), grads, metrics, exchanged)
     return out

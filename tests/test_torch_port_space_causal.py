@@ -44,6 +44,7 @@ import torch.distributed as dist
 from cips_tpu_torch.models.blocks import avg_pool_2x, nearest_upsample_2x
 from cips_tpu_torch.parallel import dryrun, spatial
 from cips_tpu_torch.parallel.mesh import shard_batch
+from cips_tpu_torch import profiling
 from cips_tpu_torch.training import causal_task, unet_synthesis
 from cips_tpu_torch.training.common import mean_over_ranks
 
@@ -200,10 +201,10 @@ def _causal_runs(spec, mesh, cases):
         try:
             for batch in steps:
                 if state.space is not None:
-                    state.space.reset()
+                    profiling.reset("space.exchanged.")
                 rows = shard_batch(mesh, batch, spatial_axis=1) if mesh is not None else batch
                 metrics.append(mean_over_ranks(step(state, _torch(rows), torch.Generator()), mesh))
-                exchanged.append(dict(state.space.exchanged) if state.space is not None else {})
+                exchanged.append(spatial.exchanged() if state.space is not None else {})
                 grads.append(_grads(nets))
         finally:
             causal_task.sample_noise = replaced
@@ -239,10 +240,10 @@ def _flagship_runs(spec, mesh, cases):
         grads, metrics, exchanged = [], [], []
         for batch in spec["flagship"][case]["batches"]:
             if state.space is not None:
-                state.space.reset()
+                profiling.reset("space.exchanged.")
             rows = shard_batch(mesh, batch, spatial_axis=1) if mesh is not None else batch
             metrics.append({k: float(v) for k, v in step(state, _torch(rows)).items()})  # data 1: the batch's
-            exchanged.append(dict(state.space.exchanged) if state.space is not None else {})
+            exchanged.append(spatial.exchanged() if state.space is not None else {})
             grads.append(_grads(nets))
         out[case] = (_params(nets), grads, metrics, exchanged)
     return out
