@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py group_norm   # phases 1, 2 and phase 3's group norm part alone
 
 Phases (any failure raises and the script exits non-zero):
   1. device   — the card's name and power limit; TF32 off for the fp32 checks;
@@ -29,7 +30,15 @@ Phases (any failure raises and the script exits non-zero):
                 its plain version's time (flagship shape only) and the fastest
                 of SDPA's flash, efficient and cuDNN backends, each pinned and,
                 at the flagship's shape, first held to the plain versions
-                (library yardstick);
+                (library yardstick); then the group norm kernels
+                (csrc/group_norm.cu: forward and backward, with SiLU or
+                LeakyReLU) at the cells' norms (GN_SHAPES, batch 4, bf16,
+                channels last as the models' activations lie), each held to
+                the plain version against the fp32 plain graph (y, dx, dw, db)
+                and timed (device time, forward and backward apart) beside its
+                bytes bound, the kernels' time on the NCDHW copy, the plain
+                version's and one PyTorch call's (F.group_norm, then the
+                activation) on both layouts, with their ptxas report;
   4. serving  — cips_tpu_torch.cli.output_predict at the flagship's full width
                 and the full (96, 128, 96) volume in bf16 on a synthetic NIfTI
                 tree, with seeded random weights; checks outputs, metrics and
@@ -159,6 +168,13 @@ Phases (any failure raises and the script exits non-zero):
                 replicas, the trio and D each alone (probe_space_kink --task causal);
  18. summary  — a JSON line of kernels, the card line, and the result line.
 
+Every path from phase 4 on that a CLI or a dry run drives on the card counts its
+group norm calls (`norm_path`, `rank_norms`): the kernels forward (and backward
+where it trains), no call of the plain version, and in each train step as many
+forward launches as norm modules called and as many backward launches as autograd
+recorded (a forward pre-hook counts the calls); the kernels line gives each path's
+counts.
+
 Imports nothing of JAX or of the JAX package. Exits non-zero without CUDA.
 """
 
@@ -178,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -376,6 +393,23 @@ FP32_NOISE = 4
 # forward) and TOL_GRAD_MODEL_REL (D's step on one input); a wrong function moves either by O(1).
 TOL_BMGAN_F32_GRAD_NORM = {"g": 5e-2, "e": 2e-3, "d": 1e-2}
 EVENT_TIMED: list = []  # calls that device_ms timed by CUDA events, the profiler having seen none of their work
+# The group norm kernels at the cells' norms, batch 4, bf16: (label, (N, C, *S), groups,
+# activation). The flagship's AttenUNet (16 groups) at levels 0-2, the causal encoder at its
+# full and half volume (16 groups), the decoders (32 groups), the discriminators' InstanceNorm
+# with LeakyReLU, the two deepest at odd sizes (no 16-byte path).
+GN_SHAPES = (
+    ("flagship level 0", (4, 16, 96, 128, 96), 16, "silu"),
+    ("flagship level 1", (4, 32, 48, 64, 48), 16, "silu"),
+    ("flagship level 2", (4, 64, 24, 32, 24), 16, "silu"),
+    ("causal encoder level 0", (4, 64, 96, 128, 96), 16, "silu"),
+    ("causal encoder level 1", (4, 128, 48, 64, 48), 16, "silu"),
+    ("PET decoder level 2", (4, 32, 96, 128, 96), 32, "silu"),
+    ("decoders level 1", (4, 64, 48, 64, 48), 32, "silu"),
+    ("D norm_1", (4, 128, 24, 32, 24), 128, "leaky_relu"),
+    ("causal D penultimate", (4, 256, 23, 31, 23), 256, "leaky_relu"),
+    ("flagship D penultimate", (4, 512, 11, 15, 11), 512, "leaky_relu"),
+)
+GN_BYTES = {"fwd": 4, "bwd": 6}  # bf16 bytes an element: x read, y written; x and dy read, dx written
 # Phase conv product variants against their plain version in fp32 from the same
 # inputs, relative to max|out|: bf16 rounds the fp32 sum to bf16 once at the end
 # (2^-9 relative) and both sum 8 taps of pc products in other orders; the worst
@@ -696,36 +730,121 @@ def counts() -> tuple:
     return tuple(profiling.COUNTERS[k] for k in FLASH_COUNTS)
 
 
-def set_counts(values) -> None:
+# The group norm's counters: kernel calls forward and backward, and calls of the plain version,
+# which no bf16 or fp32 norm on the card may take.
+NORM_COUNTS = ("group_norm.fwd.launches", "group_norm.bwd.launches", "group_norm.plain.calls")
+NORM_PATHS: dict = {}  # {path: its run's group norm launches}, for the kernels line
+
+
+def norm_counts() -> tuple:
+    """(forward, backward, plain) group norm counts."""
     from cips_tpu_torch import profiling
 
-    profiling.COUNTERS.update(dict(zip(FLASH_COUNTS, values)))
+    return tuple(profiling.COUNTERS[k] for k in NORM_COUNTS)
+
+
+def set_counts(values, norms=(0, 0, 0)) -> None:
+    """Sets the flash (forward, dQ, dK/dV) and the group norm (forward, backward, plain) counts."""
+    from cips_tpu_torch import profiling
+
+    for key, value in zip(FLASH_COUNTS + NORM_COUNTS, (*values, *norms)):  # assigned: a Counter's update() adds
+        profiling.COUNTERS[key] = value
 
 
 @contextlib.contextmanager
 def uncounted():
     """Launches inside the block (checks, timing) leave the counts as they were."""
-    saved = counts()
+    saved, saved_norms = counts(), norm_counts()
     try:
         yield
     finally:
-        set_counts(saved)
+        set_counts(saved, saved_norms)
 
 
 @contextlib.contextmanager
-def step_launches(record: list, task):
+def norm_calls():
+    """Counts the norm modules' calls inside the block (`blocks.GroupNorm`, and
+    `InstanceNorm` on it), by a forward pre-hook on every module: yields
+    [calls, calls that autograd records], the second being those whose backward
+    runs in the step."""
+    from torch.nn.modules.module import register_module_forward_pre_hook
+    from cips_tpu_torch.models.blocks import GroupNorm
+
+    seen = [0, 0]
+
+    def hook(module, args):
+        if isinstance(module, GroupNorm):
+            seen[0] += 1
+            seen[1] += torch.is_grad_enabled() and (args[0].requires_grad
+                                                    or any(p.requires_grad for p in module.parameters()))
+
+    handle = register_module_forward_pre_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def norm_step(seen: list, before: tuple) -> dict:
+    """One step's norm calls (`norm_calls`) beside the group norm counters' growth since ``before``."""
+    grown = [a - b for a, b in zip(norm_counts(), before)]
+    return {"calls": seen[0], "recorded": seen[1], "fwd": grown[0], "bwd": grown[1], "plain": grown[2]}
+
+
+def check_norm_steps(steps: list, label: str) -> list:
+    """Every step ran each of its norm calls through the kernels: the forward
+    launches equal its norm calls (at least one), the backward launches the calls
+    that autograd recorded, and the plain version ran on nothing. Returns the
+    distinct (calls, forward, backward) a step."""
+    check(bool(steps), f"{label}: no train step recorded its norms")
+    for i, st in enumerate(steps):
+        check(st["calls"] > 0 and st["fwd"] == st["calls"] and st["bwd"] == st["recorded"] and st["plain"] == 0,
+              f"{label} step {i}: {st['calls']} norm calls ({st['recorded']} recorded by autograd) but group norm "
+              f"launches {st['fwd']} forward / {st['bwd']} backward and {st['plain']} plain-version calls")
+    return sorted({(st["calls"], st["fwd"], st["bwd"]) for st in steps})
+
+
+def norm_path(label: str, backward: bool, steps: Optional[list] = None, counted: Optional[tuple] = None) -> dict:
+    """The group norm counts of the path that ran since `set_counts` zeroed them
+    (or ``counted``, a rank's): kernels forward (and backward where the path
+    trains, none where it does not), and no plain-version call; with each train
+    step's (`check_norm_steps`). Recorded in NORM_PATHS under ``label``."""
+    fwd, bwd, plain = counted if counted is not None else norm_counts()
+    check(fwd > 0 and (bwd > 0) == backward and plain == 0,
+          f"{label}: group norm launches {fwd} forward / {bwd} backward and {plain} plain-version calls")
+    entry = {"fwd": fwd, "bwd": bwd, "plain": plain}
+    if steps is not None:
+        entry["per_step"] = check_norm_steps(steps, label)
+    print(f"{label}: group norm launches {fwd} forward / {bwd} backward, no plain-version call"
+          + (f"; per step (calls, forward, backward) {entry['per_step']}" if steps is not None else ""))
+    NORM_PATHS[label] = entry
+    return entry
+
+
+def rank_norms(record: dict, label: str) -> dict:
+    """`norm_path` for a training rank's record (`dp_rank_main`, `recorded_dryrun_rank`)."""
+    steps = record.get("norm_steps") or [st["norms"] for st in record["steps"]]
+    return norm_path(label, True, steps, tuple(record["norms"]))
+
+
+@contextlib.contextmanager
+def step_launches(record: list, task, norms: Optional[list] = None):
     """Each train step that a train CLI runs inside the block appends its own
-    (forward, dQ, dK/dV) launches to ``record``: wraps the step that
-    ``task.make_train_step`` returns (``task``: `unet_synthesis` or `causal_task`)."""
+    (forward, dQ, dK/dV) launches to ``record``, and its norms (`norm_step`) to
+    ``norms`` when given: wraps the step that ``task.make_train_step`` returns
+    (``task``: `unet_synthesis`, `causal_task` or `classifier_task`)."""
     make_train_step = task.make_train_step
 
     def counted_make(*args, **kwargs):
         step = make_train_step(*args, **kwargs)
 
         def counted(*step_args):
-            before = counts()
-            out = step(*step_args)
+            before, norms_before = counts(), norm_counts()
+            with norm_calls() as seen:
+                out = step(*step_args)
             record.append(tuple(a - b for a, b in zip(counts(), before)))
+            if norms is not None:
+                norms.append(norm_step(seen, norms_before))
             return out
 
         return counted
@@ -805,6 +924,135 @@ def bwd_kernel_checks(fa) -> dict:
         print(f"bwd kernels {shape} Lk {k.shape[2]} scale {scale:.4g} {str(dtype)[6:]} (tol {tol:g} of max|grad|): "
               + "; ".join(errs))
     return worst
+
+
+def group_norm_report(report: str) -> None:
+    """The group norm kernels' registers and spills (none allowed) from nvcc's
+    -Xptxas -v report, the most over each kernel's instances (dtype, vector width,
+    activation)."""
+    worst = {}
+    for name, body in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)(?=Compiling entry|\Z)",
+                                 report, flags=re.S):
+        kernel = re.search(r"group_norm_((?:cl_)?(?:moments_partial|apply|bwd_partial|bwd_dx)|moments_group|bwd_channel)",
+                           name)
+        if kernel is None:
+            continue
+        regs = int(re.search(r"Used (\d+) registers", body).group(1))
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        check(spills is None or spills.groups() == ("0", "0"), f"ptxas reports spills in {name}")
+        count, most = worst.get(kernel.group(1), (0, 0))
+        worst[kernel.group(1)] = (count + 1, max(most, regs))
+    for kernel, (count, regs) in worst.items():
+        print(f"ptxas group_norm_{kernel}: {count} instances, at most {regs} registers, no spills")
+    if "nvcc done" in report:
+        check(sum(c for c, _ in worst.values()) == 62, f"the build report names {worst} group norm kernels, not 62")
+
+
+def group_norm_phase(card: str) -> dict:
+    """The group norm kernels at GN_SHAPES, channels last as the models' activations
+    lie: held to the plain version against the fp32 plain graph (y within 2^-7 of
+    max|y| of the plain version's y and no farther from the graph than 1.01x its
+    distance; dx, dw, db no farther; relative in the 2-norm; a LeakyReLU takes the
+    branch of the bf16 forward), then each pass's device time beside its bytes
+    bound, the same kernels' on the NCDHW copy ("rows"), the plain version's and
+    the library's (F.group_norm, then the activation) on both layouts ("library",
+    "library_rows"); {label: row}."""
+    import torch.nn.functional as F
+    from cips_tpu_torch.ops import group_norm as gn
+
+    library_act = {"silu": F.silu, "leaky_relu": lambda t: F.leaky_relu(t, 0.2)}
+    rows = {}
+    for label, shape, groups, act in GN_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(len(rows))
+        cl = torch.channels_last_3d
+        x = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3).to(torch.bfloat16)
+        x = x.contiguous(memory_format=cl).requires_grad_(True)
+        dy = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(memory_format=cl)
+        check(gn.takes_channels_last(x), f"group norm {label}: the channels-last kernels refuse {tuple(shape)}")
+        rows_x, rows_dy = x.detach().contiguous().requires_grad_(True), dy.contiguous()
+        w = (torch.randn(shape[1], device="cuda", generator=g) * 0.5 + 1.0).requires_grad_(True)
+        b = (torch.randn(shape[1], device="cuda", generator=g) * 0.5).requires_grad_(True)
+        fns = {"kernel": lambda t: gn.group_norm(t, w, b, groups, 1e-6, act),
+               "plain": lambda t: gn.group_norm_reference(t, w, b, groups, 1e-6, act),
+               "library": lambda t: library_act[act](F.group_norm(t, groups, w.to(t.dtype), b.to(t.dtype), 1e-6))}
+        grads, outs = {}, {}
+        for name in ("kernel", "plain"):
+            outs[name] = fns[name](x)
+            grads[name] = torch.autograd.grad(outs[name], (x, w, b), dy)
+            outs[name] = outs[name].detach()
+        # the fp32 graph; its LeakyReLU takes the bf16 forward's branch, as where rounding moves z
+        # across 0 both bf16 paths share the other slope's error
+        with torch.no_grad():
+            branch = gn.group_norm_reference(x, w, b, groups, 1e-6) > 0
+        x32 = x.detach().float().requires_grad_(True)
+        z32 = gn.group_norm_reference(x32, w, b, groups, 1e-6)
+        y32 = torch.where(branch, z32, z32 * gn.LEAKY_SLOPE) if act == "leaky_relu" else gn.activate(z32, act)
+        want = torch.autograd.grad(y32, (x32, w, b), dy.float())
+        errs, y_errs = {}, {}
+        for name, got in grads.items():
+            errs[name] = [((a.double() - r.double()).norm() / r.double().norm()).item() for a, r in zip(got, want)]
+            y_errs[name] = ((outs[name].double() - y32.double()).norm() / y32.double().norm()).item()
+        y_gap = (outs["kernel"].float() - outs["plain"].float()).abs().max().item()
+        y_scale = outs["plain"].float().abs().max().item()
+        del grads, want, x32, z32, y32, outs
+        check(y_gap <= 2.0**-7 * y_scale and y_errs["kernel"] <= 1.01 * y_errs["plain"],
+              f"group norm {label}: the kernels' y lies {y_gap} from the plain version's (max |y| {y_scale}) and "
+              f"{y_errs['kernel']} from the fp32 graph, the plain version's {y_errs['plain']}")
+        check(all(k <= p + 1e-7 for k, p in zip(errs["kernel"], errs["plain"])),
+              f"group norm {label}: the kernels' (dx, dw, db) {errs['kernel']} farther from the fp32 graph than the "
+              f"plain version's {errs['plain']}")
+        bound = {k: x.numel() * v / H100_BYTES_PER_S * 1e3 for k, v in GN_BYTES.items()}
+        row = {"shape": shape, "groups": groups, "act": act, "bound_ms": bound,
+               "rel_err": {"kernel": errs["kernel"], "plain": errs["plain"]},
+               "y_err": {"max_gap": y_gap, "max_abs": y_scale, "kernel": y_errs["kernel"], "plain": y_errs["plain"]}}
+        for name, fn, xi, dyi in [(name, fn, x, dy) for name, fn in fns.items()] + [
+                ("kernel_rows", fns["kernel"], rows_x, rows_dy), ("library_rows", fns["library"], rows_x, rows_dy)]:
+            with torch.no_grad():
+                fwd = device_ms(lambda: fn(xi), 20, floor=bound["fwd"])
+            y = fn(xi)
+            bwd = device_ms(lambda: torch.autograd.grad(y, (xi, w, b), dyi, retain_graph=True), 20,
+                            floor=bound["bwd"])
+            row[name] = {"fwd_ms": fwd, "bwd_ms": bwd}
+            del y
+        k = row["kernel"]
+        # the library at its faster layout, each pass apart
+        best = {p: min(row["library"][p], row["library_rows"][p]) for p in ("fwd_ms", "bwd_ms")}
+        row["library_best"] = best
+        print(f"group norm {label} {tuple(shape)} G {groups} {act}: kernel fwd {k['fwd_ms']:.4f} / bwd "
+              f"{k['bwd_ms']:.4f} ms ({100 * bound['fwd'] / k['fwd_ms']:.1f} / "
+              f"{100 * bound['bwd'] / k['bwd_ms']:.1f} % of the bytes bound {bound['fwd']:.4f} / "
+              f"{bound['bwd']:.4f}); rows {row['kernel_rows']['fwd_ms']:.4f} / {row['kernel_rows']['bwd_ms']:.4f}; "
+              f"plain {row['plain']['fwd_ms']:.4f} / {row['plain']['bwd_ms']:.4f}; library channels last "
+              f"{row['library']['fwd_ms']:.4f} / {row['library']['bwd_ms']:.4f}, rows "
+              f"{row['library_rows']['fwd_ms']:.4f} / {row['library_rows']['bwd_ms']:.4f} (kernel "
+              f"{k['fwd_ms'] / best['fwd_ms']:.2f}x / {k['bwd_ms'] / best['bwd_ms']:.2f}x of the faster); y gap "
+              f"{y_gap:.3e} of max {y_scale:.3e}, rel err y kernel {y_errs['kernel']:.2e}, plain "
+              f"{y_errs['plain']:.2e}; rel err (dx, dw, db) kernel "
+              f"{', '.join(f'{e:.2e}' for e in errs['kernel'])}, plain {', '.join(f'{e:.2e}' for e in errs['plain'])}"
+              f"; {card}")
+        rows[label] = row
+        del x, dy, rows_x, rows_dy
+        torch.cuda.empty_cache()
+    return rows
+
+
+def group_norm_main() -> int:
+    """Phases 1 and 2, then phase 3's group norm part; one JSON line of its rows."""
+    from cips_tpu_torch.ops import cuda_library
+
+    phase("1 device")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase("2 build")
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        cuda_library.build(verbose=True)
+    group_norm_report(report.getvalue())
+    phase("3 group norm")
+    rows = group_norm_phase(card)
+    print(json.dumps({"group_norm": rows, "event_timed": len(EVENT_TIMED)}))
+    print(card)
+    return 0
 
 
 def sm90_kernel_report(report: str, fa, pc) -> None:
@@ -1369,6 +1617,7 @@ def causal_serving(fa, cfg: dict, states: dict, tree: dict, args: list, tmp: str
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launched = counts()  # the causal serving path's run
+    norm_path("causal serving", backward=False)
     print(f"causal serving: gen_test_causal, {N_SUBJECTS} volumes in {elapsed:.3f} s = {N_SUBJECTS / elapsed:.3f} "
           f"vol/s end to end (set-up, the first forward and the NIfTI writes included); batch {SERVING_BATCH}, "
           f"bf16; launches (forward, dQ, dK/dV) {launched} over {forwards} generator forwards; metrics "
@@ -1505,6 +1754,7 @@ def import_phase(fa, base: str, trained_pred: str, serve, serve_args: list, tmp:
         set_counts((0, 0, 0))
         results, _ = serve(serve_args + ["--exp_dir", imported_exp, "--epoch", str(epoch)], out_dir)
         launched = counts()
+        norm_path("serving the imported checkpoint", backward=False)
     check(launched == (6, 0, 0), f"serving the imported checkpoint: launches {launched}")
     pairs = []
     for dp, _, fs in os.walk(trained_pred):
@@ -1600,14 +1850,15 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
     train_args = args + ["--exp_dir", exp_dir, "--training_info_csv", tree["csv"], "--eval_info_csv", eval_csv,
                          "--dtype", "bf16", "--batch_size", str(CAUSAL_TRAIN_BATCH), "--save_every", "1"]
     steps_per_epoch = N_SUBJECTS // CAUSAL_TRAIN_BATCH
-    per_step = []
+    per_step, norm_steps = [], []
     set_counts((0, 0, 0))
     t0 = time.perf_counter()
-    with step_launches(per_step, causal_task):
+    with step_launches(per_step, causal_task, norm_steps):
         trained = train_causal.main(train_args + ["--epochs", str(CAUSAL_EPOCHS)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()  # the causal training path's run
+    norm_path("causal training", True, norm_steps)
     steps = trained.step
     n = CAUSAL_FLASH
     expected = (n * (steps + CAUSAL_EPOCHS * N_EVAL), n * steps, n * steps)  # eval: one trio forward a subject
@@ -1633,6 +1884,7 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
         set_counts((0, 0, 0))
         resumed = train_causal.main(train_args + ["--epochs", str(CAUSAL_EPOCHS + 1), "--resume"])
         resume_counts = counts()
+        norm_path("causal training --resume", backward=True)
         want = (n * (steps_per_epoch + N_EVAL), n * steps_per_epoch, n * steps_per_epoch)
         print(f"causal training: --resume ran epoch {CAUSAL_EPOCHS} to step {resumed.step}; launches {resume_counts}")
         check(resumed.step == steps + steps_per_epoch and resume_counts == want,
@@ -1645,6 +1897,7 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
         results = gen_test_causal.main(args + ["--exp_dir", exp_dir, "--eval_info_csv", eval_csv, "--dtype", "bf16",
                                                "--batch_size", str(SERVING_BATCH), "--output_dir", out_dir])
         check(counts() == (n * -(-N_EVAL // SERVING_BATCH), 0, 0), f"serving the trained trio: {counts()}")
+        norm_path("causal serving the trained trio", backward=False)
         check_causal_outputs(out_dir, N_EVAL)
         print(f"causal training: the trained checkpoint served {N_EVAL} subjects, metrics {results.summary()}")
 
@@ -1654,6 +1907,7 @@ def causal_training(fa, cfg: dict, states: dict, tree: dict, eval_csv: str, args
                                            "--out_dir", lat_dir])
         latents = [np.load(os.path.join(dp, f)) for dp, _, fs in os.walk(lat_dir) for f in fs if f == "latent.npy"]
         latent_shape = (*(c // 4 for c in CROP), 6)
+        norm_path("gen_latents", backward=False)
         print(f"causal training: gen_latents wrote {written} latents {[a.shape for a in latents]}; launches "
               f"{counts()}")
         check(written == len(latents) == N_EVAL and all(a.shape == latent_shape and np.isfinite(a).all()
@@ -1755,16 +2009,17 @@ def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str,
             *map(str, CROP), "--device", "cuda", "--dtype", "bf16", "--batch_size", str(CLASSIFIER_BATCH),
             "--converter_csv", write_converters(os.path.join(tmp, "mci_converters.csv")), "--use_T1",
             "--use_tabular_info"]
-    per_step = []
+    per_step, norm_steps = [], []
     set_counts((0, 0, 0))
     t0 = time.perf_counter()
-    with step_launches(per_step, classifier_task):
+    with step_launches(per_step, classifier_task, norm_steps):
         trained = train_classifier.main(args + ["--exp_dir", exp_dir, "--training_info_csv", tree["csv"],
                                                 "--eval_info_csv", eval_csv, "--epochs", str(CLASSIFIER_EPOCHS),
                                                 "--save_every", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()  # the classifier's training path
+    norm_path("classifier training", True, norm_steps)
     steps = trained.step
     evals = CLASSIFIER_EPOCHS * -(-N_EVAL // CLASSIFIER_BATCH)  # eval forwards
     expected = (n * (steps + evals), n * steps, n * steps)
@@ -1793,6 +2048,7 @@ def classifier_phase(fa, tree: dict, eval_csv: str, fake_pet_dir: str, tmp: str,
         m = test_mci.main(args + ["--exp_dir", run, "--eval_info_csv", tree["csv"], "--best", *extra])
         torch.cuda.synchronize()
         tested[name] = counts()  # the test path on real, then synthesized PET
+        norm_path(f"classifier test ({name} PET)", backward=False)
         print(f"classifier test ({name} PET): test_mci --best over {N_SUBJECTS} sessions in "
               f"{time.perf_counter() - t0:.3f} s, metrics {m}; launches {tested[name]}")
         check(tested[name] == (n * N_SUBJECTS, 0, 0), f"test_mci on {name} PET launched {tested[name]}")
@@ -1905,6 +2161,7 @@ def bmgan_phase(fa, tree: dict, eval_csv: str, tmp: str, card: str) -> dict:
     trained = train_bmgan.main(train_args + ["--epochs", str(BMGAN_EPOCHS)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    norm_path("bmgan training", backward=True)
     steps = trained.step
     print(f"bmgan training: train_bmgan, {steps} steps and {BMGAN_EPOCHS} evals of {N_EVAL} subjects in {wall:.3f} s "
           f"({steps / wall:.3f} steps/s end to end: packing, eval and checkpoints of "
@@ -2388,13 +2645,15 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
             space = step_args[0].space  # the GANState's space group, None without one
             profiling.reset("ddp.reduced_bytes")
             profiling.reset("space.exchanged.")
-            before, first = counts(), len(launched)
+            before, first, norms_before = counts(), len(launched), norm_counts()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = step(*step_args)
+            with norm_calls() as seen:
+                out = step(*step_args)
             end.record()
             end.synchronize()
             steps.append({"launches": [a - b for a, b in zip(counts(), before)], "ms": start.elapsed_time(end),
+                          "norms": norm_step(seen, norms_before),
                           "reduced_bytes": profiling.COUNTERS["ddp.reduced_bytes"],
                           "space_bytes": spatial.exchanged() if space is not None else {},
                           "flash_shapes": sorted(set(launched[first:])),
@@ -2418,7 +2677,7 @@ def dp_rank_main(out_pattern: str, argv: list) -> int:
                   for k, v in m.state_dict().items()}
         record = {
             "rank": mesh.rank, "world": mesh.world_size, "device": str(mesh.device), "steps": steps,
-            "launches": list(counts()), "meta_writes": len(meta_writes),
+            "launches": list(counts()), "norms": list(norm_counts()), "meta_writes": len(meta_writes),
             "grad_bytes": sum(p.numel() * p.element_size() for m in (state.g, state.d) for p in m.parameters()),
             "max_rank_diff": max_rank_difference(mesh, params) if mesh.distributed else 0.0,
             "memory": device_memory_report()[mesh.device.index],
@@ -2491,6 +2750,7 @@ def data_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str, 
                   f"max difference from rank 0 {r['max_rank_diff']}; {card}")
             check(len(r["steps"]) == DP_STEPS and all(s["launches"] == [6, 6, 6] for s in r["steps"]),
                   f"rank {r['rank']} of {n}: every step must launch 6 forward, 6 dQ and 6 dK/dV kernels")
+            rank_norms(r, f"data parallel {n} rank(s) {backend}, rank {r['rank']}")
             check(r["max_rank_diff"] == 0.0, f"rank {r['rank']} of {n} differs from rank 0 by {r['max_rank_diff']}")
             check(r["meta_writes"] == (1 if r["rank"] == 0 else 0), f"rank {r['rank']} wrote meta.json "
                   f"{r['meta_writes']} times")
@@ -2587,7 +2847,7 @@ def recorded_dryrun_rank(mesh, task: str, full: bool, crop, dtype_name: str, ste
     from cips_tpu_torch.parallel import dryrun
     from cips_tpu_torch.training import causal_task, unet_synthesis
 
-    launched, per_step, launch = [], [], fa._launch
+    launched, per_step, norm_steps, launch = [], [], [], fa._launch
 
     def recorded_launch(name, q, k, *pointers, scale):
         launched.append((name, q.shape[2], k.shape[2]))
@@ -2597,10 +2857,10 @@ def recorded_dryrun_rank(mesh, task: str, full: bool, crop, dtype_name: str, ste
     try:
         set_counts((0, 0, 0))
         torch.cuda.reset_peak_memory_stats(mesh.device)
-        with step_launches(per_step, causal_task if task == "causal" else unet_synthesis):
+        with step_launches(per_step, causal_task if task == "causal" else unet_synthesis, norm_steps):
             payload = dryrun.dryrun_rank(mesh, task, full, crop, dtype_name, steps)
         return {"rank": mesh.rank, "device": str(mesh.device), "payload": payload, "steps": per_step,
-                "launches": list(counts()), "flash_shapes": sorted(set(launched)),
+                "norm_steps": norm_steps, "launches": list(counts()), "norms": list(norm_counts()), "flash_shapes": sorted(set(launched)),
                 "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)}
     finally:
         fa._launch = launch
@@ -2737,6 +2997,7 @@ def space_parallel_phase(fa, tree: dict, eval_csv: str, packed: tuple, tmp: str,
               f"difference from rank 0 {r['max_rank_diff']}; {card}")
         check(len(r["steps"]) == DP_STEPS and all(s["launches"] == [6, 6, 6] for s in r["steps"]),
               f"rank {r['rank']} of {n}: every step must launch 6 forward, 6 dQ and 6 dK/dV kernels")
+        rank_norms(r, f"space parallel, rank {r['rank']} of {n}")
         check(all({tuple(x) for x in s["flash_shapes"]} == {(k, SPACE_LK // 2, SPACE_LK) for k in kernels}
                   for s in r["steps"]), f"rank {r['rank']}: the train steps' flash kernels must run at Lq "
               f"{SPACE_LK // 2}, Lk {SPACE_LK}")
@@ -2817,6 +3078,7 @@ def space_uneven_case(fa, card: str) -> dict:
         print(f"space parallel (uneven): rank {r['rank']} on {r['device']} at {SPACE_UNEVEN_CROP}: launches a step "
               f"{r['steps']} at (kernel, Lq, Lk) {r['flash_shapes']}; peak {r['peak_bytes'] / 2**30:.2f} GiB")
         check(r["steps"] == [(6, 6, 6)], f"rank {r['rank']}: the uneven step must launch 6/6/6 flash kernels")
+        rank_norms(r, f"space parallel (uneven), rank {r['rank']}")
         check({tuple(x) for x in r["flash_shapes"]} == {(k, shape[2], SPACE_UNEVEN_LK) for k in kernels},
               f"rank {r['rank']}: the uneven step's flash kernels must run at Lq {shape[2]}, Lk {SPACE_UNEVEN_LK}")
     payload = recs[0]["payload"]
@@ -2857,6 +3119,7 @@ def causal_space_phase(fa, card: str, fp32: dict) -> dict:
               f"Lk) {r['flash_shapes']}; peak memory {r['peak_bytes'] / 2**30:.2f} GiB; {card}")
         check(r["steps"] == [(CAUSAL_FLASH,) * 3] * CAUSAL_SPACE_STEPS,
               f"rank {r['rank']}: every causal step must launch {CAUSAL_FLASH} forward, dQ and dK/dV kernels")
+        rank_norms(r, f"causal space, rank {r['rank']} of {n}")
         check({tuple(x) for x in r["flash_shapes"]} == {(k, CAUSAL_SPACE_LK // 2, CAUSAL_SPACE_LK) for k in kernels},
               f"rank {r['rank']}: the causal flash kernels must run at Lq {CAUSAL_SPACE_LK // 2}, Lk {CAUSAL_SPACE_LK}")
     check(all(b == payload["grad_bytes"] for b in payload["reduced_bytes_per_step"]),
@@ -2930,6 +3193,7 @@ def main() -> int:
     print(report.getvalue(), end="")
     print(f"kernel library built in {time.perf_counter() - t0:.1f} s")
     sm90_kernel_report(report.getvalue(), fa, pc)
+    group_norm_report(report.getvalue())
     runtime_build()
 
     phase("3 kernels")
@@ -2942,6 +3206,7 @@ def main() -> int:
                     # the fp32 kernels, on the train and serving paths under --dtype f32
                     "x".join(map(str, TRAIN_ATTN)) + " f32": flash_timing(fa, TRAIN_ATTN, plain=True,
                                                                           dtype=torch.float32)}
+        group_norm_rows = group_norm_phase(card)
 
     cfg = load_config(None, "training.json")
     train_cfg = cfg["training"]
@@ -2982,6 +3247,7 @@ def main() -> int:
         set_counts((0, 0, 0))
         results, elapsed = serve(serve_args, pred_dir)  # the serving path's run
         serving_counts = counts()
+        norm_path("serving", backward=False)
         summary = results.summary()
         print(f"serving: launches (forward, dQ, dK/dV) {serving_counts} over {forwards} generator forwards; "
               f"metrics {summary}")
@@ -3071,14 +3337,15 @@ def main() -> int:
             "--dtype", "bf16", "--batch_size", str(TRAIN_BATCH), "--save_every", "1",
         ]
         steps_per_epoch = N_SUBJECTS // TRAIN_BATCH
-        per_step = []
+        per_step, norm_steps = [], []
         set_counts((0, 0, 0))
         t0 = time.perf_counter()
-        with step_launches(per_step, unet_synthesis):
+        with step_launches(per_step, unet_synthesis, norm_steps):
             trained = train_unet.main(train_args + ["--epochs", str(TRAIN_EPOCHS)])
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
         train_counts = counts()  # the training path's run
+        norm_path("training", True, norm_steps)
         steps = trained.step
         expected = (6 * (steps + TRAIN_EPOCHS * N_EVAL), 6 * steps, 6 * steps)  # eval: one forward per subject
         print(f"training: {steps} steps and {TRAIN_EPOCHS} evals of {N_EVAL} subjects in {train_wall:.3f} s "
@@ -3112,6 +3379,7 @@ def main() -> int:
             torch.cuda.synchronize()
             resume_wall = time.perf_counter() - t0
             resume_counts = counts()
+            norm_path("training --resume --streaming", backward=True)
         expected = (6 * (steps_per_epoch + N_EVAL), 6 * steps_per_epoch, 6 * steps_per_epoch)
         (stream_train, stream_eval), = made
         waits = [round(w * 1e3, 3) for w in stream_train.waits]
@@ -3133,6 +3401,7 @@ def main() -> int:
             results, _ = serve(data_args + ["--exp_dir", train_exp, "--eval_info_csv", eval_csv, "--dtype", "bf16",
                                             "--batch_size", str(SERVING_BATCH)], trained_pred)
             check(counts() == (6, 0, 0), f"serving the trained checkpoint: launches {counts()}")
+            norm_path("serving the trained checkpoint", backward=False)
         check_served(results, trained_pred, N_EVAL)
         print(f"training: the trained checkpoint served {N_EVAL} subjects, metrics {results.summary()}")
         imported = import_phase(fa, base, trained_pred, serve, data_args + [
@@ -3317,6 +3586,8 @@ def main() -> int:
                                 if v in PHASE_F32_VARIANTS else {})}
                          for v in variants},
         })
+    kernels.append({"name": "group_norm", "route": "cuda", "source": "cips_tpu_torch/csrc/group_norm.cu",
+                    "replaces": None, "at": group_norm_rows, "launches": NORM_PATHS})
     print(f"calls timed by CUDA events for want of device records: {len(EVENT_TIMED)} {EVENT_TIMED}")
     print(f"chip_smoke: phases 1-18 in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "event_timed": len(EVENT_TIMED)}))
@@ -3329,4 +3600,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--dp-rank":  # a rank of phase 15, started by torchrun
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:] == ["group_norm"]:
+        sys.exit(group_norm_main())
     sys.exit(main())

@@ -154,8 +154,8 @@ class AttenUNet(nn.Module):
             skips, residuals = residuals[-take:], residuals[:-take]
             h = block(h, skips, context, depth)
             depth = output_depth(block, depth)
-        norm, silu, conv_out = self.out
-        return conv_out(silu(norm(h)), depth).movedim(1, -1)
+        norm, _, conv_out = self.out  # the SiLU slot (out.1) runs inside the norm's call
+        return conv_out(norm(h, act="silu"), depth).movedim(1, -1)
 
     def check_shape(self, shape: Sequence[int]) -> None:
         """A ValueError unless every skip of a volume of spatial ``shape`` meets a

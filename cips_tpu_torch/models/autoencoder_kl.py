@@ -36,7 +36,6 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cips_tpu_torch.models.blocks import (
@@ -102,7 +101,7 @@ class Decoder(nn.Module):
         for block in body:
             h = block(h, depth)
             depth = output_depth(block, depth)
-        return conv_out(F.silu(norm(h)), depth).movedim(1, -1)
+        return conv_out(norm(h, act="silu"), depth).movedim(1, -1)
 
 
 def _nonlocal_block(spatial_dims: int, channels: int, norm_num_groups: int, norm_eps: float) -> list:
@@ -165,7 +164,7 @@ class Encoder(nn.Module):
         *body, norm = self.blocks
         for block in body:
             h = block(h)
-        h = F.silu(norm(h))
+        h = norm(h, act="silu")
         return self.conv_mu(h).movedim(1, -1), self.conv_log_var(h).movedim(1, -1)
 
 

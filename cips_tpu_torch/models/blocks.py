@@ -38,6 +38,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from cips_tpu_torch.ops.attention import merge_heads, multi_head_attention, split_heads
+from cips_tpu_torch.ops.group_norm import group_norm
 from cips_tpu_torch.parallel import spatial
 
 _CONV_FN = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -123,13 +124,16 @@ def avg_pool_2x(x: torch.Tensor, space: Optional[spatial.SpaceGroup] = None,
 
 
 class GroupNorm(nn.GroupNorm):
-    """Group norm with fp32 statistics, affine applied in the activation dtype.
+    """Group norm with fp32 statistics, affine applied in the activation dtype,
+    and the activation that follows it (``act``: None, ``"silu"`` or
+    ``"leaky_relu"``) in the same call.
 
     The per-(sample, channel) scale and offset are formed in fp32 and rounded
     to the activation dtype before the one multiply-add, as the JAX package's
     GroupNorm does. An fp64 input (a reference run) keeps fp64 statistics.
-    Over a ``space`` group the statistics are the whole volume's
-    (`spatial.group_moments`).
+    Over a ``space`` group the statistics are the whole volume's. A bf16 or
+    fp32 CUDA input runs the fused kernels, anything on the CPU or in fp64 the
+    plain version (`ops.group_norm`).
     """
 
     space: Optional[spatial.SpaceGroup] = None
@@ -137,22 +141,8 @@ class GroupNorm(nn.GroupNorm):
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
         super().__init__(num_groups, num_channels, eps=eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, c = x.shape[:2]
-        g = self.num_groups
-        stats = torch.promote_types(x.dtype, torch.float32)
-        x32 = x.to(stats).reshape(n, g, c // g * math.prod(x.shape[2:]))  # a slab may hold no plane
-        if self.space is None:
-            mean = x32.mean(dim=-1)
-            meansq = (x32 * x32).mean(dim=-1)
-        else:
-            mean, meansq = spatial.group_moments(x32, self.space)
-        inv = torch.rsqrt((meansq - mean * mean).clamp_min(0.0) + self.eps)  # (N, G)
-        w = self.weight.to(stats).reshape(1, g, c // g)
-        scale = (inv[:, :, None] * w).reshape(n, c)
-        offset = (self.bias.to(stats).reshape(1, g, c // g) - (mean * inv)[:, :, None] * w).reshape(n, c)
-        shape = (n, c) + (1,) * (x.ndim - 2)
-        return x * scale.reshape(shape).to(x.dtype) + offset.reshape(shape).to(x.dtype)
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, act, self.space)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -278,14 +268,14 @@ class ResnetBlock(Remat, nn.Module):
 
     def forward(self, x: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
         depth = _depth(self, x, depth)
-        h = F.silu(self.norm1(x))
+        h = self.norm1(x, act="silu")
         if self.up:
             x, h = nearest_upsample_2x(x, self.space, depth), nearest_upsample_2x(h, self.space, depth)
         elif self.down:
             x, h = avg_pool_2x(x, self.space, depth), avg_pool_2x(h, self.space, depth)
         depth = output_depth(self, depth)
         h = self.conv1(h, depth)
-        h = self.conv2(F.silu(self.norm2(h)), depth)
+        h = self.conv2(self.norm2(h, act="silu"), depth)
         skip = getattr(self, self._skip_name)
         if skip is not None:
             x = skip(x, depth)

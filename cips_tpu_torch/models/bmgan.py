@@ -86,6 +86,23 @@ class PReLU(nn.PReLU):
         return F.prelu(x, self.weight.to(x.dtype))
 
 
+class _Layers(nn.Sequential):
+    """nn.Sequential whose InstanceNorm slot followed by a LeakyReLU slot runs as
+    one call, the norm's with ``act="leaky_relu"`` (the fused kernels on the
+    card); the slots, and so the parameter names, are nn.Sequential's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layers = list(self)
+        i = 0
+        while i < len(layers):
+            if (isinstance(layers[i], InstanceNorm) and i + 1 < len(layers)
+                    and isinstance(layers[i + 1], LeakyReLU)):
+                x, i = layers[i](x, act="leaky_relu"), i + 2
+            else:
+                x, i = layers[i](x), i + 1
+        return x
+
+
 def _conv_block(cin: int, cout: int, stride: int = 1) -> List[nn.Module]:
     """k3 conv, InstanceNorm, LeakyReLU(0.2): three Sequential slots."""
     return [Conv3d(cin, cout, 3, stride), InstanceNorm(cout), LeakyReLU()]
@@ -100,6 +117,8 @@ class _ADN(nn.Module):
         self.A = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.A, LeakyReLU):
+            return self.N(x, act="leaky_relu")
         return self.A(self.N(x))
 
 
@@ -172,23 +191,23 @@ class DenseUNetGenerator(nn.Module):
             raise ValueError("up_channels needs one level more than down_channels (the stem's skip)")
         self.dtype = dtype
         ic = input_conv_channel
-        self.input_layer = nn.Sequential(*_conv_block(1 + latent_dim, ic), *_conv_block(ic, ic),
-                                         *_conv_block(ic, ic, stride=2))
+        self.input_layer = _Layers(*_conv_block(1 + latent_dim, ic), *_conv_block(ic, ic),
+                                   *_conv_block(ic, ic, stride=2))
         skips, ch = [ic], ic
         self.down_layers = nn.ModuleList()
         for c in down_channels:
-            self.down_layers.append(nn.Sequential(*dense_block(ch, c), *_conv_block(c, c, stride=2)))
+            self.down_layers.append(_Layers(*dense_block(ch, c), *_conv_block(c, c, stride=2)))
             skips.append(c)
             ch = c
-        self.middle_layers = nn.Sequential(*dense_block(ch, middle_channels))
+        self.middle_layers = _Layers(*dense_block(ch, middle_channels))
         ch = middle_channels
         self.up_layers = nn.ModuleList()
         for i, c in enumerate(up_channels):
-            self.up_layers.append(nn.Sequential(*dense_block(ch + skips[-1 - i], c), ConvTranspose3d(c, c),
-                                                InstanceNorm(c), LeakyReLU()))
+            self.up_layers.append(_Layers(*dense_block(ch + skips[-1 - i], c), ConvTranspose3d(c, c),
+                                          InstanceNorm(c), LeakyReLU()))
             ch = c
         oc = output_conv_channel
-        self.output_layer = nn.Sequential(*_conv_block(ch, oc), *_conv_block(oc, oc), Conv3d(oc, 1, 3))
+        self.output_layer = _Layers(*_conv_block(ch, oc), *_conv_block(oc, oc), Conv3d(oc, 1, 3))
 
     def forward(self, x: torch.Tensor, latent: torch.Tensor) -> torch.Tensor:
         """(N, D, H, W, 1) T1 and (N, latent_dim) latent -> (N, D, H, W, 1) synthesized PET in [-1, 1].

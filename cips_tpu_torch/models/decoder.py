@@ -141,5 +141,5 @@ class DiffusionModelDecoder(nn.Module):
         for level in self.up_blocks:
             h = level(h, context, depth)
             depth = output_depth(level, depth)
-        norm, silu, conv_out = self.out
-        return conv_out(silu(norm(h)), depth).movedim(1, -1)
+        norm, _, conv_out = self.out  # the SiLU slot (out.1) runs inside the norm's call
+        return conv_out(norm(h, act="silu"), depth).movedim(1, -1)

@@ -8,9 +8,10 @@ channels-last, with the logits last.
 
 InstanceNorm is one group per channel of the port's GroupNorm: fp32
 statistics, var = E[x^2] - E[x]^2 clamped at 0, and the per-(sample, channel)
-scale and offset applied as one ``x * w + off`` in the activation dtype. The
-JAX package's hand-written VJP of it is an XLA fusion device; autograd
-computes the same function.
+scale and offset applied as one ``x * w + off`` in the activation dtype, with
+the LeakyReLU(0.2) that follows it in the same call (`ops.group_norm`: fused
+kernels on the card). The JAX package's hand-written VJP of it is an XLA
+fusion device; the port's kernels' backward computes the same function.
 
 Over a ``space`` group (`parallel.spatial.sharded`) the volume comes as
 depth slabs and every map stays one: the convs exchange halo planes, the
@@ -94,10 +95,10 @@ class PatchDiscriminator(nn.Module):
         features = [h]
         for i in range(1, self.num_layers_d):
             h, depth = self._conv(f"conv_{i}", h, depth)
-            h = F.leaky_relu(getattr(self, f"norm_{i}")(h), 0.2)
+            h = getattr(self, f"norm_{i}")(h, act="leaky_relu")
             features.append(h)
         h, depth = self._conv("conv_penultimate", h, depth)
-        h = F.leaky_relu(self.norm_penultimate(h), 0.2)
+        h = self.norm_penultimate(h, act="leaky_relu")
         features.append(h)
         features.append(self._conv("conv_out", h, depth)[0])
         return [f.movedim(1, -1) for f in features]

@@ -38,7 +38,6 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cips_tpu_torch.models.blocks import (
@@ -143,7 +142,7 @@ class DiffusionModelEncoder(nn.Module):
             h, _ = block(h, context, depth)
             depth = output_depth(block, depth)
         if self.head == "spatial":
-            return self.conv_out(F.silu(self.out_norm(h)), depth).movedim(1, -1)
+            return self.conv_out(self.out_norm(h, act="silu"), depth).movedim(1, -1)
         return self.out(h.flatten(1))
 
     def output_depth(self, depth: int) -> int:

@@ -15,8 +15,9 @@ sample's depth slabs), each with its backward:
     runs the local ``F.conv3d``; the backward sends the halo planes' gradients
     back to their owners, who add them;
   * `space_sum`: an fp32 all-reduce whose backward all-reduces the gradients
-    (every rank's term depends on the sum); it gives `group_moments` (GroupNorm
-    and InstanceNorm statistics) and `space_mean` (a mean over a sharded tensor:
+    (every rank's term depends on the sum); it gives `group_moments` (the plain
+    GroupNorm and InstanceNorm statistics; the norm kernels all-reduce their
+    sums with `all_reduce_`) and `space_mean` (a mean over a sharded tensor:
     the L1 term, the LSGAN patch means);
   * `gather`: every rank's slab along an axis, in rank order, the whole tensor
     on each rank (self-attention's K and V, the volumes the 2.5-D LPIPS term
@@ -184,7 +185,8 @@ def _p2p(space: SpaceGroup, sends: List[Tuple[int, torch.Tensor]], recvs: List[T
     return [b.to(like.device) for b in received]
 
 
-def _all_reduce_(t: torch.Tensor, space: SpaceGroup, kind: str) -> torch.Tensor:
+def all_reduce_(t: torch.Tensor, space: SpaceGroup, kind: str) -> torch.Tensor:
+    """Sums ``t`` over the group in place, counting its bytes under ``kind``; no gradient."""
     _count(kind, t)
     dist.all_reduce(t, group=space.group)
     return t
@@ -194,11 +196,11 @@ class _SpaceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, space, kind):
         ctx.space, ctx.kind = space, kind
-        return _all_reduce_(t.clone(), space, kind)
+        return all_reduce_(t.clone(), space, kind)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce_(grad.contiguous().clone(), ctx.space, ctx.kind), None, None
+        return all_reduce_(grad.contiguous().clone(), ctx.space, ctx.kind), None, None
 
 
 def space_sum(t: torch.Tensor, space: SpaceGroup, kind: str) -> torch.Tensor:

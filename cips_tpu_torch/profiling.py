@@ -30,7 +30,9 @@ writes them into the operator's trace.
   * `COUNTERS`: one registry of counts, kept whether or not spans are recorded
     (read by `counters`, cleared by `reset`): ``data.bytes_read``,
     ``data.bytes_widened``, ``prefetch.bytes_copied``,
-    ``flash.{fwd,dq,dkv}.launches``, ``phase_conv.launches.<variant>``,
+    ``flash.{fwd,dq,dkv}.launches``, ``group_norm.{fwd,bwd}.launches`` (a norm's
+    call each way, `ops.group_norm`), ``group_norm.plain.calls`` (its plain
+    version's), ``phase_conv.launches.<variant>``,
     ``ddp.reduced_bytes``, ``space.exchanged.<kind>`` (`parallel.spatial.KINDS`).
 """
 

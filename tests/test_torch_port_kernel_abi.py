@@ -3,7 +3,8 @@
 Every `extern "C" int cips_*(...)` entry point in `cips_tpu_torch/csrc/*.cu`
 must be declared by the op module that calls it, with the same number of
 arguments of the same kinds: a pointer as `c_void_p` (a narrower type would
-cut the address), an int as `c_int`, a float as `c_float`. Nothing on the CPU
+cut the address), an int as `c_int`, a long long as `c_longlong`, a float as
+`c_float`. Nothing on the CPU
 calls the library, so these declarations are checked here against the
 sources, without building it.
 """
@@ -16,10 +17,10 @@ import re
 import pytest
 
 from cips_tpu_torch.ops import cuda_library
-from cips_tpu_torch.ops import flash_attention, phase_conv
+from cips_tpu_torch.ops import flash_attention, group_norm, phase_conv
 
-OP_MODULES = (flash_attention, phase_conv)  # the modules that declare entry points
-KINDS = {"pointer": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+OP_MODULES = (flash_attention, group_norm, phase_conv)  # the modules that declare entry points
+KINDS = {"pointer": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 
 def _c_entry_points() -> dict:
@@ -31,7 +32,7 @@ def _c_entry_points() -> dict:
         for name, params in re.findall(r'extern "C" int (cips_\w+)\(([^)]*)\)', text):
             kinds = []
             for param in (p.strip() for p in params.split(",")):
-                kinds.append("pointer" if "*" in param else param.split()[0])
+                kinds.append("pointer" if "*" in param else " ".join(param.split()[:-1]))
             found[name] = kinds
     return found
 
